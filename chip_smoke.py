@@ -9,21 +9,31 @@ Phases, each of which must pass:
   1. device: the card's name and power limit, the torch and CUDA versions,
      a probe of the committed native host library (in a subprocess; if it
      dies, the run continues with REPAQ_TPU_NO_NATIVE=1), and the build of
-     the CUDA kernels from repaq_tpu_torch/csrc/;
+     the CUDA kernels from repaq_tpu_torch/csrc/ (one nvcc per source, in
+     parallel);
   2. kernels: each CUDA kernel against its plain torch version on the card
-     at the main path's 12-Mbase shapes, exact equality, both timed with
-     CUDA events (median of 15 runs, L2 flushed before each);
+     at the shapes its path gives it (12 Mbase for the SE path, the PE
+     path's 14,745,600-base padded chunk for the byte-form frontend),
+     exact equality, both timed with CUDA events (median of 15 runs, L2
+     flushed before each);
   3. goldens: `python -m repaq_tpu_torch.cli -c --engine device` on the
-     single-end fixtures, byte-compared with the reference encoder's
-     goldens, and `-d` back to the input;
-  4. real size: a seeded ~96-Mbase single-end corpus (640k reads of 150 bp,
-     Illumina names with X/Y, NovaSeq 4-bin qualities, 0.1% N) compressed
-     in 12-Mbase chunks through repaq_tpu_torch.cli.main, byte-compared
-     with the host engine's output, decompressed and compared with the
-     input; every chunk must have taken the device path and every kernel
-     must have launched on that path. The round trip runs twice: the
-     first (cold) pays torch's lazy setup of each operator, the second
-     (warm) is the steady rate.
+     single-end fixtures and, with -i/-I and -o/-O, the paired-end ones,
+     byte-compared with the reference encoder's goldens, and `-d` back to
+     the inputs;
+  4. real size, single-end: a seeded ~96-Mbase corpus (640k reads of 150
+     bp, Illumina names with X/Y, NovaSeq 4-bin qualities, 0.1% N)
+     compressed in 12-Mbase chunks through repaq_tpu_torch.cli.main,
+     byte-compared with the host engine's output, decompressed and
+     compared with the input; every chunk must have taken the device path
+     and every kernel of the SE path must have launched on it. The round
+     trip runs twice: the first (cold) pays torch's lazy setup of each
+     operator, the second (warm) is the steady rate;
+  5. real size, paired-end: the same for a seeded 2 x 320k-read corpus of
+     150 bp pairs (96 Mbase, 8 chunks of 40k pairs) whose inserts give
+     forward and backward mate overlaps, through -i/-I and -o/-O; the
+     kernels of the PE path must have launched on it, and the shares of
+     pairs stored with a forward and a backward overlap are printed and
+     must each be at least 1%.
 
 The last line of standard output is the JSON result; the two lines before
 it are the kernels' JSON record and the nvidia-smi name/power line. Without
@@ -44,18 +54,31 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".smoke")
 
-# (name, source, TPU kernel it replaces)
+# (name, source, TPU kernel it replaces, the main paths that launch it)
 KERNELS = [
     ("encode_frontend", "repaq_tpu_torch/csrc/frontend.cu",
-     "repaq_tpu/ops/pallas_tpu.py:249"),
+     "repaq_tpu/ops/pallas_tpu.py:249", ("se",)),
+    ("encode_frontend_bytes", "repaq_tpu_torch/csrc/frontend.cu",
+     "repaq_tpu/ops/pallas_tpu.py:249", ("pe",)),
+    ("pack_bases", "repaq_tpu_torch/csrc/frontend.cu",
+     "repaq_tpu/ops/pallas_tpu.py:94", ()),
     ("unpack_bases", "repaq_tpu_torch/csrc/unpack.cu",
-     "repaq_tpu/ops/pallas_tpu.py:127"),
+     "repaq_tpu/ops/pallas_tpu.py:127", ("se", "pe")),
     ("token_start_mask", "repaq_tpu_torch/csrc/token_fsm.cu",
-     "repaq_tpu/ops/pallas_tpu.py:175"),
+     "repaq_tpu/ops/pallas_tpu.py:175", ("se", "pe")),
 ]
 
 # the 12-Mbase encode block of bench.py's device section (bench.py:1262)
 B_READS, READ_LEN = 77824, 152
+# the PE path's padded chunk at 40k pairs of 150 bp: b_cap 98304 rows
+PE_BASES = 98304 * 150
+
+PE_GOLDENS = [
+    ("pe_R1", "pe_R2", "pe.ref.rfq", []),
+    ("pe_big_R1", "pe_big_R2", "pe_big.ref.k100.rfq", ["-k", "100"]),
+    ("pe_nov_R1", "pe_nov_R2", "pe_nov.ref.rfq", []),
+    ("pe_nl1", "pe_nl2", "pe_nl.ref.rfq", ["-k", "100"]),
+]
 
 SE_GOLDENS = [
     ("se_big", "se_big.ref.k100.rfq", ["-k", "100"]),
@@ -192,12 +215,33 @@ def kernel_phase(dev) -> dict:
     lens = torch.from_numpy(
         rng.choice(np.array([1, 1, 2, 4], np.int32), size=n)).to(dev)
     force = torch.from_numpy(rng.random(n) < 0.001).to(dev)
+    # the PE chunk: elided seq (G past the stored bases) and full qual
+    pe_seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=PE_BASES)
+    pe_seq[rng.random(PE_BASES) < 0.001] = ord("N")
+    pe_seq[PE_BASES - PE_BASES // 6:] = ord("G")
+    pe_qual = rng.choice(np.frombuffer(NOVA_QUALS, np.uint8), size=PE_BASES,
+                         p=NOVA_P)
+    pe_seq_t = torch.from_numpy(pe_seq).to(dev)
+    pe_qual_t = torch.from_numpy(pe_qual).to(dev)
+    # pack-only: 12 Mbase with a ragged tail
+    pk_seq = torch.from_numpy(
+        rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=12_000_003)).to(dev)
 
     cases = {
         "encode_frontend": (
             lambda: TK.encode_frontend(seq_t, qual_t, bins, major),
             lambda: TK.encode_frontend_plain(seq_t, qual_t, bins, major),
             "seq+qual %d bases, 0.1%% N, NovaSeq quals" % n),
+        "encode_frontend_bytes": (
+            lambda: TK.encode_frontend_bytes(pe_seq_t, pe_qual_t, bins,
+                                             major),
+            lambda: TK.encode_frontend_bytes_plain(pe_seq_t, pe_qual_t, bins,
+                                                   major),
+            "PE chunk of %d bases, 0.1%% N, NovaSeq quals" % PE_BASES),
+        "pack_bases": (
+            lambda: TK.pack_bases(pk_seq),
+            lambda: TK.pack_bases_plain(pk_seq),
+            "%d bases" % pk_seq.shape[0]),
         "unpack_bases": (
             lambda: TK.unpack_bases(packed),
             lambda: TK.unpack_bases_plain(packed),
@@ -218,7 +262,7 @@ def kernel_phase(dev) -> dict:
         ms = cuda_ms(kern)
         plain_ms = cuda_ms(plain)
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        log("kernel %-16s exact at %s: %.4f ms, plain torch %.4f ms"
+        log("kernel %-21s exact at %s: %.4f ms, plain torch %.4f ms"
             % (name, shape, ms, plain_ms))
     return results
 
@@ -249,106 +293,191 @@ def golden_phase() -> None:
     gdir = os.path.join(WORK, "goldens")
     os.makedirs(gdir, exist_ok=True)
     env = dict(os.environ, REPAQ_DEVICE_MIN_BASES="0", PYTHONPATH=ROOT)
-    enc, dec = [], []
-    for base, _golden, extra in SE_GOLDENS:
+    cli = [sys.executable, "-m", "repaq_tpu_torch.cli"]
+
+    def unzip(base):
         fq = os.path.join(gdir, base + ".fq")
         with gzip.open(os.path.join(fx, base + ".fq.gz")) as src, \
                 open(fq, "wb") as dst:
             shutil.copyfileobj(src, dst)
-        cli = [sys.executable, "-m", "repaq_tpu_torch.cli"]
-        enc.append(cli + ["-c", "-i", fq, "-o", fq[:-3] + ".rfq",
-                          "--engine", "device", *extra])
-        dec.append(cli + ["-d", "-i", fq[:-3] + ".rfq", "-o",
-                          fq[:-3] + ".back.fq", "--engine", "device"])
-    run_all(enc, env)
-    run_all(dec, env)
-    for base, golden, _extra in SE_GOLDENS:
-        stem = os.path.join(gdir, base)
-        with open(stem + ".rfq", "rb") as f, \
-                open(os.path.join(fx, golden), "rb") as g:
-            check(f.read() == g.read(), "%s: bytes differ from %s"
-                  % (base, golden))
-        with open(stem + ".fq", "rb") as f, open(stem + ".back.fq", "rb") as g:
-            # the reference's decoder writes LF line ends for CRLF input
-            check(f.read().replace(b"\r\n", b"\n") == g.read(),
-                  "%s: decode differs from the input" % base)
-    log("goldens: %d SE fixtures byte-identical to the reference encoder "
-        "and round-tripped through python -m repaq_tpu_torch.cli "
-        "--engine device" % len(SE_GOLDENS))
+        return fq
+
+    # (inputs, golden, compress args, decompress args, decoded outputs)
+    cases = []
+    for base, golden, extra in SE_GOLDENS:
+        fq = unzip(base)
+        rfq, back = fq[:-3] + ".rfq", fq[:-3] + ".back.fq"
+        cases.append(([fq], golden, ["-i", fq, "-o", rfq, *extra],
+                      ["-i", rfq, "-o", back], [back], rfq))
+    for r1, r2, golden, extra in PE_GOLDENS:
+        f1, f2 = unzip(r1), unzip(r2)
+        rfq = os.path.join(gdir, golden[:-4] + ".rfq")
+        b1, b2 = f1[:-3] + ".back.fq", f2[:-3] + ".back.fq"
+        cases.append(([f1, f2], golden,
+                      ["-i", f1, "-I", f2, "-o", rfq, *extra],
+                      ["-i", rfq, "-o", b1, "-O", b2], [b1, b2], rfq))
+    run_all([cli + ["-c", "--engine", "device", *c[2]] for c in cases], env)
+    run_all([cli + ["-d", "--engine", "device", *c[3]] for c in cases], env)
+    for inputs, golden, _c, _d, backs, rfq in cases:
+        with open(rfq, "rb") as f, open(os.path.join(fx, golden), "rb") as g:
+            check(f.read() == g.read(), "%s: bytes differ from the golden"
+                  % golden)
+        for fq, back in zip(inputs, backs):
+            with open(fq, "rb") as f, open(back, "rb") as g:
+                # the reference's decoder writes LF line ends for CRLF input
+                check(f.read().replace(b"\r\n", b"\n") == g.read(),
+                      "%s: decode differs from the input" % fq)
+    log("goldens: %d SE and %d PE fixtures byte-identical to the reference "
+        "encoder and round-tripped through python -m repaq_tpu_torch.cli "
+        "--engine device" % (len(SE_GOLDENS), len(PE_GOLDENS)))
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the ~96-Mbase corpus
+# phases 4 and 5: the ~96-Mbase corpora, single-end and paired-end
 # ---------------------------------------------------------------------------
 
+# TruSeq adapters, each continued with seeded bases to a read's length:
+# what a read holds past the end of a short insert
+ADAPTER1 = b"AGATCGGAAGAGCACACGTCTGAACTCCAGTCAC"
+ADAPTER2 = b"AGATCGGAAGAGCGTCGTGTAGGGAAAGAGTGT"
 
-def make_corpus(path: str, reads: int, read_len: int, seed: int) -> int:
-    """A seeded single-end NovaSeq-like FASTQ; returns its size in bytes."""
+
+def illumina_heads(rng, reads: int, mate: int) -> list:
+    """Illumina name lines: tiles of 4000 reads, y ascending in a tile."""
     import numpy as np
 
-    rng = np.random.default_rng(seed)
-    seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(reads, read_len))
-    nmask = rng.random((reads, read_len)) < 0.001
-    seq[nmask] = ord("N")
-    qual = rng.choice(np.frombuffer(NOVA_QUALS, np.uint8),
-                      size=(reads, read_len), p=NOVA_P)
-    qual[nmask] = ord("#")
-    # Illumina names: tiles of 4000 reads, y ascending within a tile
     tile = 1101 + np.arange(reads) // 4000
     x = rng.integers(1000, 32000, size=reads)
     y = 1000 + np.cumsum(rng.integers(0, 8, size=reads)) % 30000
+    return [b"@A00251:85:HVWJYDSXY:1:%d:%d:%d %d:N:0:ATCACGTT\n"
+            % (t, xi, yi, mate) for t, xi, yi in zip(tile, x, y)]
+
+
+def write_fastq(path: str, heads: list, seq, qual) -> int:
     parts = []
-    for i in range(reads):
-        parts.append(b"@A00251:85:HVWJYDSXY:1:%d:%d:%d 1:N:0:ATCACGTT\n"
-                     % (tile[i], x[i], y[i]))
-        parts.append(seq[i].tobytes())
-        parts.append(b"\n+\n")
-        parts.append(qual[i].tobytes())
-        parts.append(b"\n")
+    for h, s, q in zip(heads, seq, qual):
+        parts += (h, s.tobytes(), b"\n+\n", q.tobytes(), b"\n")
     data = b"".join(parts)
     with open(path, "wb") as f:
         f.write(data)
     return len(data)
 
 
-def count_chunks(rfq: str) -> int:
+def nova_quals(rng, seq):
+    """NovaSeq 4-bin qualities for seq, 0.1% of its bases made 'N' with
+    qual '#'."""
+    import numpy as np
+
+    nmask = rng.random(seq.shape) < 0.001
+    seq[nmask] = ord("N")
+    qual = rng.choice(np.frombuffer(NOVA_QUALS, np.uint8), size=seq.shape,
+                      p=NOVA_P)
+    qual[nmask] = ord("#")
+    return qual
+
+
+def make_corpus(paths: list, reads: int, read_len: int, seed: int) -> int:
+    """A seeded single-end NovaSeq-like FASTQ; returns its size in
+    bytes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(reads, read_len))
+    qual = nova_quals(rng, seq)
+    return write_fastq(paths[0], illumina_heads(rng, reads, 1), seq, qual)
+
+
+def make_pe_corpus(paths: list, pairs: int, read_len: int, seed: int) -> int:
+    """Seeded R1/R2 FASTQs of pairs read from both ends of a fragment.
+    Inserts are drawn from 120-400 bp for 95% of the pairs, so mates of an
+    insert of at most 2L - 12 overlap forward, and from 30-100 bp for the
+    rest, so the mates run into the adapters and overlap backward by the
+    insert's length (a stored backward overlap needs |ov| <= 103 under the
+    header's overlap shift of -24). Returns the two files' size in
+    bytes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
+    short = rng.random(pairs) < 0.05
+    insert = np.where(short, rng.integers(30, 101, size=pairs),
+                      rng.integers(120, 401, size=pairs))
+    frag = rng.choice(acgt, size=(pairs, 400))
+    ad = [np.concatenate([np.frombuffer(a, np.uint8),
+                          rng.choice(acgt, size=read_len)])[:read_len]
+          for a in (ADAPTER1, ADAPTER2)]
+    j = np.arange(read_len)[None, :]
+    ins = insert[:, None]
+    rows = np.arange(pairs)[:, None]
+    past = np.clip(j - ins, 0, read_len - 1)
+    r1 = np.where(j < ins, frag[rows, np.minimum(j, 399)], ad[0][past])
+    r2 = np.where(j < ins, comp[frag[rows, np.clip(ins - 1 - j, 0, 399)]],
+                  ad[1][past])
+    size = 0
+    heads = illumina_heads(rng, pairs, 1)
+    for path, mate, seq in ((paths[0], 1, r1), (paths[1], 2, r2)):
+        seq = seq.astype(np.uint8)
+        qual = nova_quals(rng, seq)
+        size += write_fastq(path, [h.replace(b" 1:N:", b" %d:N:" % mate)
+                                   for h in heads], seq, qual)
+    return size
+
+
+def read_chunks(rfq: str):
+    """(header, chunks) of an .rfq file."""
     from repaq_tpu.format.chunk import RfqChunk
     from repaq_tpu.format.header import RfqHeader
 
+    chunks = []
     with open(rfq, "rb") as f:
         header = RfqHeader.read(f)
-        count = 0
-        while RfqChunk.read(f, header).reads:
-            count += 1
-    return count
+        while True:
+            chunk = RfqChunk.read(f, header)
+            if not chunk.reads:
+                return header, chunks
+            chunks.append(chunk)
 
 
-def corpus_phase(device: str, reads: int = 640_000, read_len: int = 150,
-                 chunk_kb: int = 12_000) -> dict:
+def corpus_phase(device: str, pe: bool, reads: int = 640_000,
+                 read_len: int = 150, chunk_kb: int = 12_000) -> dict:
+    """One corpus through repaq_tpu_torch.cli.main twice; the launch
+    counts of the first run (the main path's) and the rates of both."""
+    import numpy as np
+
     from repaq_tpu import pipeline
     from repaq_tpu_torch import cli
     from repaq_tpu_torch.codec.device_engine import DeviceEngine
     from repaq_tpu_torch.ops import kernels as TK
 
+    tag = "pe" if pe else "se"
     os.makedirs(WORK, exist_ok=True)
-    fq = os.path.join(WORK, "corpus.fq")
+    mates = (1, 2) if pe else (1,)
+    fqs = [os.path.join(WORK, "%s%d.fq" % (tag, m)) for m in mates]
+    backs = [os.path.join(WORK, "%s%d.back.fq" % (tag, m)) for m in mates]
+    out = os.path.join(WORK, tag + ".rfq")
     t0 = time.perf_counter()
-    size = make_corpus(fq, reads, read_len, seed=96)
-    log("corpus: %d reads x %d bp, %d FASTQ bytes, made in %.1f s"
-        % (reads, read_len, size, time.perf_counter() - t0))
+    if pe:
+        size = make_pe_corpus(fqs, reads // 2, read_len, seed=97)
+    else:
+        size = make_corpus(fqs, reads, read_len, seed=96)
+    log("corpus %s: %d reads x %d bp in %d file(s), %d FASTQ bytes, made in "
+        "%.1f s" % (tag, reads, read_len, len(fqs), size,
+                    time.perf_counter() - t0))
 
     eng = DeviceEngine(device)
-    out = os.path.join(WORK, "corpus.rfq")
-    back = os.path.join(WORK, "corpus.back.fq")
+    ins = ["-i", fqs[0]] + (["-I", fqs[1]] if pe else [])
+    outs = ["-o", backs[0]] + (["-O", backs[1]] if pe else [])
 
     def roundtrip():
         t0 = time.perf_counter()
-        rc = cli.main(["-c", "-i", fq, "-o", out, "-k", str(chunk_kb),
+        rc = cli.main(["-c", *ins, "-o", out, "-k", str(chunk_kb),
                        "--engine", "device"], engine=eng.config())
         enc_s = time.perf_counter() - t0
         check(rc == 0, "port compress exited %d" % rc)
         t0 = time.perf_counter()
-        rc = cli.main(["-d", "-i", out, "-o", back, "--engine", "device"],
+        rc = cli.main(["-d", "-i", out, *outs, "--engine", "device"],
                       engine=eng.config())
         check(rc == 0, "port decompress exited %d" % rc)
         return enc_s, time.perf_counter() - t0
@@ -359,30 +488,53 @@ def corpus_phase(device: str, reads: int = 640_000, read_len: int = 150,
     stats = dict(eng.stats)
     warm = roundtrip()
 
-    host_out = os.path.join(WORK, "corpus.host.rfq")
+    host_out = os.path.join(WORK, tag + ".host.rfq")
+    workers = max(1, min(8, os.cpu_count() or 1))
     t0 = time.perf_counter()
-    pipeline.compress_se(fq, host_out, chunk_size=chunk_kb * 1000,
-                         engine=pipeline.get_engine("vectorized"),
-                         workers=max(1, min(8, os.cpu_count() or 1)))
+    if pe:
+        pipeline.compress_pe(fqs[0], fqs[1], host_out,
+                             chunk_size=chunk_kb * 1000,
+                             engine=pipeline.get_engine("vectorized"),
+                             workers=workers)
+    else:
+        pipeline.compress_se(fqs[0], host_out, chunk_size=chunk_kb * 1000,
+                             engine=pipeline.get_engine("vectorized"),
+                             workers=workers)
     host_s = time.perf_counter() - t0
     with open(out, "rb") as f, open(host_out, "rb") as g:
         check(f.read() == g.read(),
-              "port output differs from the host engine's")
-    with open(fq, "rb") as f, open(back, "rb") as g:
-        check(f.read() == g.read(), "port decode differs from the input")
+              "%s: port output differs from the host engine's" % tag)
+    for fq, back in zip(fqs, backs):
+        with open(fq, "rb") as f, open(back, "rb") as g:
+            check(f.read() == g.read(),
+                  "%s: port decode differs from the input" % fq)
 
-    chunks = count_chunks(out)
+    header, chunks = read_chunks(out)
     st = stats
-    log("corpus: %d chunks; engine stats %s; kernel launches %s"
-        % (chunks, st, launches))
-    check(st["device_chunks"] == chunks and st["device_decodes"] == chunks,
-          "not every chunk took the device path: %s" % st)
+    log("corpus %s: %d chunks; engine stats %s; kernel launches %s"
+        % (tag, len(chunks), st, launches))
+    check(st["device_chunks"] == len(chunks) == st["device_decodes"],
+          "%s: not every chunk took the device path: %s" % (tag, st))
     check(st["host_chunks"] == 0 and st["host_decodes"] == 0,
-          "host routes taken: %s" % st)
-    for name, count in launches.items():
-        check(count > 0, "kernel %s never launched on the main path" % name)
-    return {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
-            "host_enc_s": host_s, "chunks": chunks}
+          "%s: host routes taken: %s" % (tag, st))
+    for name, _src, _rep, paths in KERNELS:
+        if tag in paths:
+            check(launches[name] > 0, "kernel %s never launched on the %s "
+                  "path" % (name, tag))
+    res = {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
+           "host_enc_s": host_s, "chunks": len(chunks)}
+    if pe:
+        check(header.encode_pe_by_overlap(), "pe: no overlap elision")
+        ov = np.concatenate([np.frombuffer(c.overlap_buf, np.int8)
+                             for c in chunks]).astype(np.int64)
+        ov -= header.overlap_shift
+        res["fwd"], res["bwd"] = float((ov > 0).mean()), float((ov < 0).mean())
+        log("corpus pe: %d pairs, %.2f%% stored with a forward overlap, "
+            "%.2f%% with a backward one" % (ov.shape[0], 100 * res["fwd"],
+                                            100 * res["bwd"]))
+        check(res["fwd"] >= 0.01 and res["bwd"] >= 0.01,
+              "pe: forward or backward overlap share below 1%")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -414,25 +566,30 @@ def main() -> int:
     try:
         kres = kernel_phase(torch.device("cuda:0"))
         golden_phase()
-        cres = corpus_phase("cuda:0")
+        cres = {"se": corpus_phase("cuda:0", pe=False),
+                "pe": corpus_phase("cuda:0", pe=True)}
     except SmokeFailure as e:
         log("chip_smoke: FAIL: %s" % e)
         return 1
-    mb = cres["bytes"] / 1e6
-    for label in ("cold", "warm"):
-        enc_s, dec_s = cres[label]
-        log("corpus %s: encode %.1f MB/s (%.3f s), decode %.1f MB/s "
-            "(%.3f s), FASTQ MB per wall second through "
-            "repaq_tpu_torch.cli.main on %s"
-            % (label, mb / enc_s, enc_s, mb / dec_s, dec_s, card))
-    log("corpus: host vectorized engine encode %.1f MB/s (%.3f s), same "
-        "machine" % (mb / cres["host_enc_s"], cres["host_enc_s"]))
+    for tag, res in cres.items():
+        mb = res["bytes"] / 1e6
+        for label in ("cold", "warm"):
+            enc_s, dec_s = res[label]
+            log("corpus %s %s: encode %.1f MB/s (%.3f s), decode %.1f MB/s "
+                "(%.3f s), FASTQ MB per wall second through "
+                "repaq_tpu_torch.cli.main on %s"
+                % (tag, label, mb / enc_s, enc_s, mb / dec_s, dec_s, card))
+        log("corpus %s: host vectorized engine encode %.1f MB/s (%.3f s), "
+            "same machine" % (tag, mb / res["host_enc_s"], res["host_enc_s"]))
     shutil.rmtree(WORK, ignore_errors=True)
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": cres["launches"][name], **kres[name]}
-        for name, src, rep in KERNELS
+         "paths": list(paths) or "none: no production caller, in the JAX "
+                                 "package either",
+         "launches": sum(cres[t]["launches"][name] for t in paths),
+         **kres[name]}
+        for name, src, rep, paths in KERNELS
     ]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

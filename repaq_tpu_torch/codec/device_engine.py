@@ -1,22 +1,29 @@
 """The ``--engine device`` chunk codec on a torch device: the PyTorch port
-of repaq_tpu/codec/device_engine.py for non-interleaved ("flat") chunks,
-i.e. single-end files, ragged single-end chunks and paired-end chunks that
-do not interleave.
+of repaq_tpu/codec/device_engine.py, for flat chunks (single-end files,
+ragged single-end chunks, paired-end chunks that do not interleave) and
+for PE-interleaved chunks of one read length.
 
 Division of labour per chunk, as in the JAX engine:
   device  2-bit pack + quality bin classify (the frontend kernel), by-col
-          quality emission, N-position stream, X/Y coordinate streams
-          (encode); unpack (kernel), token FSM (kernel), by-col quality
-          decode, N restore (decode)
+          quality emission, N-position stream, X/Y coordinate streams,
+          and for PE revcomp of the odd reads, overlap search and elision
+          compaction (encode); unpack (kernel), token FSM (kernel), by-col
+          quality decode, N restore, and for PE overlap expansion and
+          revcomp (decode)
   host    FASTQ parse, name metadata and all-same predicates, the exact
-          stream-size caps, container assembly
+          stream-size caps, the PE expansion tables, container assembly
 
 Routes to the host engine (repaq_tpu.codec.vectorized), byte-identical by
-construction and counted in ``stats``: PE-interleaved chunks (their
-device path is ROADMAP A7), chunks outside the size window or past the
-int32 key packing, non-by-column quality modes, palettes of 64 bins (past
-the frontend's B <= 63), and the optimistic quality-buffer overflow. Each
-route is decided from the chunk; none is a reaction to an exception.
+construction and counted in ``stats``: PE-interleaved chunks of ragged
+read lengths, chunks outside the size window or past the int32 key
+packing, non-by-column quality modes, palettes of 64 bins (past the
+frontend's B <= 63), the optimistic quality-buffer overflow and a
+double-hash collision in the overlap search. Each route is decided from
+the chunk; none is a reaction to an exception.
+
+Interleaved chunks whose header lacks the overlap flag take the PE step
+with the overlap search off (revcomp, no elision), as vectorized encodes
+them; the JAX engine sends them to its flat step (ROADMAP C2).
 """
 
 from __future__ import annotations
@@ -42,6 +49,10 @@ from ..ops import kernels
 _G = ord("G")
 _N = ord("N")
 
+# named ranges of a step's stages in a torch.profiler trace (a flag test
+# when no profiler runs); tools/profile_torch_pe.py reads them
+_span = torch.profiler.record_function
+
 # the chunk-size window of the JAX engine (device_engine.py:51-52), kept so
 # that chunks route as they do there: 12 Mbase stays inside the int32
 # bid<<24|pos and (pos+len)<<6 key packings after bucketing
@@ -63,6 +74,68 @@ def _bucket(x: int, lo: int = 1024) -> int:
     return c
 
 
+def _qfetch(nonmajor: int, esc: int, nbins: int, n_cap: int) -> int:
+    """The optimistic quality buffer: with dense non-major positions nearly
+    every token is 1 byte, so ~1.25 bytes a token covers the stream; an
+    overflow (qual_len > qfetch) takes the host route."""
+    if nonmajor * 16 >= n_cap:
+        return _bucket(4 * nbins + nonmajor + nonmajor // 4 + 5 * esc + 4096)
+    return min(_bucket(4 * nbins + 4 * nonmajor + 5 * esc + 8),
+               4 * nbins + n_cap + 8)
+
+
+def _cut(raw: np.ndarray, sizes, nlens: int):
+    """Split a step's u8 payload into parts of the given sizes, in concat
+    order, and the nlens int32 lengths that end it."""
+    parts, off = [], 0
+    for sz in sizes:
+        parts.append(raw[off: off + sz])
+        off += sz
+    return parts, [int(v) for v in raw[off: off + 4 * nlens].view("<i4")]
+
+
+def _elide(tseq: torch.Tensor, ov: torch.Tensor, n_reads: int):
+    """The stored bases of a (b_cap, L) transformed PE grid, concatenated
+    and 'G'-padded to b_cap * L, and their count: rows past n_reads store
+    nothing, odd rows drop |ov| bases of their pair's overlap, from the
+    front for a forward one."""
+    dev = tseq.device
+    b_cap, L = tseq.shape
+    n_cap = b_cap * L
+    zeros_p = torch.zeros_like(ov)
+    drop_row = torch.stack([zeros_p, ov.abs()], dim=1).reshape(-1)
+    start_row = torch.stack([zeros_p, ov.clamp(min=0)], dim=1).reshape(-1)
+    rvalid = torch.arange(b_cap, device=dev) < n_reads
+    stored_row = torch.where(rvalid, L - drop_row, 0).to(torch.int32)
+    cum = torch.cumsum(stored_row, 0, dtype=torch.int32)
+    # the kept bases have unique destinations in row order, so one scatter
+    # into a 'G'-filled buffer (its spare last slot takes the dropped ones)
+    # gives the bytes of JAX's sort by destination
+    rel = torch.arange(L, dtype=torch.int32, device=dev)[None, :] \
+        - start_row[:, None]
+    keep = (rel >= 0) & (rel < stored_row[:, None])
+    dest = torch.where(keep, (cum - stored_row)[:, None] + rel, n_cap)
+    out = torch.full((n_cap + 1,), _G, dtype=torch.uint8, device=dev)
+    out[dest.reshape(-1).long()] = tseq.reshape(-1)
+    return out[:n_cap], cum[-1]
+
+
+def _expand(seq: torch.Tensor, tables: torch.Tensor, L: int):
+    """The three-piece reconstruction of the elided odd reads (reference
+    rfqcodec.cpp:860-901) as one gather: an odd row is [its mate's tail]
+    [its stored span][its mate's head]. tables: (4, b_cap) int32 stored
+    offset, forward and backward overlap, the mate's stored offset. Padded
+    rows read clamped bytes that are cut."""
+    n_cap = seq.shape[0]
+    so, f, w, prev = (t[:, None] for t in tables)
+    i = torch.arange(L, dtype=torch.int32, device=seq.device)[None, :]
+    odd = (torch.arange(so.shape[0], device=seq.device) % 2 == 1)[:, None]
+    src = torch.where(i < f, so - f + i,
+                      torch.where(i >= L - w, prev + i - (L - w), so + i - f))
+    src = torch.where(odd, src, so + i).reshape(-1)
+    return seq[src.clamp(0, n_cap - 1).long()]
+
+
 class DeviceEngine:
     """Chunk codec on one torch device. Safe to call from the pipeline's
     worker threads: the palette cache and the stats take a lock, and each
@@ -76,6 +149,9 @@ class DeviceEngine:
         self._lock = threading.Lock()
         self._palette = None  # (bins on device, major) of one header
         self._palette_key = None
+        # vectorized's complement table (ACGT and lowercase -> complement,
+        # anything else -> N), so odd reads transform as the host engine's
+        self._comp = torch.from_numpy(vectorized._COMP).to(self.device)
         self.stats = {"device_chunks": 0, "host_chunks": 0,
                       "device_decodes": 0, "host_decodes": 0}
 
@@ -164,16 +240,19 @@ class DeviceEngine:
             return None
         a = vectorized.analyze_chunk(header, block, is_pe)
         n_total = int(a.seq_lens.sum())
-        # PE-interleaved chunks (revcomp + overlap elision) are the host
-        # engine's until their device path lands (ROADMAP A7)
         eligible = (
-            not a.can_interleave
-            and header.encode_qual_by_col()
+            header.encode_qual_by_col()
             and header.normal_qual_bins() <= _MAX_BINS
             and self.min_bases <= n_total <= self.max_bases
             and header.has_x() == header.has_y()
         )
-        chunk = self._encode_se_device(header, block, a) if eligible else None
+        chunk = None
+        if eligible and not a.can_interleave:
+            chunk = self._encode_se_device(header, block, a)
+        elif (eligible and a.read_len_same and a.seq_lens[0] > 0
+              and block.n % 2 == 0):
+            # the PE step works in a (reads, L) grid of whole pairs
+            chunk = self._encode_pe_device(header, block, a)
         if chunk is None:
             self._count("host_chunks")
             return vectorized.encode_chunk(header, block, is_pe)
@@ -191,6 +270,24 @@ class DeviceEngine:
         npos = int((block.seq_flat == _N).sum())
         return nonmajor, esc, npos
 
+    def _stream_caps(self, header, block, n_cap: int) -> dict:
+        """The encode step's static caps for a chunk padded to n_cap bases,
+        each a hard bound from the exact host counts."""
+        nonmajor, esc, npos = self._host_caps(header, block)
+        nbins = int(header.normal_qual_bins())
+        # positions stream: 1 byte per match + <n/128 two-byte gaps +
+        # <n/16384 four-byte gaps (deltas sum to <= n)
+        return dict(
+            nm_cap=_bucket(nonmajor),
+            esc_cap=0 if esc == 0 else _bucket(esc, lo=8),
+            np_cap=_bucket(npos, lo=8),
+            qfetch=_qfetch(nonmajor, esc, nbins, n_cap),
+            npfetch=_bucket(min(4 * npos, npos + n_cap // 64) + 16, lo=64),
+            # the N-position stream is skipped when the header restores N
+            # via nBaseQual, or the chunk has no Ns
+            want_npos=header.encode_n_pos() and npos > 0,
+        )
+
     def _encode_se_device(self, header, block, a) -> RfqChunk | None:
         """Flat streams of a non-interleaved chunk (reference
         rfqcodec.cpp:163-586 minus the PE branches). None: host route."""
@@ -199,29 +296,10 @@ class DeviceEngine:
         n_cap = _bucket(n, lo=4096)
         if n_cap >= (1 << 24):
             return None  # past the bid<<24|pos grouping-key packing
-        nonmajor, esc, npos = self._host_caps(header, block)
+        caps = self._stream_caps(header, block, n_cap)
         bins, major = self._palette_for(header)
-        nbins = int(header.normal_qual_bins())
         b_cap = _bucket(b, lo=256)
-        nm_cap = _bucket(nonmajor)
-        esc_cap = 0 if esc == 0 else _bucket(esc, lo=8)
-        np_cap = _bucket(npos, lo=8)
-        # optimistic quality buffer: with dense non-major positions nearly
-        # every token is 1 byte, so ~1.25 bytes a token covers the stream;
-        # an overflow (qual_len > qfetch) takes the host route
-        if nonmajor * 16 >= n_cap:
-            qfetch = _bucket(
-                4 * nbins + nonmajor + nonmajor // 4 + 5 * esc + 4096)
-        else:
-            qfetch = min(_bucket(4 * nbins + 4 * nonmajor + 5 * esc + 8),
-                         4 * nbins + n_cap + 8)
-        # positions stream: 1 byte per match + <n/128 two-byte gaps +
-        # <n/16384 four-byte gaps (deltas sum to <= n)
-        npfetch = _bucket(min(4 * npos, npos + n_cap // 64) + 16, lo=64)
         has_xy = header.has_x()
-        # the N-position stream is skipped when the header restores N via
-        # nBaseQual, or the chunk has no Ns
-        want_npos = header.encode_n_pos() and npos > 0
 
         seq_pad = np.full(n_cap, _G, dtype=np.uint8)
         seq_pad[:n] = block.seq_flat
@@ -234,27 +312,26 @@ class DeviceEngine:
             xy[1, :b] = a.ys
         raw = self._encode_se_step(
             self._upload(seq_pad), self._upload(qual_pad),
-            None if xy is None else self._upload(xy), b, bins, major, nbins,
-            esc_cap=esc_cap, nm_cap=nm_cap, np_cap=np_cap, qfetch=qfetch,
-            npfetch=npfetch, want_npos=want_npos,
-        ).cpu().numpy()
-
-        # layout mirrors _encode_se_step's concat order
-        off = 0
-        packed_all = raw[off: off + n_cap // 4]; off += n_cap // 4
-        qual_all = raw[off: off + qfetch]; off += qfetch
-        npos_all = raw[off: off + npfetch]; off += npfetch
+            None if xy is None else self._upload(xy), b, bins, major,
+            int(header.normal_qual_bins()), **caps).cpu().numpy()
         xy_sz = (3 * b_cap + 8) if has_xy else 0
-        x_all = raw[off: off + xy_sz]; off += xy_sz
-        y_all = raw[off: off + xy_sz]; off += xy_sz
-        qual_len, npos_len, x_len, y_len = (
-            int(v) for v in raw[off: off + 16].view("<i4"))
-        if qual_len > qfetch or npos_len > npfetch:
-            return None  # optimistic qfetch overflow: host route
+        parts, lens = _cut(raw, [n_cap // 4, caps["qfetch"], caps["npfetch"],
+                                 xy_sz, xy_sz], 4)
+        return self._assemble(header, block, a, np.zeros(0, dtype=np.int64),
+                              parts[0][: (n + 3) // 4], parts[1:], lens, caps)
 
+    @staticmethod
+    def _assemble(header, block, a, ov, packed, parts, lens, caps):
+        """Container assembly from an encode step's streams: parts are the
+        quality, N-position, X and Y buffers, lens their lengths. None when
+        the optimistic quality buffer overflowed: host route."""
+        qual_all, npos_all, x_all, y_all = parts
+        qual_len, npos_len, x_len, y_len = lens
+        if qual_len > caps["qfetch"] or npos_len > caps["npfetch"]:
+            return None
+        has_xy = header.has_x()
         return vectorized.assemble_chunk(
-            header, block, a, np.zeros(0, dtype=np.int64),
-            packed_all[: (n + 3) // 4].tobytes(),
+            header, block, a, ov, packed.tobytes(),
             qual_all[:qual_len].tobytes(),
             npos_all[:npos_len].tobytes() if header.encode_n_pos() else b"",
             x_bytes=x_all[:x_len].tobytes() if has_xy else None,
@@ -266,29 +343,142 @@ class DeviceEngine:
         """The device work of one flat encode: one u8 payload of packed
         bases, quality stream, N-position stream, X and Y streams and the
         four int32 stream lengths."""
-        dev = seq.device
         n_cap = seq.shape[0]
-        packed, meta = kernels.encode_frontend(seq, qual, bins, major)
-        qual_out, qual_len = ds.qualcol_encode_device(
-            meta, qual, nbins, esc_cap=esc_cap, nonmajor_cap=nm_cap,
-            out_size=qfetch,
-        )
+        with _span("enc.frontend"):
+            packed, meta = kernels.encode_frontend(seq, qual, bins, major)
+        with _span("enc.streams"):
+            qual_out, qual_len = ds.qualcol_encode_device(
+                meta, qual, nbins, esc_cap=esc_cap, nonmajor_cap=nm_cap,
+                out_size=qfetch,
+            )
+            npos = (ds.encode_positions_from_meta(meta, n_cap, npfetch,
+                                                  pos_cap=np_cap)
+                    if want_npos else None)
+            return self._payload(packed, qual_out[:qfetch], qual_len, npos,
+                                 npfetch, xy, n_reads)
+
+    @staticmethod
+    def _payload(packed, qual_out, qual_len, npos, npfetch, xy, n_valid,
+                 tail=None):
+        """One u8 tensor: packed bases, the quality stream, the N-position
+        stream (npos: (out, len), or None for none), the X and Y streams of
+        the (2, cap) xy (or None), then tail's u8 buffer (tail: (buffer,
+        [int32 lengths]) or None); it ends in the int32 lengths of quality,
+        N-position, X, Y and tail's lengths."""
+        dev = packed.device
         zero = torch.zeros((), dtype=torch.int32, device=dev)
-        if want_npos:
-            npos_out, npos_len = ds.encode_positions_from_meta(
-                meta, n_cap, npfetch, pos_cap=np_cap)
-        else:
-            npos_out = torch.zeros(npfetch, dtype=torch.uint8, device=dev)
-            npos_len = zero
+        if npos is None:
+            npos = torch.zeros(npfetch, dtype=torch.uint8, device=dev), zero
         if xy is not None:
             xy_out, x_len, y_len = ds.coords_encode2_device(
-                xy, 3 * xy.shape[1] + 8, n_valid=n_reads)
+                xy, 3 * xy.shape[1] + 8, n_valid=n_valid)
         else:
             xy_out = torch.zeros(0, dtype=torch.uint8, device=dev)
             x_len = y_len = zero
-        lens = torch.stack([qual_len, npos_len, x_len, y_len]).to(torch.int32)
-        return torch.cat([packed, qual_out[:qfetch], npos_out, xy_out,
-                          lens.view(torch.uint8)])
+        lens = [qual_len, npos[1], x_len, y_len]
+        bufs = [packed, qual_out, npos[0], xy_out]
+        if tail is not None:
+            bufs.append(tail[0])
+            lens += tail[1]
+        lens = torch.stack(lens).to(torch.int32)
+        return torch.cat(bufs + [lens.view(torch.uint8)])
+
+    # -- PE interleaved ------------------------------------------------
+
+    def _encode_pe_device(self, header, block, a) -> RfqChunk | None:
+        """PE-interleaved chunk of one read length L: revcomp of the odd
+        reads, overlap search and elision compaction on the device
+        (reference rfqcodec.cpp:279-407, 1391-1438). None: host route."""
+        L = int(a.seq_lens[0])
+        b = block.n
+        pairs = b // 2
+        b_cap = _bucket(b, lo=256)  # even: a bucket >= 256
+        p_cap = b_cap // 2
+        n_cap = b_cap * L
+        if n_cap >= (1 << 24):
+            return None  # past the bid<<24|pos grouping-key packing
+        caps = self._stream_caps(header, block, n_cap)
+        bins, major = self._palette_for(header)
+        has_xy = header.has_x()
+
+        seq_mat = np.full((b_cap, L), _G, dtype=np.uint8)
+        seq_mat[:b] = block.seq_flat.reshape(b, L)
+        qual_mat = np.full((b_cap, L), major, dtype=np.uint8)
+        qual_mat[:b] = block.qual_flat.reshape(b, L)
+        xy = None
+        if has_xy:  # one X/Y per pair
+            xy = np.zeros((2, p_cap), dtype=np.int32)
+            xy[0, :pairs] = a.xs[0::2]
+            xy[1, :pairs] = a.ys[0::2]
+        raw = self._encode_pe_step(
+            self._upload(seq_mat), self._upload(qual_mat),
+            None if xy is None else self._upload(xy), b, bins, major,
+            int(header.normal_qual_bins()),
+            shift=int(header.overlap_shift), overlap=a.encode_overlap,
+            **caps).cpu().numpy()
+        xy_sz = (3 * p_cap + 8) if has_xy else 0
+        parts, lens = _cut(raw, [n_cap // 4, caps["qfetch"], caps["npfetch"],
+                                 xy_sz, xy_sz, p_cap], 6)
+        total_stored, ncoll = lens[4:]
+        if ncoll > 0:
+            # double-hash collision in the overlap search (~2^-64 per
+            # pair): first-match semantics need the host search
+            return None
+        ov = (parts[5][:pairs].view(np.int8).astype(np.int64)
+              - header.overlap_shift)
+        return self._assemble(header, block, a, ov,
+                              parts[0][: (total_stored + 3) // 4],
+                              parts[1:5], lens[:4], caps)
+
+    def _encode_pe_step(self, seq_mat, qual_mat, xy, n_reads, bins, major,
+                        nbins, *, shift, overlap, esc_cap, nm_cap, np_cap,
+                        qfetch, npfetch, want_npos):
+        """The device work of one PE-interleaved encode. seq_mat, qual_mat:
+        (b_cap, L) u8, rows past n_reads padded with 'G' and the major
+        qual. overlap: search and elide overlaps (the header's flag), else
+        every pair stores ov = 0. Returns the payload of _payload with the
+        (b_cap/2,) u8 overlap bytes, the stored base count and the number of
+        hash collisions at its end."""
+        dev = seq_mat.device
+        p_cap = seq_mat.shape[0] // 2
+        with _span("enc.revcomp"):
+            tseq = seq_mat.clone()
+            tseq[1::2] = self._comp[seq_mat[1::2].flip(1).long()]
+            tqual = qual_mat.clone()
+            tqual[1::2] = qual_mat[1::2].flip(1)
+        n_pairs = n_reads // 2
+
+        ov = torch.zeros(p_cap, dtype=torch.int32, device=dev)
+        ncoll = torch.zeros((), dtype=torch.int32, device=dev)
+        if overlap:
+            # the overlap search (reference rfqcodec.cpp:1391-1438) and the
+            # encode-side shift clamp (rfqcodec.cpp:379-382)
+            with _span("enc.overlap"):
+                found, coll = ds.overlap_pairs_device(tseq[0::2],
+                                                      tseq[1::2])
+                pvalid = torch.arange(p_cap, device=dev) < n_pairs
+                shifted = found + shift
+                ov = torch.where(
+                    pvalid & (shifted <= 127) & (shifted >= -127), found, 0)
+                ncoll = (coll & pvalid).sum(dtype=torch.int32)
+
+        with _span("enc.compaction"):
+            seq_concat, total_stored = _elide(tseq, ov, n_reads)
+        qual_flat = tqual.reshape(-1)
+        with _span("enc.frontend"):  # over the elided seq, the full qual
+            packed, nmask, bid = kernels.encode_frontend_bytes(
+                seq_concat, qual_flat, bins, major)
+        with _span("enc.streams"):
+            qual_out, qual_len = ds.qualcol_encode_device(
+                None, qual_flat, nbins, esc_cap=esc_cap, nonmajor_cap=nm_cap,
+                out_size=qfetch, bid=bid)
+            npos = (ds.encode_positions_from_mask(nmask, npfetch,
+                                                  pos_cap=np_cap)
+                    if want_npos else None)
+            ov_store = ((ov + shift) & 0xFF).to(torch.uint8)
+            return self._payload(packed, qual_out[:qfetch], qual_len, npos,
+                                 npfetch, xy, n_pairs,
+                                 (ov_store, [total_stored, ncoll]))
 
     # ------------------------------------------------------------------
     # decode
@@ -300,16 +490,21 @@ class DeviceEngine:
             return ReadBlock.from_reads([])
         read_lens = chunk.read_lengths().astype(np.int64)
         n_total = int(read_lens.sum())
-        # PE-interleaved chunks decode on the host until ROADMAP A7
+        pe = bool(chunk.flags & BIT_PE_INTERLEAVED)
+        L = int(read_lens[0])
         eligible = (
-            not chunk.flags & BIT_PE_INTERLEAVED
-            and header.encode_qual_by_col()
+            header.encode_qual_by_col()
             and header.normal_qual_bins() <= _MAX_BINS
             and n_total > 0
             and self.min_bases <= n_total <= self.max_bases
+            # the PE step works in a (reads, L) grid of whole pairs
+            and (not pe or (bool((read_lens == L).all()) and n % 2 == 0))
         )
-        block = (self._decode_device_flat(header, chunk, n, read_lens)
-                 if eligible else None)
+        block = None
+        if eligible and pe:
+            block = self._decode_device_pe(header, chunk, n, L)
+        elif eligible:
+            block = self._decode_device_flat(header, chunk, n, read_lens)
         if block is None:
             self._count("host_decodes")
             return vectorized.decode_chunk(header, chunk)
@@ -325,10 +520,60 @@ class DeviceEngine:
         n_total = int(read_lens.sum())
         if (n_total + 3) // 4 != len(chunk.seq_buf):
             return None  # corrupt container: the host path raises
-        nbins = int(header.normal_qual_bins())
         n_cap = _bucket(n_total, lo=4096)
+        raw = self._decode_run(header, chunk, n_cap)
+        if raw is None:
+            return None
+        seq = raw[:n_total].copy()
+        qual = raw[n_cap: n_cap + n_total].copy()
+        return vectorized.assemble_block(
+            header, chunk, b, read_lens, lens_to_offsets(read_lens), seq, qual
+        )
+
+    def _decode_device_pe(self, header, chunk, b, L) -> ReadBlock | None:
+        """PE-interleaved decode of b reads of length L: the overlap
+        expansion (when the header elides overlaps) and the revcomp of the
+        odd reads on the device (reference rfqcodec.cpp:860-901). None:
+        host route."""
+        b_cap = _bucket(b, lo=256)
+        n_cap = b_cap * L
+        stored = np.full(b, L, dtype=np.int64)
+        tables = None
+        if header.encode_pe_by_overlap():
+            ovb = np.frombuffer(chunk.overlap_buf, dtype=np.int8)
+            if ovb.shape[0] != b // 2:
+                return None  # corrupt container: the host path raises
+            ov = ovb.astype(np.int64) - header.overlap_shift
+            stored[1::2] -= np.abs(ov)
+            if (stored < 0).any():
+                return None
+            # per row: stored offset, forward and backward overlap, and
+            # the mate's stored offset (odd rows only)
+            off = np.cumsum(stored) - stored
+            tab = np.zeros((4, b_cap), dtype=np.int32)
+            tab[0, :b] = off
+            tab[1, 1:b:2] = np.maximum(ov, 0)
+            tab[2, 1:b:2] = np.maximum(-ov, 0)
+            tab[3, 1:b:2] = off[0:b:2]
+            tables = self._upload(tab)
+        if (int(stored.sum()) + 3) // 4 != len(chunk.seq_buf):
+            return None  # corrupt container: the host path raises
+        raw = self._decode_run(header, chunk, n_cap, L=L, tables=tables)
+        if raw is None:
+            return None
+        n_total = b * L
+        lens = np.full(b, L, dtype=np.int64)
+        return vectorized.assemble_block(
+            header, chunk, b, lens, lens_to_offsets(lens),
+            raw[:n_total].copy(), raw[n_cap: n_cap + n_total].copy())
+
+    def _decode_run(self, header, chunk, n_cap: int, **pe):
+        """Upload a chunk's streams padded for n_cap bases and run the
+        decode step; its (2 * n_cap,) u8 payload as numpy, or None for the
+        host route."""
         if n_cap >= (1 << 24):
             return None  # past the (pos+length)<<6 decode packing
+        nbins = int(header.normal_qual_bins())
         qual_len = len(chunk.qual_buf)
         npos_len = len(chunk.npos_buf) if header.encode_n_pos() else 0
         caps = self._decode_caps(n_cap, qual_len, npos_len, chunk, nbins)
@@ -346,18 +591,13 @@ class DeviceEngine:
             npos_buf[:npos_len] = np.frombuffer(chunk.npos_buf,
                                                 dtype=np.uint8)
         bins, major = self._palette_for(header)
-        raw = self._decode_flat_step(
+        return self._decode_step(
             self._upload(packed), self._upload(qual_buf), qual_len,
             self._upload(npos_buf), npos_len, bins, major, nbins,
             np_cap=np_cap, qcaps=qcaps,
             has_npos=bool(header.encode_n_pos()),
-            nbq=int(header.n_base_qual),
+            nbq=int(header.n_base_qual), **pe,
         ).cpu().numpy()
-        seq = raw[:n_total].copy()
-        qual = raw[n_cap: n_cap + n_total].copy()
-        return vectorized.assemble_block(
-            header, chunk, b, read_lens, lens_to_offsets(read_lens), seq, qual
-        )
 
     @staticmethod
     def _decode_caps(n_cap: int, qual_len: int, npos_len: int, chunk,
@@ -395,26 +635,43 @@ class DeviceEngine:
                    else None)
         return qb_cap, nb_cap, np_cap, (tok_cap, pos_cap, esc_cap, run_cap)
 
-    def _decode_flat_step(self, packed, qual_buf, qual_len, npos_buf,
-                          npos_len, bins, major, nbins, *, np_cap, qcaps,
-                          has_npos, nbq):
-        """The device work of one flat decode: one u8 payload of the
-        (n_cap,) bases and the (n_cap,) quality chars."""
+    def _decode_step(self, packed, qual_buf, qual_len, npos_buf, npos_len,
+                     bins, major, nbins, *, np_cap, qcaps, has_npos, nbq,
+                     L=None, tables=None):
+        """The device work of one decode: one u8 payload of the (n_cap,)
+        bases and the (n_cap,) quality chars. L: a PE-interleaved chunk of
+        (n_cap / L, L) reads, whose odd rows are reverse-complemented back;
+        tables: its (4, n_cap / L) int32 overlap expansion tables (stored
+        offset, forward and backward overlap, the mate's stored offset),
+        None when the header stores no overlaps."""
         n_cap = 4 * packed.shape[0]
         tok_cap, pos_cap, esc_cap, run_cap = qcaps
-        seq = kernels.unpack_bases(packed)
-        if has_npos:
-            pos, _cnt = ds.decode_positions_device(npos_buf, npos_len, np_cap)
-            tgt = torch.where((pos >= 0) & (pos < n_cap), pos, n_cap)
-            seq = torch.cat([seq, seq.new_zeros(1)])
-            seq[tgt.long()] = _N
-            seq = seq[:n_cap]
-        qual = ds.qualcol_decode_device(
-            qual_buf, nbins, bins, major, n_cap, qual_len, tok_cap=tok_cap,
-            pos_cap=pos_cap, esc_cap=esc_cap, run_cap=run_cap,
-        )
-        if not has_npos and nbq < 128:
-            seq = torch.where(qual == nbq, _N, seq)
+        with _span("dec.unpack"):
+            seq = kernels.unpack_bases(packed)
+            if has_npos:  # in stored (elided) space
+                pos, _cnt = ds.decode_positions_device(npos_buf, npos_len,
+                                                       np_cap)
+                tgt = torch.where((pos >= 0) & (pos < n_cap), pos, n_cap)
+                seq = torch.cat([seq, seq.new_zeros(1)])
+                seq[tgt.long()] = _N
+                seq = seq[:n_cap]
+        if tables is not None:
+            with _span("dec.expand"):
+                seq = _expand(seq, tables, L)
+        with _span("dec.qual"):
+            qual = ds.qualcol_decode_device(
+                qual_buf, nbins, bins, major, n_cap, qual_len,
+                tok_cap=tok_cap, pos_cap=pos_cap, esc_cap=esc_cap,
+                run_cap=run_cap,
+            )
+            if not has_npos and nbq < 128:
+                seq = torch.where(qual == nbq, _N, seq)
+        if L is not None:
+            with _span("dec.revcomp"):
+                sm = seq.view(-1, L)
+                sm[1::2] = self._comp[sm[1::2].flip(1).long()]
+                qm = qual.view(-1, L)
+                qm[1::2] = qm[1::2].flip(1)
         return torch.cat([seq, qual])
 
 

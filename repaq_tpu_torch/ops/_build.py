@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
 The sources in ``repaq_tpu_torch/csrc/*.cu`` have a plain C interface.
-At first use they are compiled with ``nvcc`` for ``sm_90a`` into one
-shared library under ``repaq_tpu_torch/_build/`` and loaded with
-``ctypes``: pointers and the CUDA stream travel as ``c_void_p``. The
+At first use each is compiled with ``nvcc`` for ``sm_90a`` to an object
+file, all sources at once in parallel processes, and the objects are
+linked into one shared library under ``repaq_tpu_torch/_build/``, loaded
+with ``ctypes``: pointers and the CUDA stream travel as ``c_void_p``. The
 library's name carries a hash of the sources and flags, so an edited
 source is rebuilt and a current build is reused by every later process.
 
@@ -25,7 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()  # CLI worker threads reach the first build together
@@ -66,17 +67,34 @@ def _build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.tmp%d.so" % (path[:-3], os.getpid())
-    r = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-        capture_output=True, text=True,
-    )
-    if r.returncode != 0:
-        raise RuntimeError(
-            "nvcc failed (rc %d) building %s:\n%s%s"
-            % (r.returncode, ", ".join(srcs), r.stdout, r.stderr)
-        )
-    os.replace(tmp, path)  # atomic: a concurrent process sees all or nothing
+    stem = "%s.tmp%d" % (path[:-3], os.getpid())
+    objs = ["%s.%d.o" % (stem, i) for i in range(len(srcs))]
+    nvcc = _nvcc()
+    try:
+        # one nvcc per source, all started together, then one link
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", s, "-o", o],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        failed = [(s, p.returncode, out)
+                  for s, p, out in zip(srcs, procs, outs) if p.returncode]
+        if not failed:
+            r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o",
+                                stem + ".so", *objs],
+                               capture_output=True, text=True)
+            if r.returncode:
+                failed = [("the link", r.returncode, r.stdout + r.stderr)]
+        if failed:
+            raise RuntimeError("nvcc failed building the CUDA kernels:\n"
+                               + "\n".join("%s (rc %d):\n%s" % f
+                                            for f in failed))
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    # atomic: a concurrent process sees all or nothing
+    os.replace(stem + ".so", path)
     return path
 
 
@@ -85,6 +103,8 @@ def _bind(path: str) -> ctypes.CDLL:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.repaq_encode_frontend.argtypes = [vp, vp, vp, ci, ci, vp, vp, ll, vp]
     lib.repaq_encode_frontend.restype = ci
+    lib.repaq_pack_bases.argtypes = [vp, vp, ll, vp]
+    lib.repaq_pack_bases.restype = ci
     lib.repaq_unpack_bases.argtypes = [vp, vp, ll, vp]
     lib.repaq_unpack_bases.restype = ci
     lib.repaq_token_start_mask.argtypes = [vp, vp, ll, vp, vp, vp]

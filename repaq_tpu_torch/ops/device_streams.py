@@ -1,6 +1,6 @@
 """The .rfq token coders as torch tensor code on an explicit device: the
-PyTorch port of repaq_tpu/ops/device_streams.py (the SE path's encode and
-decode halves).
+PyTorch port of repaq_tpu/ops/device_streams.py (the encode and decode
+halves of the SE and the PE-interleaved paths, and the PE overlap search).
 
 Each function keeps the name, the arguments and the int32 arithmetic of
 its JAX twin, so the two can be fed the same input, and is byte-exact with
@@ -13,6 +13,8 @@ it and with repaq_tpu.codec.kernels_np. What differs from JAX:
   the keys and a gather of the payload by the returned order. Keys repeat
   only at the sentinel fill, whose payloads are masked afterwards.
 - ``torch.cumsum`` is asked for int32 explicitly (it defaults to int64).
+- The overlap search's uint32 hashes are int64 values masked to 32 bits
+  (torch's uint32 support is partial); see the section's note.
 - The token FSM is ``kernels.token_start_mask``: the CUDA kernel for CUDA
   tensors at every size, its plain version for CPU tensors.
 """
@@ -279,30 +281,52 @@ def _positions_from_gpos(g_pos: torch.Tensor, n: int, out_size: int,
     )
 
 
+def _flag_positions(flag: torch.Tensor, n: int, pos_cap: int,
+                    group: int) -> torch.Tensor:
+    """The ascending (pos_cap,) int32 positions < n where flag is set,
+    filled with n. group > 1 (the flags are sparse): compact whole groups
+    of `group` flags first, so the sort that orders the positions runs
+    over group * pos_cap keys instead of n; groups holding a flag number
+    <= pos_cap, so a pos_cap-group slice drops none."""
+    dev = flag.device
+    if group > 1:
+        ng = flag.shape[0] // group
+        fg = flag.view(ng, group)
+        gidx = torch.sort(torch.where(fg.any(dim=1), _arange(ng, dev),
+                                      ng)).values[:pos_cap]
+        mg = torch.cat([fg, fg.new_zeros((1, group))])[gidx.long()]
+        cand = gidx[:, None] * group + _arange(group, dev)[None, :]
+        keys = torch.where(mg & (cand < n), cand, n).reshape(-1)
+    else:
+        i = _arange(flag.shape[0], dev)
+        keys = torch.where(flag & (i < n), i, n)
+    return torch.sort(keys).values[:pos_cap]
+
+
 def encode_positions_from_meta(meta: torch.Tensor, n: int, out_size: int,
                                pos_cap: int | None = None):
     """Gap/run stream of the 'N' positions (< n) flagged in bit 7 of the
     frontend's meta bytes: the byte-form counterpart of JAX's
     encode_positions_from_meta32. pos_cap: upper bound on the number of
     Ns (the engine knows it exactly). Returns (out (out_size,) u8, len)."""
-    nb = meta.shape[0]
-    dev = meta.device
     pos_cap = max(1, min(n if pos_cap is None else pos_cap, n))
-    if nb % 16 == 0 and 32 * pos_cap < n:
-        # sparse Ns: compact 16-byte groups first so the sort that orders
-        # the positions runs over ~16 * pos_cap keys instead of n
-        ng = nb // 16
-        m16 = meta.view(ng, 16)
-        has_g = (m16 >= 0x80).any(dim=1)
-        gidx = torch.sort(torch.where(has_g, _arange(ng, dev), ng)).values
-        gidx = gidx[:pos_cap]
-        mg = torch.cat([m16, m16.new_zeros((1, 16))])[gidx.long()]
-        cand = gidx[:, None] * 16 + _arange(16, dev)[None, :]
-        keys = torch.where((mg >= 0x80) & (cand < n), cand, n).reshape(-1)
-    else:
-        i = _arange(nb, dev)
-        keys = torch.where((meta >= 0x80) & (i < n), i, n)
-    g_pos = torch.sort(keys).values[:pos_cap]
+    # 16-byte groups when sparse, as JAX's 4-word groups
+    sparse = meta.shape[0] % 16 == 0 and 32 * pos_cap < n
+    g_pos = _flag_positions(meta >= 0x80, n, pos_cap, 16 if sparse else 1)
+    return _positions_from_gpos(g_pos, n, out_size, pos_cap)
+
+
+def encode_positions_from_mask(mask: torch.Tensor, out_size: int,
+                               pos_cap: int | None = None):
+    """Gap/run stream of the True positions of the (n,) bool mask (JAX's
+    encode_positions_from_mask, the PE encode's N-position stream).
+    pos_cap: upper bound on the number of True positions (default n).
+    Returns (out (out_size,) u8, length)."""
+    n = mask.shape[0]
+    pos_cap = max(1, min(n if pos_cap is None else pos_cap, n))
+    # 4-byte words when sparse, as JAX compacts them
+    sparse = n % 4 == 0 and pos_cap * 8 < n
+    g_pos = _flag_positions(mask, n, pos_cap, 4 if sparse else 1)
     return _positions_from_gpos(g_pos, n, out_size, pos_cap)
 
 
@@ -311,21 +335,23 @@ def encode_positions_from_meta(meta: torch.Tensor, n: int, out_size: int,
 # ---------------------------------------------------------------------------
 
 
-def qualcol_encode_device(meta: torch.Tensor, qual: torch.Tensor, nbins: int,
-                          esc_cap: int | None = None,
+def qualcol_encode_device(meta: torch.Tensor | None, qual: torch.Tensor,
+                          nbins: int, esc_cap: int | None = None,
                           nonmajor_cap: int | None = None,
-                          out_size: int | None = None):
+                          out_size: int | None = None,
+                          bid: torch.Tensor | None = None):
     """By-column quality encode (reference rfqcodec.cpp:712-765) from the
-    frontend's meta bytes: u32le per-bin lengths, the per-bin gap/run
+    frontend's bin ids: u32le per-bin lengths, the per-bin gap/run
     streams, then 5-byte escape records (char + u32le position).
 
     meta: (n,) u8 (bin id in bits 0-6: 0..B-1 stream, B escape, B+1
-    major); qual: (n,) u8, read only at escapes. esc_cap / nonmajor_cap:
-    upper bounds on escape records and on non-major positions (default n);
-    esc_cap == 0 skips the escape machinery. Returns (out (out_size,) u8,
-    total_len)."""
-    dev = meta.device
-    n = meta.shape[0]
+    major), or None with bid: (n,) int bin ids in the same space (the
+    byte-form frontend's output, JAX's bid= form); qual: (n,) u8, read
+    only at escapes. esc_cap / nonmajor_cap: upper bounds on escape
+    records and on non-major positions (default n); esc_cap == 0 skips the
+    escape machinery. Returns (out (out_size,) u8, total_len)."""
+    dev = qual.device
+    n = qual.shape[0]
     if esc_cap is None:
         esc_cap = n
     nonmajor_cap = max(1, min(n if nonmajor_cap is None else nonmajor_cap,
@@ -336,7 +362,7 @@ def qualcol_encode_device(meta: torch.Tensor, qual: torch.Tensor, nbins: int,
     m = nonmajor_cap
     # one sort groups the emitting positions by bin and drops the major
     # ones: key = bid << 24 | pos, major at +inf
-    bid = (meta & 0x7F).to(_I32)
+    bid = (meta & 0x7F if bid is None else bid).to(_I32)
     keys_g = torch.where(bid <= nbins, (bid << 24) | _arange(n, dev), _INF)
     grouped = torch.sort(keys_g).values[:m]
     g_bid = grouped >> 24  # fill entries -> > nbins
@@ -738,3 +764,110 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
         _scatter_escapes(qual, buf, w32, stream_end, total_len, esc_cap,
                          length)
     return qual[:length]
+
+
+# ---------------------------------------------------------------------------
+# PE overlap search (reference rfqcodec.cpp:1391-1438)
+# ---------------------------------------------------------------------------
+#
+# JAX hashes in uint32 with wrapping products and cumsums. Here the values
+# live in int64 in [0, 2^32) and are masked after every product and every
+# cumsum; a product of two such values could pass 2^63, so one factor is
+# split into 16-bit halves (_mul_u32). The power tables are built on the
+# host exactly as in JAX.
+
+_OV_MIN = 12
+_OV_BASE1 = 0x01000193  # odd bases, invertible mod 2^32 (JAX's two)
+_OV_BASE2 = 0x9E3779B1
+_M32 = 0xFFFFFFFF
+
+
+def _u32_inv(a: int) -> int:
+    """Multiplicative inverse of an odd a modulo 2^32 (Newton iteration)."""
+    x = a
+    for _ in range(5):
+        x = (x * (2 - a * x)) & _M32
+    return x
+
+
+def _u32_powers(base: int, count: int, device) -> torch.Tensor:
+    """(count,) int64: base^j mod 2^32 for j < count."""
+    out, y = [], 1
+    for _ in range(count):
+        out.append(y)
+        y = (y * base) & _M32
+    return torch.tensor(out, dtype=torch.int64, device=device)
+
+
+def _mul_u32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod 2^32 for int64 values in [0, 2^32); no intermediate
+    passes 2^49."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _poly_prefix_hash(b: torch.Tensor, base: int) -> torch.Tensor:
+    """(p, L) u8 -> (p, L) int64: h(o) = sum_{j<o} b[:, j] * base^(o-1-j)
+    mod 2^32 for o = 1..L, as base^(o-1) * cumsum(b[:, j] * inv^j)."""
+    L = b.shape[1]
+    invp = _u32_powers(_u32_inv(base), L, b.device)
+    powp = _u32_powers(base, L, b.device)
+    terms = (b.long() * invp[None, :]) & _M32  # < 2^40 before the mask
+    return _mul_u32(torch.cumsum(terms, 1) & _M32, powp[None, :])
+
+
+def _suffix_hash(a: torch.Tensor, base: int, minlen: int) -> torch.Tensor:
+    """(p, La) u8 -> (p, minlen) int64: h(o) = sum_{j=1..o} a[:, La-j] *
+    base^(j-1) mod 2^32, o = 1..minlen."""
+    powp = _u32_powers(base, minlen, a.device)
+    tail = a[:, a.shape[1] - minlen:].flip(1).long()
+    # terms < 2^40 and minlen < 2^16: the running sum stays below 2^56
+    return torch.cumsum(tail * powp[None, :], 1) & _M32
+
+
+def _first_candidate_device(a: torch.Tensor, b: torch.Tensor, minlen: int):
+    """Smallest o in [12, minlen] whose suffix of a and prefix of b match
+    under both hashes; 0 when none. (p,) int32."""
+    hs1 = _suffix_hash(a, _OV_BASE1, minlen)
+    hp1 = _poly_prefix_hash(b[:, :minlen], _OV_BASE1)
+    hs2 = _suffix_hash(a, _OV_BASE2, minlen)
+    hp2 = _poly_prefix_hash(b[:, :minlen], _OV_BASE2)
+    o = _arange(minlen + 1, a.device, 1)[None, :]
+    hit = (hs1 == hp1) & (hs2 == hp2) & (o >= _OV_MIN)
+    first = torch.where(hit, o, minlen + 1).amin(1)
+    return torch.where(first > minlen, 0, first)
+
+
+def _verify_overlap_device(a: torch.Tensor, b: torch.Tensor, o: torch.Tensor,
+                           minlen: int) -> torch.Tensor:
+    """Exact check a[:, La-o:] == b[:, :o] per row (o == 0 -> False)."""
+    La = a.shape[1]
+    cols = _arange(minlen, a.device)[None, :]
+    valid = cols < o[:, None]
+    idx = (La - o[:, None] + cols).clamp(0, La - 1)
+    eq = (torch.gather(a, 1, idx.long()) == b[:, :minlen]) | ~valid
+    return eq.all(1) & (o > 0)
+
+
+def overlap_pairs_device(r1: torch.Tensor, r2: torch.Tensor):
+    """First exact overlap per pair (reference semantics: +o forward, r1
+    suffix == r2 prefix, then -o backward, first match from o = 12 up; 0
+    none). r1: (p, L1) u8, r2: (p, L2) u8, already reverse-complemented.
+
+    Returns (ov (p,) int32, collision (p,) bool). A collision means the
+    first double-hash candidate failed the exact check; such rows need the
+    host search to keep first-match semantics."""
+    p, L1 = r1.shape
+    minlen = min(L1, r2.shape[1])
+    dev = r1.device
+    if minlen < _OV_MIN or p == 0:
+        return (torch.zeros(p, dtype=_I32, device=dev),
+                torch.zeros(p, dtype=torch.bool, device=dev))
+    fwd = _first_candidate_device(r1, r2, minlen)
+    okf = _verify_overlap_device(r1, r2, fwd, minlen)
+    bwd = _first_candidate_device(r2, r1, minlen)
+    okb = _verify_overlap_device(r2, r1, bwd, minlen)
+    ov = torch.where(okf, fwd, torch.where(okb, -bwd, 0))
+    collision = (~okf & (fwd > 0)) | (~okf & ~okb & (bwd > 0))
+    return ov.to(_I32), collision

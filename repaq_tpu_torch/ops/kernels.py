@@ -18,7 +18,8 @@ from . import _build
 
 _G, _A, _T, _C, _N = 71, 65, 84, 67, 78
 
-launches = {"encode_frontend": 0, "unpack_bases": 0, "token_start_mask": 0}
+launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
+            "pack_bases": 0, "unpack_bases": 0, "token_start_mask": 0}
 _launch_lock = threading.Lock()
 
 
@@ -71,7 +72,9 @@ def _check_u8(name: str, t: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# encode frontend (TPU: pallas_tpu._frontend_kernel via encode_frontend_meta32)
+# encode frontend (TPU: pallas_tpu._frontend_kernel via encode_frontend_meta32
+# and, in byte form, via encode_frontend_pallas) and the pack-only kernel
+# (TPU: pallas_tpu._pack_kernel via pack_bases_pallas)
 # ---------------------------------------------------------------------------
 
 
@@ -89,15 +92,57 @@ def _qual_lut(bins: torch.Tensor, major: int) -> torch.Tensor:
     return torch.where(c == major, nbins + 1, lut).to(torch.uint8)
 
 
+def _pad4(t: torch.Tensor, fill: int) -> torch.Tensor:
+    """t padded with `fill` to a multiple of 4 bytes (t itself when it is
+    one already)."""
+    pad = (-t.shape[0]) % 4
+    if not pad:
+        return t
+    return torch.cat([t, torch.full((pad,), fill, dtype=t.dtype,
+                                    device=t.device)])
+
+
+def pack_bases_plain(seq: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of ``pack_bases``."""
+    code = torch.zeros(256, dtype=torch.uint8, device=seq.device)
+    code[_A], code[_T], code[_C] = 1, 2, 3
+    v = code[_pad4(seq, _G).long()].view(-1, 4)
+    return v[:, 0] | (v[:, 1] << 2) | (v[:, 2] << 4) | (v[:, 3] << 6)
+
+
 def encode_frontend_plain(seq: torch.Tensor, qual: torch.Tensor,
                           bins: torch.Tensor, major: int):
     """Plain torch version of ``encode_frontend``."""
-    code = torch.zeros(256, dtype=torch.uint8, device=seq.device)
-    code[_A], code[_T], code[_C] = 1, 2, 3
-    v = code[seq.long()].view(-1, 4)
-    packed = v[:, 0] | (v[:, 1] << 2) | (v[:, 2] << 4) | (v[:, 3] << 6)
     nflag = (seq == _N).to(torch.uint8) << 7
-    return packed, _qual_lut(bins, major)[qual.long()] | nflag
+    return pack_bases_plain(seq), _qual_lut(bins, major)[qual.long()] | nflag
+
+
+def _check_frontend(seq, qual, bins, major, need4: bool) -> None:
+    for name, t in (("seq", seq), ("qual", qual), ("bins", bins)):
+        _check_u8(name, t)
+    n = seq.shape[0]
+    if qual.shape[0] != n or (need4 and n % 4):
+        raise ValueError("seq and qual need one equal length%s (got %d and "
+                         "%d)" % (", a multiple of 4" if need4 else "", n,
+                                  qual.shape[0]))
+    if bins.shape[0] > 63 or not 0 <= int(major) < 256:
+        raise ValueError("need B <= 63 and a byte major (B=%d, major=%r)"
+                         % (bins.shape[0], major))
+
+
+def _frontend_launch(name: str, seq, qual, bins, major: int):
+    """Launch the frontend kernel (n % 4 == 0), counted under `name`."""
+    lib = _build.library()
+    n = seq.shape[0]
+    seq, qual, bins = _aligned(seq), _aligned(qual), bins.contiguous()
+    packed = torch.empty(n // 4, dtype=torch.uint8, device=seq.device)
+    meta = torch.empty(n, dtype=torch.uint8, device=seq.device)
+    with torch.cuda.device(seq.device):
+        _launch(name, lib.repaq_encode_frontend, seq.data_ptr(),
+                qual.data_ptr(), bins.data_ptr(), int(bins.shape[0]),
+                int(major), packed.data_ptr(), meta.data_ptr(), n,
+                _stream(seq.device))
+    return packed, meta
 
 
 def encode_frontend(seq: torch.Tensor, qual: torch.Tensor,
@@ -107,28 +152,59 @@ def encode_frontend(seq: torch.Tensor, qual: torch.Tensor,
     each group of four in bits 2k..2k+1. Meta: quality bin id in bits 0-6
     (0..B-1 palette entry, B escape, B+1 major), bit 7 set for 'N'. n must
     be a multiple of 4; B <= 63."""
-    for name, t in (("seq", seq), ("qual", qual), ("bins", bins)):
-        _check_u8(name, t)
-    n = seq.shape[0]
-    nbins = int(bins.shape[0])
-    if qual.shape[0] != n or n % 4:
-        raise ValueError("seq and qual need one equal length, a multiple "
-                         "of 4 (got %d and %d)" % (n, qual.shape[0]))
-    if nbins > 63 or not 0 <= int(major) < 256:
-        raise ValueError("need B <= 63 and a byte major (B=%d, major=%r)"
-                         % (nbins, major))
+    _check_frontend(seq, qual, bins, major, need4=True)
     if not _on_cuda(seq, qual, bins):
         return encode_frontend_plain(seq, qual, bins, int(major))
+    return _frontend_launch("encode_frontend", seq, qual, bins, int(major))
+
+
+def _split_meta(packed, meta, n: int):
+    meta = meta[:n]
+    return packed, meta >= 0x80, (meta & 0x7F).to(torch.int32)
+
+
+def encode_frontend_bytes_plain(seq: torch.Tensor, qual: torch.Tensor,
+                                bins: torch.Tensor, major: int):
+    """Plain torch version of ``encode_frontend_bytes``."""
+    return _split_meta(*encode_frontend_plain(
+        _pad4(seq, _G), _pad4(qual, int(major)), bins, int(major)),
+        seq.shape[0])
+
+
+def encode_frontend_bytes(seq: torch.Tensor, qual: torch.Tensor,
+                          bins: torch.Tensor, major: int):
+    """The byte form of the frontend, with the signature and meaning of
+    repaq_tpu.ops.pallas_tpu.encode_frontend_pallas: (seq (n,) u8, qual
+    (n,) u8, bins (B,) u8, major) -> (packed ((n+3)//4,) u8, nmask (n,)
+    bool, bid (n,) int32), any n. bid: 0..B-1 palette entry, B escape, B+1
+    major. Pads to a multiple of 4 with 'G' and the major qual, launches
+    the frontend kernel (counted as ``encode_frontend_bytes``) and splits
+    its meta bytes."""
+    _check_frontend(seq, qual, bins, major, need4=False)
+    if not _on_cuda(seq, qual, bins):
+        return encode_frontend_bytes_plain(seq, qual, bins, major)
+    return _split_meta(*_frontend_launch(
+        "encode_frontend_bytes", _pad4(seq, _G), _pad4(qual, int(major)),
+        bins, int(major)), seq.shape[0])
+
+
+def pack_bases(seq: torch.Tensor) -> torch.Tensor:
+    """(n,) u8 bases -> ((n+3)//4,) packed bytes, any n, the tail padded
+    as 'G' (code 0): the signature and meaning of
+    repaq_tpu.ops.pallas_tpu.pack_bases_pallas."""
+    _check_u8("seq", seq)
+    if not _on_cuda(seq):
+        return pack_bases_plain(seq)
+    n = seq.shape[0]
+    out = torch.empty((n + 3) // 4, dtype=torch.uint8, device=seq.device)
+    if n == 0:
+        return out
     lib = _build.library()
-    seq, qual, bins = _aligned(seq), _aligned(qual), bins.contiguous()
-    packed = torch.empty(n // 4, dtype=torch.uint8, device=seq.device)
-    meta = torch.empty(n, dtype=torch.uint8, device=seq.device)
+    seq = _aligned(seq)
     with torch.cuda.device(seq.device):
-        _launch("encode_frontend", lib.repaq_encode_frontend,
-                seq.data_ptr(), qual.data_ptr(), bins.data_ptr(), nbins,
-                int(major), packed.data_ptr(), meta.data_ptr(), n,
-                _stream(seq.device))
-    return packed, meta
+        _launch("pack_bases", lib.repaq_pack_bases, seq.data_ptr(),
+                out.data_ptr(), n, _stream(seq.device))
+    return out
 
 
 # ---------------------------------------------------------------------------

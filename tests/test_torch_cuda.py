@@ -61,6 +61,36 @@ def test_frontend_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 4 * 1001 + 3, (1 << 20) + 12])
+def test_frontend_bytes_kernel_matches_plain(cuda, n):
+    seq, qual, table, major = _frontend_case(n, n, 0.01, True)
+    args = [torch.from_numpy(a).to(cuda) for a in (seq, qual, table)]
+    want = TK.encode_frontend_bytes_plain(*args, major)
+    before = TK.launches["encode_frontend_bytes"]
+    got = TK.encode_frontend_bytes(*args, major)
+    torch.cuda.synchronize()
+    assert TK.launches["encode_frontend_bytes"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 16, 4 * 1001 + 1, (1 << 20) + 15])
+def test_pack_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    seq = torch.from_numpy(_seq(n, rng, 0.01)).to(cuda)
+    before = TK.launches["pack_bases"]
+    got = TK.pack_bases(seq)
+    torch.cuda.synchronize()
+    assert TK.launches["pack_bases"] == before + 1
+    assert torch.equal(got, TK.pack_bases_plain(seq))
+    # a misaligned view is copied to an aligned buffer, not refused
+    if n > 1:
+        assert torch.equal(TK.pack_bases(seq[1:]),
+                           TK.pack_bases_plain(seq[1:]))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 3, 4, 10_001, 1 << 20])
 def test_unpack_kernel_matches_plain(cuda, m):
     rng = np.random.default_rng(m)
@@ -107,7 +137,54 @@ def test_engine_on_cuda_matches_host(cuda):
     assert np.array_equal(back.seq_flat, block.seq_flat)
     assert np.array_equal(back.qual_flat, block.qual_flat)
     assert eng.stats["device_chunks"] == eng.stats["device_decodes"] == 1
-    assert all(v > 0 for v in TK.launches.values()), TK.launches
+    for name in ("encode_frontend", "unpack_bases", "token_start_mask"):
+        assert TK.launches[name] > 0, TK.launches
+
+
+@pytest.mark.cuda
+def test_pe_engine_on_cuda_matches_host(cuda):
+    """One PE-interleaved chunk with overlaps and Ns through the engine on
+    the card: the host engine's bytes, the input back, and the kernels of
+    the PE path launched."""
+    eng = DeviceEngine(cuda, min_bases=0)
+    TK.reset_launches()
+    block = _mk_block(600, 96, seed=7, pe_overlap=0.5, nfrac=0.01)
+    header = vectorized.make_header_pe(block)
+    got = eng.encode_chunk(header, block, True)
+    assert got.to_bytes() == vectorized.encode_chunk(header, block,
+                                                     True).to_bytes()
+    back = eng.decode_chunk(header, got)
+    assert np.array_equal(back.seq_flat, block.seq_flat)
+    assert np.array_equal(back.qual_flat, block.qual_flat)
+    assert eng.stats["device_chunks"] == eng.stats["device_decodes"] == 1
+    for name in ("encode_frontend_bytes", "unpack_bases", "token_start_mask"):
+        assert TK.launches[name] > 0, TK.launches
+
+
+@pytest.mark.cuda
+def test_overlap_search_on_cuda_matches_cpu(cuda):
+    """The int64-masked uint32 hashes and the overlap search give the same
+    values on the card as on the CPU."""
+    from repaq_tpu_torch.ops import device_streams as T
+
+    rng = np.random.default_rng(4)
+    r1 = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(3000, 150))
+    r2 = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(3000, 150))
+    for i in range(0, 3000, 3):
+        o = int(rng.integers(12, 151))
+        r2[i, :o] = r1[i, 150 - o:]
+    for i in range(1, 3000, 3):
+        o = int(rng.integers(12, 151))
+        r1[i, :o] = r2[i, 150 - o:]
+    a, b = torch.from_numpy(r1), torch.from_numpy(r2)
+    for base in (T._OV_BASE1, T._OV_BASE2):
+        assert torch.equal(T._poly_prefix_hash(a.to(cuda), base).cpu(),
+                           T._poly_prefix_hash(a, base))
+        assert torch.equal(T._suffix_hash(a.to(cuda), base, 150).cpu(),
+                           T._suffix_hash(a, base, 150))
+    got = T.overlap_pairs_device(a.to(cuda), b.to(cuda))
+    for g, w in zip(got, T.overlap_pairs_device(a, b)):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda
@@ -139,6 +216,9 @@ def test_stream_coders_on_cuda_match_cpu(cuda, monkeypatch, wide):
             *T.qualcol_encode_device(m, q, 3, esc_cap=16),
             *T.qualcol_encode_device(m, q, 3, esc_cap=0),
             *T.encode_positions_from_meta(m, n, n // 8, pos_cap=1024),
+            *T.encode_positions_from_mask(m >= 0x80, n // 8, pos_cap=1024),
+            *T.qualcol_encode_device(None, q, 3, esc_cap=16,
+                                     bid=(m & 0x7F).int()),
             *T.coords_encode2_device(torch.from_numpy(xy).to(dev), 2108,
                                      n_valid=650),
         ]

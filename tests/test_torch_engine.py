@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 
 from repaq_tpu.codec import vectorized
-from repaq_tpu.codec.blocks import ReadBlock
+from repaq_tpu.codec.blocks import ReadBlock, lens_to_offsets
 from repaq_tpu.codec.oracle import FastqRead
 from repaq_tpu_torch import cli
 from repaq_tpu_torch.codec.device_engine import (DeviceEngine,
@@ -89,10 +89,27 @@ def test_ragged_se_on_device(eng):
     assert eng.stats["device_chunks"] == eng.stats["device_decodes"] == 1
 
 
+def _ragged_pe_block():
+    """An interleaved PE block with overlaps in which one pair's mates are
+    shorter than the rest."""
+    block = _mk_block(400, 90, seed=21, pe_overlap=0.5)
+    lens = np.diff(block.seq_off).copy()
+    lens[4:6] -= 7
+    off = lens_to_offsets(lens)
+    cut = [np.concatenate([flat[s: s + ln]
+                           for s, ln in zip(block.seq_off[:-1], lens)])
+           for flat in (block.seq_flat, block.qual_flat)]
+    return ReadBlock(block.n, block.name_flat, block.name_off, cut[0], off,
+                     block.strand_flat, block.strand_off, cut[1], off.copy())
+
+
 def test_pe_interleaved_chunks_take_the_host_route(eng):
-    block = _mk_block(600, 96, seed=7, pe_overlap=0.5)
+    """Interleaved PE chunks of ragged read lengths: the PE step works in a
+    (reads, L) grid, so they take the host engine both ways."""
+    block = _ragged_pe_block()
     header = vectorized.make_header_pe(block)
-    assert header.encode_pe_by_overlap()
+    a = vectorized.analyze_chunk(header, block, True)
+    assert a.can_interleave and a.encode_overlap and not a.read_len_same
     got = eng.encode_chunk(header, block, True)
     assert got.to_bytes() == vectorized.encode_chunk(header, block,
                                                      True).to_bytes()
@@ -100,6 +117,18 @@ def test_pe_interleaved_chunks_take_the_host_route(eng):
     assert np.array_equal(back.seq_flat, block.seq_flat)
     assert eng.stats == {"device_chunks": 0, "host_chunks": 1,
                          "device_decodes": 0, "host_decodes": 1}
+
+
+def test_pe_interleaved_chunks_take_the_device_path(eng):
+    block = _mk_block(600, 96, seed=7, pe_overlap=0.5)
+    header = vectorized.make_header_pe(block)
+    assert header.encode_pe_by_overlap()
+    got = eng.encode_chunk(header, block, True)
+    assert got.to_bytes() == vectorized.encode_chunk(header, block,
+                                                     True).to_bytes()
+    _roundtrip(eng, header, block, got)
+    assert eng.stats == {"device_chunks": 1, "host_chunks": 0,
+                         "device_decodes": 1, "host_decodes": 0}
 
 
 def test_size_window_routes():

@@ -121,6 +121,9 @@ def test_cpu_tensors_never_reach_the_build(monkeypatch):
     TK.reset_launches()
     u8 = torch.zeros(64, dtype=torch.uint8)
     TK.encode_frontend(u8, u8, torch.zeros(2, dtype=torch.uint8), 70)
+    TK.encode_frontend_bytes(u8[:7], u8[:7], torch.zeros(2, dtype=torch.uint8),
+                             70)
+    TK.pack_bases(u8[:7])
     TK.unpack_bases(u8)
     TK.token_start_mask(torch.ones(64, dtype=torch.int32))
     assert all(v == 0 for v in TK.launches.values())

@@ -1,0 +1,109 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch/CUDA port's paired-end path goes, on one
+CUDA card: chip_smoke.py's seeded PE corpus (2 x 320k reads of 150 bp in
+12-Mbase chunks) through ``repaq_tpu_torch.cli.main``, one cold round trip,
+then one warm encode and one warm decode, each under ``torch.profiler``.
+
+Run from the root of a checkout on a machine with a card:
+
+    python3 tools/profile_torch_pe.py [--pairs N] [--workers 8,1]
+
+For each worker count and direction it prints the wall time, the device
+time (kernels and copies, summed), the device's idle share of the wall,
+the host-device copies, the kernels with the most device time, and the
+time inside each of the engine's named stage ranges (``enc.*`` /
+``dec.*``, see repaq_tpu_torch/codec/device_engine.py). The profiler
+records the ranges of the thread that runs it only, so they show with
+one worker, where the pipeline runs each chunk inline.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def report(label: str, prof, wall: float) -> None:
+    from torch.autograd import DeviceType
+
+    dev_spans, host_spans, kernels = {}, {}, {}
+    busy = 0.0
+    for e in prof.events():
+        ranged = e.name.startswith(("enc.", "dec."))
+        if e.device_type != DeviceType.CUDA:
+            if ranged:  # the host side of a named range: time and calls
+                t, c = host_spans.get(e.name, (0.0, 0))
+                host_spans[e.name] = (t + e.cpu_time_total, c + 1)
+            continue
+        us = e.time_range.elapsed_us()
+        if ranged:  # the device-side extent of a named range
+            dev_spans[e.name] = dev_spans.get(e.name, 0.0) + us
+        else:
+            busy += us
+            kernels[e.name] = kernels.get(e.name, 0.0) + us
+    print("%s: wall %.3f s, device %.3f s, device idle %.1f%% of the wall"
+          % (label, wall, busy / 1e6, 100 * (1 - busy / 1e6 / wall)))
+    for name in sorted(set(dev_spans) | set(host_spans)):
+        t, c = host_spans.get(name, (0.0, 0))
+        print("  range %-15s device extent %.1f ms, host %.1f ms, %d calls"
+              % (name, dev_spans.get(name, 0.0) / 1e3, t / 1e3, c))
+    for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]):
+        if "Memcpy" in k or "Memset" in k:
+            print("  copy  %-40s %.1f ms" % (k[:40], v / 1e3))
+    for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
+        print("  kernel %6.1f ms %5.1f%%  %s"
+              % (v / 1e3, 100 * v / max(busy, 1e-9), k[:110]))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pairs", type=int, default=320_000)
+    ap.add_argument("--workers", default="8,1",
+                    help="comma-separated worker counts, one profile each")
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_pe: torch sees no CUDA device")
+        return 2
+    import chip_smoke
+    from repaq_tpu_torch import cli
+    from repaq_tpu_torch.codec.device_engine import DeviceEngine
+
+    work = os.path.join(ROOT, ".smoke", "profile")
+    os.makedirs(work, exist_ok=True)
+    fqs = [os.path.join(work, "r%d.fq" % m) for m in (1, 2)]
+    size = chip_smoke.make_pe_corpus(fqs, args.pairs, 150, seed=97)
+    rfq = os.path.join(work, "pe.rfq")
+    eng = DeviceEngine("cuda:0")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    print("card: %s; corpus %d FASTQ bytes" % (chip_smoke.card_line(), size))
+    for workers in args.workers.split(","):
+        w = ["-w", workers, "--engine", "device"]
+        enc = ["-c", "-i", fqs[0], "-I", fqs[1], "-o", rfq, "-k", "12000", *w]
+        dec = ["-d", "-i", rfq, "-o", fqs[0] + ".b", "-O", fqs[1] + ".b", *w]
+        for argv in (enc, dec):  # cold: torch's lazy setup, the build
+            if cli.main(argv, engine=eng.config()):
+                raise SystemExit("the CLI failed: %s" % argv)
+        for label, argv in (("encode", enc), ("decode", dec)):
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                if cli.main(argv, engine=eng.config()):
+                    raise SystemExit("the CLI failed: %s" % argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            report("%s, %s workers (%.1f MB/s)"
+                   % (label, workers, size / 1e6 / wall), prof, wall)
+    print("engine stats %s" % eng.stats)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
