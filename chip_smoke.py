@@ -13,9 +13,13 @@ Phases, each of which must pass:
      parallel);
   2. kernels: each CUDA kernel against its plain torch version on the card
      at the shapes its path gives it (12 Mbase for the SE path, the PE
-     path's 14,745,600-base padded chunk for the byte-form frontend),
+     path's 14,745,600-base padded chunk for the byte-form frontend; for
+     the rANS kernels the CLI's largest order-1 section, 2,285,523 bytes
+     in 2048 lanes, and a 16 MB order-0 section in 4096 lanes, both with
+     ragged lanes and held against the host coder's section bytes too),
      exact equality, both timed with CUDA events (median of 15 runs, L2
-     flushed before each);
+     flushed before each; the rANS kernels' plain versions, a Python loop
+     over the steps, median of 3);
   3. goldens: `python -m repaq_tpu_torch.cli -c --engine device` on the
      single-end fixtures and, with -i/-I and -o/-O, the paired-end ones,
      byte-compared with the reference encoder's goldens, and `-d` back to
@@ -33,7 +37,19 @@ Phases, each of which must pass:
      forward and backward mate overlaps, through -i/-I and -o/-O; the
      kernels of the PE path must have launched on it, and the shares of
      pairs stored with a forward and a backward overlap are printed and
-     must each be at least 1%.
+     must each be at least 1%;
+  6. `.rfqz`, both corpora: `-c -o x.rfqz --engine device` codes every
+     rANS section on the card, at the CLI's default 16,000-kb chunks (the
+     main path: the engine's 12-Mbase window sends the chunks to its host
+     route) and with `-k 12000` (the engine's workers run chunks on the
+     card while the main thread codes sections there; some chunk must take
+     the device engine). In both the bytes must equal the host coder's
+     (`--engine vectorized`, same chunking) and rans_encode must have
+     launched once per section that reached the section coder (none took
+     the host oracle). Then every rANS section of the default-chunk file
+     (the LZ sections' inner ones included) is decoded on the card and
+     held against rans_np, and `-d` must give the inputs back. The section
+     census, the ratio and both encode rates are printed.
 
 The last line of standard output is the JSON result; the two lines before
 it are the kernels' JSON record and the nvidia-smi name/power line. Without
@@ -42,7 +58,9 @@ CUDA, or outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gzip
+import io
 import json
 import os
 import shutil
@@ -66,7 +84,27 @@ KERNELS = [
      "repaq_tpu/ops/pallas_tpu.py:127", ("se", "pe")),
     ("token_start_mask", "repaq_tpu_torch/csrc/token_fsm.cu",
      "repaq_tpu/ops/pallas_tpu.py:175", ("se", "pe")),
+    # the rANS kernels replace XLA scans and a sort, not Pallas kernels
+    ("rans_encode", "repaq_tpu_torch/csrc/rans.cu",
+     "repaq_tpu/ops/rans_device.py:152", ("rfqz_se", "rfqz_pe")),
+    ("rans_layout", "repaq_tpu_torch/csrc/rans.cu",
+     "repaq_tpu/ops/rans_device.py:196", ("rfqz_se", "rfqz_pe")),
+    ("rans_decode", "repaq_tpu_torch/csrc/rans.cu",
+     "repaq_tpu/ops/rans_device.py:330", ()),
 ]
+
+# why a kernel is on no main path (its launches there are 0)
+NO_PATH = {
+    "pack_bases": "none: no production caller, in the JAX package either",
+    "rans_decode": "none: the CLI reads .rfqz with the host decoder, as the "
+                   "JAX CLI does; held against its plain version in phase 2 "
+                   "and against rans_np on every section in phase 6",
+}
+
+# rANS sections (order, bytes, lanes): an order-1 section the size of the
+# largest ones phase 6 codes (2048 lanes, one per 16,000-kb chunk), and a
+# 16 MB order-0 one (RfqzWriter's block size)
+RANS_SHAPES = [(1, 2_285_523, 2048), (0, 16_000_000, 4096)]
 
 # the 12-Mbase encode block of bench.py's device section (bench.py:1262)
 B_READS, READ_LEN = 77824, 152
@@ -264,6 +302,74 @@ def kernel_phase(dev) -> dict:
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         log("kernel %-21s exact at %s: %.4f ms, plain torch %.4f ms"
             % (name, shape, ms, plain_ms))
+    return results
+
+
+def rans_kernel_phase(dev) -> dict:
+    """The rANS kernels against their plain versions at RANS_SHAPES; the
+    section they make must also be the host coder's. Per kernel: the
+    largest error over the shapes and the times at the first shape."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu.codec import rans_np
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    rng = np.random.default_rng(330)
+    results = {}
+    for order, n, lanes in RANS_SHAPES:
+        if order:
+            data = rng.choice(np.frombuffer(NOVA_QUALS, np.uint8), size=n,
+                              p=NOVA_P)
+        else:
+            data = rng.choice(np.frombuffer(b"ACGTACGTN\x00\xff", np.uint8),
+                              size=n)
+        check(RD.encode_section_device(data, order, lanes, device=dev)
+              == rans_np.encode_section(data, order=order, lanes=lanes),
+              "rANS order-%d section of %d bytes differs from the host "
+              "coder's" % (order, n))
+        head, freqs, cum = RD.section_prologue(data, order, lanes)
+        sym = RD._parse_tables(memoryview(head), 7, order)[2]
+        d, f, c, sy = (torch.from_numpy(a).to(dev) for a in (
+            data, freqs.astype(np.int32), cum.astype(np.int32), sym))
+        off = rans_np.lane_slices(n, lanes)
+        cap = 2 * n + 4 * lanes + 8
+        payload, lane_bytes, total = RD.rans_encode_payload_device(
+            d, f, c, lanes, order, cap)
+        # the layout kernel is timed alone, on the encoder's outputs
+        enc = RD.rans_encode_device(d, f, c, lanes, order)
+        start = torch.cumsum(lane_bytes, 0) - lane_bytes
+        dec = (payload[:int(total)], lane_bytes, sy, f, c, lanes, 0, order)
+        out = RD.rans_decode_device(*dec, offsets=off)
+        check(np.array_equal(out.cpu().numpy(), data),
+              "rans_decode did not give the order-%d section back" % order)
+        cases = {
+            "rans_encode": (
+                lambda: RD.rans_encode_device(d, f, c, lanes, order),
+                lambda: RD.rans_encode_plain(d, f, c, lanes, order)),
+            "rans_layout": (lambda: RD.rans_layout(*enc, start, cap),
+                            lambda: RD.rans_layout_plain(*enc, start, cap)),
+            "rans_decode": (
+                lambda: RD.rans_decode_device(*dec, offsets=off),
+                lambda: RD.rans_decode_plain(*dec, offsets=off)),
+        }
+        shape = "order-%d %d B in %d lanes" % (order, n, lanes)
+        for name, (kern, plain) in cases.items():
+            got = kern()
+            want = plain()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            check(err == 0, "%s differs from its plain version at %s (max "
+                  "abs err %d)" % (name, shape, err))
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain, runs=3)
+            log("kernel %-21s exact at %s: %.4f ms, plain torch %.4f ms"
+                % (name, shape, ms, plain_ms))
+            r = results.setdefault(name, {"max_abs_err": err, "ms": ms,
+                                          "plain_ms": plain_ms,
+                                          "by_shape": {}})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["by_shape"][shape] = {"ms": ms, "plain_ms": plain_ms}
     return results
 
 
@@ -522,7 +628,7 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
             check(launches[name] > 0, "kernel %s never launched on the %s "
                   "path" % (name, tag))
     res = {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
-           "host_enc_s": host_s, "chunks": len(chunks)}
+           "host_enc_s": host_s, "chunks": len(chunks), "fqs": fqs}
     if pe:
         check(header.encode_pe_by_overlap(), "pe: no overlap elision")
         ov = np.concatenate([np.frombuffer(c.overlap_buf, np.int8)
@@ -535,6 +641,157 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
         check(res["fwd"] >= 0.01 and res["bwd"] >= 0.01,
               "pe: forward or backward overlap share below 1%")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: .rfqz, the device rANS stage
+# ---------------------------------------------------------------------------
+
+
+def rfqz_phase(tag: str, fqs: list, fastq_bytes: int) -> dict:
+    """A corpus of phase 4 or 5 to .rfqz through repaq_tpu_torch.cli.main
+    with --engine device, twice: at the CLI's default 16,000-kb chunks
+    (the main path, whose launch counts are reported; the engine's
+    12-Mbase window sends every chunk to its host route) and with -k
+    12000, where the engine's workers run chunks on cuda:0 while the main
+    thread codes sections there. Each is held against the host coder's
+    bytes at the same chunking. Then, outside the counted runs, every rANS
+    section of the default-chunk file is decoded on the card against
+    rans_np, and -d gives the inputs back."""
+    from collections import Counter
+
+    from repaq_tpu.codec import rans_np
+    from repaq_tpu.format import rfqz
+    from repaq_tpu_torch import cli
+    from repaq_tpu_torch.codec.device_engine import DeviceEngine
+    from repaq_tpu_torch.ops import kernels as TK
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    ins = ["-i", fqs[0]] + (["-I", fqs[1]] if len(fqs) > 1 else [])
+    backs = [os.path.join(WORK, "%s%d.rfqz.fq" % (tag, m))
+             for m in range(1, len(fqs) + 1)]
+    coder = RD.encode_section_device
+
+    def compress(dst: str, engine=None, extra=()):
+        """(wall s, the --profile stage lines) of one .rfqz compress: the
+        engine's config under --engine device, else the host coder."""
+        err = io.StringIO()
+        name = "vectorized" if engine is None else "device"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["-c", *ins, "-o", dst, *extra, "--engine", name,
+                           "--profile"],
+                          engine=None if engine is None else engine.config())
+        wall = time.perf_counter() - t0
+        check(rc == 0, "%s: .rfqz compress with --engine %s exited %d:\n%s"
+              % (tag, name, rc, err.getvalue()))
+        return wall, " ".join(" ".join(line.split()[1:3]) for line in
+                              err.getvalue().splitlines()
+                              if line.startswith("[profile]   "))
+
+    def device_compress(dst: str, extra=()) -> dict:
+        """One --engine device compress, launch counts from 0, with the
+        sections the coder was given ((order, n, lanes) each) and the wall
+        time inside it."""
+        eng = DeviceEngine("cuda:0")
+        census, coder_s = [], [0.0]
+
+        def counted(data, order=0, lanes=rans_np.DEFAULT_LANES, *, device):
+            census.append((order, len(data), max(1, min(lanes, len(data)))))
+            t0 = time.perf_counter()
+            try:
+                return coder(data, order, lanes, device=device)
+            finally:
+                coder_s[0] += time.perf_counter() - t0
+
+        TK.reset_launches()
+        RD.encode_section_device = counted
+        try:
+            wall, prof = compress(dst, eng, extra)
+        finally:
+            RD.encode_section_device = coder
+        launches = dict(TK.launches)
+        check(census, "%s: no section reached the device coder" % tag)
+        check(launches["rans_encode"] == launches["rans_layout"]
+              == len(census), "%s: %d sections reached the coder but "
+              "rans_encode launched %d times"
+              % (tag, len(census), launches["rans_encode"]))
+        return {"wall": wall, "prof": prof, "census": census,
+                "coder_s": coder_s[0], "launches": launches,
+                "stats": dict(eng.stats)}
+
+    runs = {}
+    for label, extra in (("default", ()), ("k12000", ("-k", "12000"))):
+        out = os.path.join(WORK, "%s.%s.rfqz" % (tag, label))
+        host_out = os.path.join(WORK, "%s.%s.host.rfqz" % (tag, label))
+        dev = device_compress(out, extra)
+        dev["host_s"], dev["host_prof"] = compress(host_out, None, extra)
+        with open(out, "rb") as f, open(host_out, "rb") as g:
+            check(f.read() == g.read(), "%s: .rfqz bytes (%s chunks) differ "
+                  "from the host coder's" % (tag, label))
+        dev["out"] = out
+        runs[label] = dev
+    main, shared = runs["default"], runs["k12000"]
+    frontend = "encode_frontend_bytes" if tag == "pe" else "encode_frontend"
+    check(shared["stats"]["device_chunks"] > 0
+          and shared["launches"][frontend] > 0,
+          "%s: with -k 12000 no chunk took the device engine (%s)"
+          % (tag, shared["stats"]))
+
+    decoded = []
+
+    def decode_both(buf, off=0):
+        want = rans_np.decode_section(buf, off)
+        got = RD.decode_section_device(buf, off, device="cuda:0")
+        check(got == want, "%s: device decode of the rANS section at %d "
+              "differs from rans_np's" % (tag, off))
+        decoded.append(len(want[0]))
+        return got
+
+    before = TK.launches["rans_decode"]
+    reader = rfqz.RfqzReader(main["out"], decode_section=decode_both)
+    rfq_bytes = len(reader.read())
+    reader.close()
+    check(decoded and TK.launches["rans_decode"] - before == len(decoded),
+          "%s: %d sections decoded but rans_decode launched %d times"
+          % (tag, len(decoded), TK.launches["rans_decode"] - before))
+    dec = ["-o", backs[0]] + (["-O", backs[1]] if len(backs) > 1 else [])
+    rc = cli.main(["-d", "-i", main["out"], *dec, "--engine", "device"])
+    check(rc == 0, "%s: .rfqz decompress exited %d" % (tag, rc))
+    for fq, back in zip(fqs, backs):
+        with open(fq, "rb") as f, open(back, "rb") as g:
+            check(f.read() == g.read(),
+                  "%s: .rfqz decode differs from the input" % fq)
+
+    census = main["census"]
+    by = Counter(("o%d" % o, "ragged" if n % ln else "equal")
+                 for o, n, ln in census)
+    log("rfqz %s: %d sections through the device coder (%s), %d B of "
+        "section input; largest %s; %d rANS sections decoded on the card "
+        "after the run, equal to rans_np's; launches %s"
+        % (tag, len(census), ", ".join("%s %s %d" % (k + (v,))
+                                       for k, v in sorted(by.items())),
+           sum(n for _o, n, _l in census),
+           sorted(census, key=lambda c: -c[1])[:4], len(decoded),
+           {k: v for k, v in main["launches"].items() if v}))
+    log("rfqz %s: census (order, bytes, lanes): %s; engine stats %s"
+        % (tag, census, main["stats"]))
+    log("rfqz %s: %.3f s of the %.3f s device-coder compress inside the "
+        "section coder (host prologue, copies, kernels); main-thread "
+        "stages: %s; host-coder compress %.3f s: %s"
+        % (tag, main["coder_s"], main["wall"], main["prof"],
+           main["host_s"], main["host_prof"]))
+    log("rfqz %s -k 12000: device engine and device coder on cuda:0 in one "
+        "compress, bytes equal to the host coder's: engine stats %s, %d "
+        "sections coded by rans_encode, launches %s; %.3f s (%.3f s in the "
+        "coder), host-coder compress %.3f s"
+        % (tag, shared["stats"], len(shared["census"]),
+           {k: v for k, v in shared["launches"].items() if v},
+           shared["wall"], shared["coder_s"], shared["host_s"]))
+    return {"launches": main["launches"], "bytes": fastq_bytes,
+            "size": os.path.getsize(main["out"]), "enc_s": main["wall"],
+            "host_s": main["host_s"], "rfq_bytes": rfq_bytes,
+            "sections": len(census), "coder_s": main["coder_s"]}
 
 
 # ---------------------------------------------------------------------------
@@ -565,13 +822,18 @@ def main() -> int:
 
     try:
         kres = kernel_phase(torch.device("cuda:0"))
+        kres.update(rans_kernel_phase(torch.device("cuda:0")))
         golden_phase()
         cres = {"se": corpus_phase("cuda:0", pe=False),
                 "pe": corpus_phase("cuda:0", pe=True)}
+        for tag in ("se", "pe"):
+            cres["rfqz_" + tag] = rfqz_phase(tag, cres[tag]["fqs"],
+                                             cres[tag]["bytes"])
     except SmokeFailure as e:
         log("chip_smoke: FAIL: %s" % e)
         return 1
-    for tag, res in cres.items():
+    for tag in ("se", "pe"):
+        res = cres[tag]
         mb = res["bytes"] / 1e6
         for label in ("cold", "warm"):
             enc_s, dec_s = res[label]
@@ -581,12 +843,18 @@ def main() -> int:
                 % (tag, label, mb / enc_s, enc_s, mb / dec_s, dec_s, card))
         log("corpus %s: host vectorized engine encode %.1f MB/s (%.3f s), "
             "same machine" % (tag, mb / res["host_enc_s"], res["host_enc_s"]))
+        rz = cres["rfqz_" + tag]
+        log("rfqz %s: %d B, %.4f%% of FASTQ; encode %.1f MB/s (%.3f s) with "
+            "the device coder (--engine device), %.1f MB/s (%.3f s) with the "
+            "host coder (--engine vectorized), FASTQ MB per wall second on %s"
+            % (tag, rz["size"], 100 * rz["size"] / res["bytes"],
+               mb / rz["enc_s"], rz["enc_s"], mb / rz["host_s"], rz["host_s"],
+               card))
     shutil.rmtree(WORK, ignore_errors=True)
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "paths": list(paths) or "none: no production caller, in the JAX "
-                                 "package either",
+         "paths": list(paths) or NO_PATH[name],
          "launches": sum(cres[t]["launches"][name] for t in paths),
          **kres[name]}
         for name, src, rep, paths in KERNELS

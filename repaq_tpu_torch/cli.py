@@ -1,16 +1,20 @@
 """Command-line interface of the PyTorch/CUDA port:
 ``python -m repaq_tpu_torch.cli``, flag-compatible with ``repaq_tpu.cli``
-for ``.rfq`` and ``.rfq.xz`` files.
+for ``.rfq``, ``.rfq.xz`` and ``.rfqz`` files.
 
 It reuses the JAX package's argument parser, validation messages and
 pipeline functions (none of which import JAX) and binds ``--engine device``
 to the torch engine on ``cuda:0``. ``auto`` picks that engine when CUDA is
 available and the host ``vectorized`` engine otherwise. The device engine
 never runs on the CPU: without CUDA, ``--engine device`` exits non-zero.
+Under ``--engine device`` a ``.rfqz`` output's rANS sections are coded on
+``cuda:0`` too (``ops/rans_device.py``), where the JAX CLI uses its device
+coder; ``.rfqz`` input is read with the host decoder, as there.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import subprocess
 import sys
@@ -20,6 +24,7 @@ import torch
 from repaq_tpu import cli as _base
 from repaq_tpu import pipeline
 from repaq_tpu.format.header import RfqFormatError
+from repaq_tpu.format.rfqz import RfqzReader, RfqzWriter
 
 _die = _base._die
 
@@ -27,7 +32,6 @@ _die = _base._die
 _NOT_YET = {
     "--mesh_devices": "A8 (multi-GPU)",
     "--num_shards": "A10 (multi-host)",
-    ".rfqz": "A9 (device rANS)",
 }
 
 
@@ -48,6 +52,17 @@ def get_engine(name: str = "auto") -> pipeline.EngineConfig:
 
         return make_engine_config("cuda:0")
     return pipeline.get_engine(name)
+
+
+def rfqz_section_coder(engine_name: str):
+    """The section coder a .rfqz output uses: the port's device rANS on
+    cuda:0 under --engine device, where the JAX CLI uses its own
+    (repaq_tpu/cli.py:398-411), else None, the host coder."""
+    if engine_name != "device":
+        return None
+    from .ops.rans_device import encode_section_device
+
+    return functools.partial(encode_section_device, device="cuda:0")
 
 
 def _reject_not_yet(what: str) -> None:
@@ -86,8 +101,14 @@ def main(argv: list[str] | None = None,
     else:
         mode = "compress"
 
-    chunk_size = (max(100, args.chunk) * 1000 if args.chunk is not None
-                  else 1_000_000)
+    if args.chunk is not None:
+        chunk_size = max(100, args.chunk) * 1000
+    elif (mode == "compress" and args.out1.endswith(".rfqz")
+          and not args.stdout):
+        # the JAX CLI's .rfqz default; --stdout writes a plain .rfq stream
+        chunk_size = 16_000_000
+    else:
+        chunk_size = 1_000_000
     threads = max(1, min(16, args.thread))
     compression = max(1, min(9, args.compression))
 
@@ -160,8 +181,6 @@ def main(argv: list[str] | None = None,
         _die("STDIN cannot be read when the input is a .xz file")
     if out1.endswith(".xz") and args.stdout:
         _die("STDOUT cannot be written when the output is a .xz file")
-    if any(p.endswith(".rfqz") for p in (in1, out1, rfq_compare)):
-        _reject_not_yet(".rfqz")
 
     if args.profile:
         os.environ["REPAQ_PROFILE"] = "1"
@@ -170,7 +189,12 @@ def main(argv: list[str] | None = None,
 
     try:
         if mode == "compress":
-            if out1.endswith(".xz"):
+            if out1.endswith(".rfqz"):
+                w = RfqzWriter(out1,
+                               encode_section=rfqz_section_coder(args.engine))
+                _base._run_compress(args, in1, "", chunk_size, engine, w)
+                w.close()
+            elif out1.endswith(".xz"):
                 xz = subprocess.Popen(
                     _base._xz_compress_args(compression, threads),
                     stdin=subprocess.PIPE,
@@ -184,7 +208,10 @@ def main(argv: list[str] | None = None,
             else:
                 _base._run_compress(args, in1, out1, chunk_size, engine, None)
         elif mode == "decompress":
-            if in1.endswith(".xz"):
+            if in1.endswith(".rfqz"):
+                _base._run_decompress(args, "", out1, engine,
+                                      RfqzReader(in1))
+            elif in1.endswith(".xz"):
                 xz = subprocess.Popen(
                     ["xz", "-d", "-c", in1], stdout=subprocess.PIPE
                 )
@@ -194,7 +221,10 @@ def main(argv: list[str] | None = None,
             else:
                 _base._run_decompress(args, in1, out1, engine, None)
         else:
-            if rfq_compare.endswith(".xz"):
+            if rfq_compare.endswith(".rfqz"):
+                result = _base._run_compare(args, in1, "", engine,
+                                            RfqzReader(rfq_compare))
+            elif rfq_compare.endswith(".xz"):
                 xz = subprocess.Popen(
                     ["xz", "-d", "-c", rfq_compare], stdout=subprocess.PIPE
                 )

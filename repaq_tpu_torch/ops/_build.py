@@ -111,6 +111,12 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_token_start_mask.restype = ci
     lib.repaq_token_fsm_scratch.argtypes = [ll]
     lib.repaq_token_fsm_scratch.restype = ll
+    lib.repaq_rans_encode.argtypes = [vp, vp, ci, vp, ci, ll, vp, vp, vp, vp]
+    lib.repaq_rans_encode.restype = ci
+    lib.repaq_rans_layout.argtypes = [vp, vp, vp, vp, ci, ll, vp, ll, vp]
+    lib.repaq_rans_layout.restype = ci
+    lib.repaq_rans_decode.argtypes = [vp, ll, vp, vp, ci, vp, vp, ci, vp, vp]
+    lib.repaq_rans_decode.restype = ci
     return lib
 
 

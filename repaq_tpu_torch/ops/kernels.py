@@ -5,7 +5,8 @@ Every wrapper decides by the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (built on
 first use by ``_build``) and raises if the launch is refused. There is no
 fallback from one to the other. ``launches`` counts kernel launches per
-wrapper, so a run can show that its main path went through the kernels.
+wrapper, so a run can show that its main path went through the kernels;
+the rANS wrappers of ``rans_device`` count here too.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from . import _build
 _G, _A, _T, _C, _N = 71, 65, 84, 67, 78
 
 launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
-            "pack_bases": 0, "unpack_bases": 0, "token_start_mask": 0}
+            "pack_bases": 0, "unpack_bases": 0, "token_start_mask": 0,
+            "rans_encode": 0, "rans_layout": 0, "rans_decode": 0}
 _launch_lock = threading.Lock()
 
 

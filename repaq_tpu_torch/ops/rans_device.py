@@ -1,0 +1,477 @@
+"""The `.rfqz` second entropy stage on the card: interleaved rANS, the port
+of repaq_tpu/ops/rans_device.py, byte-exact with the host oracle
+repaq_tpu/codec/rans_np.py.
+
+A section's bytes are cut into L contiguous lane slices
+(``rans_np.lane_slices``: the first ``n % L`` lanes take one byte more),
+and each lane is an independent 32-bit rANS stream (16-bit
+renormalisation, 12-bit scale; order-1 contexts are the previous byte of
+the same lane). The JAX module codes only sections with ``n % L == 0`` and
+sends the rest to the host oracle; the writer rarely makes such sections,
+so here every lane has its own length and every section takes the kernels.
+
+Three CUDA kernels (``csrc/rans.cu``) replace the JAX module's two
+``lax.scan`` loops and its payload sort:
+
+- ``rans_encode``: one thread per lane walks its slice backwards and
+  writes, per step, the word and whether it was emitted, in JAX's
+  (steps, lanes) layout, and the lane's final state;
+- ``rans_layout``: writes each lane's final state and emitted words in
+  decode order to the lane's start in the payload (every destination once,
+  no sort);
+- ``rans_decode``: one thread per lane runs the decoder forward over its
+  payload bytes into its slice of the output.
+
+The wrappers follow ops/kernels.py: a CPU tensor runs the plain torch
+version (same signature, the lanes in lockstep, one step of int64
+elementwise ops per symbol, uint32 values masked), a CUDA tensor launches
+the kernel or raises, and every launch counts in ``kernels.launches``.
+
+The section drivers ``encode_section_device`` and ``decode_section_device``
+are drop-ins for ``rans_np.encode_section`` and ``rans_np.decode_section``
+(same bytes, same return values) with an explicit ``device``. The header
+and the frequency tables are built and parsed on the host with rans_np's
+own functions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repaq_tpu.codec import rans_np
+
+from . import _build
+from .kernels import _check_u8, _launch, _on_cuda, _stream
+
+SCALE_BITS = rans_np.SCALE_BITS
+SCALE = rans_np.SCALE
+RANS_L = rans_np.RANS_L
+_U32 = 0xFFFFFFFF
+
+
+def _as_u8(data) -> np.ndarray:
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        return np.frombuffer(data, dtype=np.uint8)
+    return np.asarray(data, dtype=np.uint8)
+
+
+def _to(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on `device` (copied first when numpy holds
+    it read-only, as for arrays over bytes)."""
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+
+
+# ---------------------------------------------------------------------------
+# host side: header and tables
+# ---------------------------------------------------------------------------
+
+
+def section_prologue(arr: np.ndarray, order: int, lanes: int):
+    """Header and tables of a section of n = len(arr) >= 1 bytes in
+    1 <= lanes <= n lanes, as rans_np.encode_section builds them
+    (rans_np.py:298-343), the order-1 lane-boundary corrections included.
+    Returns (head bytes, freqs, cum): (256,) int64 tables for order-0,
+    (256, 256) for order-1 (row = context); cum is exclusive."""
+    n = arr.shape[0]
+    head = bytearray([order])
+    head += n.to_bytes(4, "little")
+    head += lanes.to_bytes(2, "little")
+    if order == 0:
+        freqs = rans_np.quantize_freqs(np.bincount(arr, minlength=256))
+        head += rans_np.serialize_table(freqs)
+    else:
+        ctx = np.bincount((arr[:-1].astype(np.int64) << 8) | arr[1:],
+                          minlength=65536)
+        starts = rans_np.lane_slices(n, lanes)[:-1]
+        # each lane's first byte has context 0, and the pair that
+        # straddles a lane start is not coded
+        inner = starts[1:]
+        np.subtract.at(ctx, (arr[inner - 1].astype(np.int64) << 8)
+                       | arr[inner], 1)
+        np.add.at(ctx, arr[starts].astype(np.int64), 1)
+        ctx = ctx.reshape(256, 256)
+        freqs = np.zeros((256, 256), dtype=np.int64)
+        for c in np.flatnonzero(ctx.any(axis=1)):
+            freqs[c] = rans_np.quantize_freqs(ctx[c])
+        head += rans_np.pack_ctx_tables(freqs)
+    return bytes(head), freqs, np.cumsum(freqs, axis=-1) - freqs
+
+
+def _parse_tables(buf: memoryview, off: int, order: int):
+    """(freqs, cum, sym_lut, new off) of a section's table block: sym_lut
+    is (SCALE,) u8 for order-0 and (256, SCALE) for order-1."""
+    sym_of = np.arange(256, dtype=np.uint8)
+    if order == 0:
+        freqs, off = rans_np.parse_table(buf, off)
+        sym = np.repeat(sym_of, freqs)
+    else:
+        freqs, off = rans_np.unpack_ctx_tables(buf, off)
+        sym = np.zeros((256, SCALE), dtype=np.uint8)
+        for c in np.flatnonzero(freqs.any(axis=1)):
+            sym[c] = np.repeat(sym_of, freqs[c])
+    return freqs, np.cumsum(freqs, axis=-1) - freqs, sym, off
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers and their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _lane_offsets(n: int, lanes: int, offsets) -> tuple[np.ndarray, int]:
+    """Host lane offsets (lanes+1,) int64 (rans_np.lane_slices unless
+    given) and the longest lane's length."""
+    if lanes < 1:
+        raise ValueError("need at least one lane, got %d" % lanes)
+    if offsets is None:
+        off = rans_np.lane_slices(n, lanes)
+    else:
+        off = np.asarray(offsets, dtype=np.int64)
+        if (off.shape != (lanes + 1,) or off[0] != 0 or off[-1] != n
+                or (np.diff(off) < 0).any()):
+            raise ValueError("offsets must be (lanes+1,) ascending from 0 "
+                             "to n=%d" % n)
+    return off, int(np.diff(off).max())
+
+
+def _fc_table(freq_lut: torch.Tensor, cum_lut: torch.Tensor, order: int):
+    """freq | cum << 16 in one int32 per entry (freq <= SCALE, cum <
+    SCALE): (256,) for order-0, (65536,) for order-1 (context-major)."""
+    shape = (256,) if order == 0 else (256, 256)
+    if tuple(freq_lut.shape) != shape or tuple(cum_lut.shape) != shape:
+        raise ValueError("order-%d tables must be %s, got %s and %s"
+                         % (order, shape, tuple(freq_lut.shape),
+                            tuple(cum_lut.shape)))
+    return (freq_lut.to(torch.int32)
+            | (cum_lut.to(torch.int32) << 16)).reshape(-1).contiguous()
+
+
+def _check_order(order: int) -> None:
+    if order not in (0, 1):
+        raise ValueError("order must be 0 or 1, got %r" % (order,))
+
+
+def rans_encode_plain(data: torch.Tensor, freq_lut: torch.Tensor,
+                      cum_lut: torch.Tensor, lanes: int, order: int):
+    """Plain torch version of ``rans_encode_device``."""
+    _check_order(order)
+    off_np, steps = _lane_offsets(data.shape[0], lanes, None)
+    fc = _fc_table(freq_lut, cum_lut, order).long()
+    dev = data.device
+    off = torch.from_numpy(off_np).to(dev)
+    begin, end = off[:-1], off[1:]
+    lens = end - begin
+    d = data.long()
+    x = torch.full((lanes,), RANS_L, dtype=torch.int64, device=dev)
+    words = torch.zeros((steps, lanes), dtype=torch.int32, device=dev)
+    emits = torch.zeros((steps, lanes), dtype=torch.bool, device=dev)
+    for k in range(steps):
+        act = lens > k
+        p = (end - 1 - k).clamp(min=0)
+        s = d[p]
+        if order == 0:
+            e = fc[s]
+        else:
+            prev = torch.where(p > begin, d[(p - 1).clamp(min=0)], 0)
+            e = fc[(prev << 8) | s]
+        f = torch.where(act, e & 0xFFFF, 1)
+        emit = act & ((x >> 20) >= f)
+        words[k] = torch.where(act, x & 0xFFFF, 0).to(torch.int32)
+        emits[k] = emit
+        x = torch.where(emit, x >> 16, x)
+        x = torch.where(act, (((x // f) << SCALE_BITS) + x % f + (e >> 16))
+                        & _U32, x)
+    return words.to(torch.uint16), emits, x
+
+
+def rans_encode_device(data: torch.Tensor, freq_lut: torch.Tensor,
+                       cum_lut: torch.Tensor, lanes: int, order: int):
+    """Encode (n,) u8 data in `lanes` lanes with per-symbol tables: the
+    signature and result of repaq_tpu.ops.rans_device.rans_encode_device
+    (:110), which takes only n % lanes == 0, for any n.
+
+    freq_lut/cum_lut: (256,) ints for order-0, (256, 256) for order-1 (row
+    = the previous byte's context), on data's device. Lane i codes
+    data[off[i]:off[i+1]] with off = rans_np.lane_slices(n, lanes): JAX's
+    grid on the equal split, the host coder's lanes on a ragged one (the
+    first n % lanes lanes one byte longer). Returns (words
+    (steps, lanes) uint16 in encoder order, emits (steps, lanes) bool,
+    final (lanes,) int64 states in [2^16, 2^32)): row k of lane i codes the
+    lane's k-th byte from its end, steps is the longest lane, and rows past
+    a shorter lane's end are 0 and not emitted. The kernel is
+    ``rans_encode``."""
+    _check_u8("data", data)
+    _check_order(order)
+    off_np, steps = _lane_offsets(data.shape[0], lanes, None)
+    fc = _fc_table(freq_lut, cum_lut, order)
+    if not _on_cuda(data, fc):
+        return rans_encode_plain(data, freq_lut, cum_lut, lanes, order)
+    lib = _build.library()
+    dev = data.device
+    data = data.contiguous()
+    off = torch.from_numpy(off_np).to(dev)
+    words = torch.empty((steps, lanes), dtype=torch.uint16, device=dev)
+    emits = torch.empty((steps, lanes), dtype=torch.bool, device=dev)
+    final = torch.empty(lanes, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        _launch("rans_encode", lib.repaq_rans_encode, data.data_ptr(),
+                off.data_ptr(), lanes, fc.data_ptr(), order, steps,
+                words.data_ptr(), emits.data_ptr(), final.data_ptr(),
+                _stream(dev))
+    return words, emits, final
+
+
+def rans_layout_plain(words: torch.Tensor, emits: torch.Tensor,
+                      final: torch.Tensor, start: torch.Tensor,
+                      out_cap: int) -> torch.Tensor:
+    """Plain torch version of ``rans_layout``."""
+    dev = words.device
+    # the word emitted at step k comes after every word emitted later in
+    # the scan: its place in decode order is the count of those
+    rank = emits.flip(0).long().cumsum(0).flip(0) - 1
+    at = (start[None, :] + 4 + 2 * rank)[emits]
+    w = words.long()[emits]
+    b = torch.arange(4, device=dev)
+    pos = torch.cat([(start[:, None] + b).reshape(-1), at, at + 1])
+    val = torch.cat([((final[:, None] >> (8 * b)) & 0xFF).reshape(-1),
+                     w >> 8, w & 0xFF])
+    keep = pos < out_cap
+    payload = torch.zeros(out_cap, dtype=torch.uint8, device=dev)
+    payload[pos[keep]] = val[keep].to(torch.uint8)
+    return payload
+
+
+def rans_layout(words: torch.Tensor, emits: torch.Tensor,
+                final: torch.Tensor, start: torch.Tensor,
+                out_cap: int) -> torch.Tensor:
+    """The payload image (out_cap,) u8 of ``rans_encode_device``'s result:
+    from start[i], lane i's final state (4 bytes LE), then its emitted
+    words in decode order (the scan's last emitted word first), high byte
+    first. Bytes at or past out_cap are dropped; the rest is zero. The
+    kernel is ``rans_layout``."""
+    if (words.dim() != 2 or emits.shape != words.shape
+            or final.shape != (words.shape[1],) or start.shape != final.shape
+            or words.dtype != torch.uint16 or emits.dtype != torch.bool):
+        raise ValueError("need words (steps, lanes) uint16, emits of their "
+                         "shape bool, final and start (lanes,)")
+    if not _on_cuda(words, emits, final, start):
+        return rans_layout_plain(words, emits, final, start, out_cap)
+    lib = _build.library()
+    dev = words.device
+    steps, lanes = words.shape
+    words, emits = words.contiguous(), emits.contiguous()
+    final = final.to(torch.int64).contiguous()
+    start = start.to(torch.int64).contiguous()
+    payload = torch.zeros(out_cap, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        _launch("rans_layout", lib.repaq_rans_layout, words.data_ptr(),
+                emits.data_ptr(), final.data_ptr(), start.data_ptr(), lanes,
+                steps, payload.data_ptr(), out_cap, _stream(dev))
+    return payload
+
+
+def rans_encode_payload_device(data: torch.Tensor, freq_lut: torch.Tensor,
+                               cum_lut: torch.Tensor, lanes: int, order: int,
+                               out_cap: int):
+    """Encode to the container's payload image: the signature and result
+    of repaq_tpu.ops.rans_device.rans_encode_payload_device (:158). Per
+    lane [4 B final state LE][u16 words in decode order, high byte first],
+    lanes back to back, any n (lanes as in ``rans_encode_device``).
+    Returns (payload (out_cap,) u8 zero-padded, lane_bytes (lanes,) int64,
+    total 0-d int64), all on data's device."""
+    words, emits, final = rans_encode_device(data, freq_lut, cum_lut, lanes,
+                                             order)
+    lane_bytes = 4 + 2 * emits.sum(0)
+    start = torch.cumsum(lane_bytes, 0) - lane_bytes
+    payload = rans_layout(words, emits, final, start, out_cap)
+    return payload, lane_bytes, lane_bytes.sum()
+
+
+def _decode_args(payload, lane_counts, lanes, steps, offsets):
+    """Host lane offsets and the lanes' payload starts (lanes+1,) int64 on
+    the payload's device."""
+    _check_u8("payload", payload)
+    if tuple(lane_counts.shape) != (lanes,):
+        raise ValueError("lane_counts must be (%d,), got %s"
+                         % (lanes, tuple(lane_counts.shape)))
+    if offsets is None:
+        if lanes < 1:
+            raise ValueError("need at least one lane, got %d" % lanes)
+        off = np.arange(lanes + 1, dtype=np.int64) * steps
+    else:
+        off, _ = _lane_offsets(int(np.asarray(offsets)[-1]), lanes, offsets)
+    zero = torch.zeros(1, dtype=torch.int64, device=lane_counts.device)
+    lane_start = torch.cat([zero, torch.cumsum(lane_counts.long(), 0)])
+    return off, lane_start
+
+
+def _decode_result(out: torch.Tensor, lanes: int, steps: int, offsets):
+    return out.view(lanes, steps).T if offsets is None else out
+
+
+def rans_decode_plain(payload: torch.Tensor, lane_counts: torch.Tensor,
+                      sym_lut: torch.Tensor, freq_lut: torch.Tensor,
+                      cum_lut: torch.Tensor, lanes: int, steps: int,
+                      order: int, *, offsets=None) -> torch.Tensor:
+    """Plain torch version of ``rans_decode_device``."""
+    _check_order(order)
+    off_np, lane_start = _decode_args(payload, lane_counts, lanes, steps,
+                                      offsets)
+    fc = _fc_table(freq_lut, cum_lut, order).long()
+    dev = payload.device
+    lens = torch.from_numpy(np.diff(off_np)).to(dev)
+    plen = payload.shape[0]
+    # one zero byte past the end: every masked read lands there
+    p = torch.cat([payload.long(), torch.zeros(1, dtype=torch.int64,
+                                               device=dev)])
+    lane_end = lane_start[1:].clamp(max=plen)
+
+    def byte(pos, ok):
+        return p[torch.where(ok, pos, plen)]
+
+    ptr = lane_start[:-1].clone()
+    x = torch.zeros(lanes, dtype=torch.int64, device=dev)
+    for b in range(4):
+        x |= byte(ptr, ptr < lane_end) << (8 * b)
+        ptr += 1
+    sym = sym_lut.reshape(-1).long()
+    prev = torch.zeros(lanes, dtype=torch.int64, device=dev)
+    grid = torch.zeros((lanes, int(lens.max())), dtype=torch.uint8,
+                       device=dev)
+    for k in range(grid.shape[1]):
+        act = lens > k
+        slot = x & (SCALE - 1)
+        if order == 0:
+            s = sym[slot]
+            e = fc[s]
+        else:
+            s = sym[(prev << SCALE_BITS) | slot]
+            e = fc[(prev << 8) | s]
+        xn = ((e & 0xFFFF) * (x >> SCALE_BITS) + slot - (e >> 16)) & _U32
+        need = act & (xn < RANS_L) & (ptr + 1 < lane_end)
+        word = (byte(ptr, need) << 8) | byte(ptr + 1, need)
+        xn = torch.where(need, ((xn << 16) | word) & _U32, xn)
+        ptr = torch.where(need, ptr + 2, ptr)
+        x = torch.where(act, xn, x)
+        prev = torch.where(act, s, prev)
+        grid[:, k] = s.to(torch.uint8)
+    keep = torch.arange(grid.shape[1], device=dev)[None, :] < lens[:, None]
+    return _decode_result(grid[keep], lanes, steps, offsets)
+
+
+def rans_decode_device(payload: torch.Tensor, lane_counts: torch.Tensor,
+                       sym_lut: torch.Tensor, freq_lut: torch.Tensor,
+                       cum_lut: torch.Tensor, lanes: int, steps: int,
+                       order: int, *, offsets=None) -> torch.Tensor:
+    """Decode a payload image: the signature of the general path of
+    repaq_tpu.ops.rans_device.rans_decode_device (:250).
+
+    payload: the lanes' bytes back to back (no padding needed; reads never
+    pass a lane's end or the payload's); lane_counts (lanes,) bytes per
+    lane; sym_lut (SCALE,) u8 for order-0, (256, SCALE) for order-1;
+    freq_lut/cum_lut as for ``rans_encode_device``. Without `offsets`, the
+    equal split of lanes * steps bytes, returned as JAX's (steps, lanes)
+    grid; with host `offsets` (lanes+1,), lane i decodes into
+    out[off[i]:off[i+1]] of the flat (off[-1],) result (steps is then
+    unused). The kernel is ``rans_decode``."""
+    _check_order(order)
+    off_np, lane_start = _decode_args(payload, lane_counts, lanes, steps,
+                                      offsets)
+    fc = _fc_table(freq_lut, cum_lut, order)
+    sym = sym_lut.reshape(-1)
+    if sym.shape[0] != SCALE * (1 if order == 0 else 256):
+        raise ValueError("sym_lut must hold %d entries per context"
+                         % SCALE)
+    if not _on_cuda(payload, lane_start, sym, fc):
+        return rans_decode_plain(payload, lane_counts, sym_lut, freq_lut,
+                                 cum_lut, lanes, steps, order,
+                                 offsets=offsets)
+    lib = _build.library()
+    dev = payload.device
+    payload = payload.contiguous()
+    sym = sym.to(torch.uint8).contiguous()
+    # each slot's entry beside its symbol: the kernel loads both at once
+    rows = 1 if order == 0 else 256
+    fcs = fc.view(rows, 256).gather(1, sym.view(rows, SCALE).long())
+    off = torch.from_numpy(off_np).to(dev)
+    out = torch.empty(int(off_np[-1]), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        _launch("rans_decode", lib.repaq_rans_decode, payload.data_ptr(),
+                payload.shape[0], lane_start.data_ptr(), off.data_ptr(),
+                lanes, sym.data_ptr(), fcs.data_ptr(), order, out.data_ptr(),
+                _stream(dev))
+    return _decode_result(out, lanes, steps, offsets)
+
+
+# ---------------------------------------------------------------------------
+# section drivers, byte-compatible with rans_np
+# ---------------------------------------------------------------------------
+
+
+def encode_section_device(data, order: int = 0,
+                          lanes: int = rans_np.DEFAULT_LANES, *,
+                          device) -> bytes:
+    """Drop-in for rans_np.encode_section(data, order, lanes): the same
+    bytes for every n, ragged lanes included, with the coder on `device`
+    (a CUDA device launches the kernels; the CPU runs their plain
+    versions). RfqzWriter takes it with the device bound
+    (functools.partial)."""
+    arr = _as_u8(data)
+    n = arr.shape[0]
+    lanes = max(1, min(lanes, n))
+    if n == 0:
+        return (bytes([order]) + (0).to_bytes(4, "little")
+                + lanes.to_bytes(2, "little") + (0).to_bytes(4, "little"))
+    head, freqs, cum = section_prologue(arr, order, lanes)
+    dev = torch.device(device)
+    payload, lane_bytes, total = rans_encode_payload_device(
+        _to(arr, dev), _to(freqs.astype(np.int32), dev),
+        _to(cum.astype(np.int32), dev), lanes, order,
+        out_cap=2 * n + 4 * lanes + 8)
+    total = int(total)
+    return b"".join([head, total.to_bytes(4, "little"),
+                     lane_bytes.cpu().numpy().astype("<u4").tobytes(),
+                     payload[:total].cpu().numpy().tobytes()])
+
+
+def decode_section_device(buf, off: int = 0, *, device) -> tuple[bytes, int]:
+    """Drop-in for rans_np.decode_section(buf, off): (raw bytes, offset
+    past the section), with the decoder on `device`. The section is
+    checked before any launch: a short buffer raises
+    ``rans_np.RansTruncated`` (a ValueError; "rANS section truncated"
+    past the tables, as the JAX module says), a bad lane table
+    ValueError("rANS section lane table corrupt")."""
+    buf = memoryview(buf)
+    if len(buf) - off < 7:
+        raise rans_np.RansTruncated("rANS section truncated (header)")
+    order = 1 if buf[off] else 0
+    n = int.from_bytes(buf[off + 1 : off + 5], "little")
+    lanes = int.from_bytes(buf[off + 5 : off + 7], "little")
+    off += 7
+    if n == 0:
+        if len(buf) - off < 4:
+            raise rans_np.RansTruncated(
+                "rANS section truncated (empty payload len)")
+        return b"", off + 4
+    if lanes < 1:
+        raise ValueError("rANS section lane count corrupt (0 with n > 0)")
+    freqs, cum, sym, off = _parse_tables(buf, off, order)
+    payload_len = int.from_bytes(buf[off : off + 4], "little")
+    off += 4
+    if off + 4 * lanes + payload_len > len(buf):
+        raise rans_np.RansTruncated("rANS section truncated")
+    counts = np.frombuffer(buf, dtype="<u4", count=lanes,
+                           offset=off).astype(np.int64)
+    off += 4 * lanes
+    payload = np.frombuffer(buf, dtype=np.uint8, count=payload_len,
+                            offset=off)
+    off += payload_len
+    if (int(counts.sum()) != payload_len or (counts < 4).any()
+            or ((counts - 4) % 2).any()):
+        raise ValueError("rANS section lane table corrupt")
+    dev = torch.device(device)
+    out = rans_decode_device(
+        _to(payload, dev), _to(counts, dev), _to(sym, dev),
+        _to(freqs.astype(np.int32), dev), _to(cum.astype(np.int32), dev),
+        lanes, 0, order, offsets=rans_np.lane_slices(n, lanes))
+    return out.cpu().numpy().tobytes(), off

@@ -13,10 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from repaq_tpu.codec import rans_np as R
 from repaq_tpu.codec import vectorized
+from repaq_tpu_torch import cli as tcli
 from repaq_tpu_torch.codec.device_engine import DeviceEngine
 from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
+from repaq_tpu_torch.ops import rans_device as RD
 
 from test_device_engine import _mk_block
 
@@ -235,3 +238,92 @@ def test_stream_coders_on_cuda_match_cpu(cuda, monkeypatch, wide):
             torch.from_numpy(table).to(cuda), 70, n, enc.shape[0],
             esc_cap=16, run_cap=run_cap)
         assert np.array_equal(got.cpu().numpy(), qual)
+
+
+def _rans_data(n, order, seed):
+    """Quality-like bytes with context for order-1, a skewed alphabet
+    with a random tail for order-0."""
+    rng = np.random.default_rng(seed)
+    if order:
+        return rng.choice(np.frombuffer(b"F:,#", np.uint8), size=n,
+                          p=[0.86, 0.09, 0.04, 0.01])
+    data = rng.choice(np.frombuffer(b"ACGTACGTN\x00\xff", np.uint8), size=n)
+    data[-(n // 8):] = rng.integers(0, 256, size=n // 8, dtype=np.uint8)
+    return data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [0, 1])
+@pytest.mark.parametrize("n,lanes", [(16 * 300, 16), (1003, 64),
+                                     (2048 * 1115 + 2003, 2048),
+                                     (4096 * 400, 4096)])
+def test_rans_kernels_match_plain(cuda, order, n, lanes):
+    """rans_encode, rans_layout and rans_decode against their plain
+    versions on the card, equal and ragged splits."""
+    data = _rans_data(n, order, n + order)
+    _head, freqs, cum = RD.section_prologue(data, order, lanes)
+    d = torch.from_numpy(data).to(cuda)
+    f = torch.from_numpy(freqs.astype(np.int32)).to(cuda)
+    c = torch.from_numpy(cum.astype(np.int32)).to(cuda)
+    before = dict(TK.launches)
+    got = RD.rans_encode_device(d, f, c, lanes, order)
+    want = RD.rans_encode_plain(d, f, c, lanes, order)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
+    cap = 2 * n + 4 * lanes + 8
+    payload, lane_bytes, total = RD.rans_encode_payload_device(
+        d, f, c, lanes, order, cap)
+    start = torch.cumsum(lane_bytes, 0) - lane_bytes
+    assert torch.equal(payload, RD.rans_layout_plain(*want, start, cap))
+    sym = RD._parse_tables(memoryview(_head), 7, order)[2]
+    args = (payload[:int(total)], lane_bytes, torch.from_numpy(sym).to(cuda),
+            f, c, lanes, 0, order)
+    off = R.lane_slices(n, lanes)
+    out = RD.rans_decode_device(*args, offsets=off)
+    torch.cuda.synchronize()
+    assert np.array_equal(out.cpu().numpy(), data)
+    assert torch.equal(out, RD.rans_decode_plain(*args, offsets=off))
+    for name, k in (("rans_encode", 2), ("rans_layout", 1),
+                    ("rans_decode", 1)):
+        assert TK.launches[name] == before[name] + k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order,n,lanes", [(0, 16_000_000, 4096),
+                                           (1, 3_000_001, 2048)])
+def test_rans_sections_on_cuda_match_host(cuda, order, n, lanes):
+    data = _rans_data(n, order, 7)
+    enc = RD.encode_section_device(data, order, lanes, device=cuda)
+    assert enc == R.encode_section(data, order=order, lanes=lanes)
+    dec, off = RD.decode_section_device(enc, device=cuda)
+    assert dec == data.tobytes() and off == len(enc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pe", [False, True])
+def test_cli_rfqz_engine_device_matches_host_coder(cuda, fixtures_dir,
+                                                   tmp_path, pe):
+    """A .rfqz compress under --engine device (device engine, device
+    rANS) writes the bytes of --engine vectorized (host engine, host
+    coder). With -k 100 the engine's workers run several chunks on the
+    card while the main thread codes their sections there."""
+    ins = (["-i", str(fixtures_dir / "pe_big_R1.fq"), "-I",
+            str(fixtures_dir / "pe_big_R2.fq")] if pe
+           else ["-i", str(fixtures_dir / "se_big.fq")])
+    for extra in ([], ["-k", "100"]):
+        eng = DeviceEngine(cuda, min_bases=0)
+        outs = []
+        TK.reset_launches()
+        for engine in ("device", "vectorized"):
+            out = tmp_path / (engine + ".rfqz")
+            assert tcli.main(["-c", *ins, "-o", str(out), *extra,
+                              "--engine", engine],
+                             engine=eng.config() if engine == "device"
+                             else None) == 0
+            outs.append(out.read_bytes())
+        assert outs[0] == outs[1]
+        assert eng.stats["device_chunks"] > 0
+        if extra:
+            assert eng.stats["device_chunks"] > 1
+        assert TK.launches["rans_encode"] > 0
+        assert TK.launches["rans_layout"] == TK.launches["rans_encode"]

@@ -20,6 +20,7 @@ import pytest
 from repaq_tpu.codec import vectorized
 from repaq_tpu.codec.blocks import ReadBlock, lens_to_offsets
 from repaq_tpu.codec.oracle import FastqRead
+from repaq_tpu.format.rfqz import RfqzReader
 from repaq_tpu_torch import cli
 from repaq_tpu_torch.codec.device_engine import (DeviceEngine,
                                                  make_engine_config)
@@ -287,12 +288,24 @@ def test_cli_goldens_through_the_engine(tmp_path, monkeypatch, base, golden,
     (["-o", "{tmp}/o.rfqz"], "A9"),
 ])
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys, argv, item):
+    """A feature not ported yet exits non-zero naming its ROADMAP item.
+    A9 (.rfqz output) is ported: it is accepted, and the file reads back
+    to the .rfq stream of the same chunking."""
     fq = _fastq(tmp_path, "se_illumina")
     argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
-    if "-o" not in argv:
-        argv += ["-o", str(tmp_path / "o.rfq")]
+    if item == "A9":
+        rfq = tmp_path / "o.rfq"
+        assert cli.main(["-c", "-i", str(fq), *argv, "--engine",
+                         "vectorized"]) == 0
+        assert cli.main(["-c", "-i", str(fq), "-o", str(rfq), "-k", "16000",
+                         "--engine", "vectorized"]) == 0
+        reader = RfqzReader(argv[1])
+        assert reader.read() == rfq.read_bytes()
+        reader.close()
+        assert item not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as e:
-        cli.main(["-c", "-i", str(fq), *argv])
+        cli.main(["-c", "-i", str(fq), *argv, "-o", str(tmp_path / "o.rfq")])
     assert e.value.code != 0
     assert item in capsys.readouterr().err
 
