@@ -7,19 +7,25 @@ Run from the root of a checkout, with no arguments:
 
 Phases, each of which must pass:
   1. device: the card's name and power limit, the torch and CUDA versions,
-     a probe of the committed native host library (in a subprocess; if it
-     dies, the run continues with REPAQ_TPU_NO_NATIVE=1), and the build of
-     the CUDA kernels from repaq_tpu_torch/csrc/ (one nvcc per source, in
-     parallel);
+     the build of the port's native host library from
+     repaq_tpu_torch/native/ (it must build and load; the compiler's
+     message otherwise) and of the CUDA kernels from repaq_tpu_torch/csrc/
+     (one nvcc per source, in parallel);
   2. kernels: each CUDA kernel against its plain torch version on the card
      at the shapes its path gives it (12 Mbase for the SE path, the PE
-     path's 14,745,600-base padded chunk for the byte-form frontend; for
-     the rANS kernels the CLI's largest order-1 section, 2,285,523 bytes
-     in 2048 lanes, and a 16 MB order-0 section in 4096 lanes, both with
-     ragged lanes and held against the host coder's section bytes too),
-     exact equality, both timed with CUDA events (median of 15 runs, L2
-     flushed before each; the rANS kernels' plain versions, a Python loop
-     over the steps, median of 3);
+     path's 14,745,600-base padded chunk for the frontend on the PE path
+     and the byte form; for the rANS kernels the CLI's largest order-1
+     section, 2,285,523 bytes in 2048 lanes, and a 16 MB order-0 section
+     in 4096 lanes, both with ragged lanes and held against the host
+     coder's section bytes too), exact equality, both timed with CUDA
+     events (median of 15 runs, L2 flushed before each; the rANS kernels'
+     plain versions, a Python loop over the steps, median of 3), each
+     beside its bound: the bytes it must move over 3.35 TB/s. The token
+     FSM also at n = 1, tile - 1, tile, tile + 1 and past 3,000 tiles
+     (forced restarts at tile starts, all 4-byte tokens, tokens across
+     tile edges; uint8 and int32 lengths), timed with both length types;
+     the frontend also at n % 4 = 1, 2, 3 with 'N' and the major qual in
+     the tail;
   3. goldens: `python -m repaq_tpu_torch.cli -c --engine device` on the
      single-end fixtures and, with -i/-I and -o/-O, the paired-end ones,
      byte-compared with the reference encoder's goldens, and `-d` back to
@@ -31,7 +37,8 @@ Phases, each of which must pass:
      compared with the input; every chunk must have taken the device path
      and every kernel of the SE path must have launched on it. The round
      trip runs twice: the first (cold) pays torch's lazy setup of each
-     operator, the second (warm) is the steady rate;
+     operator, the second (warm) is the steady rate. The token FSM is then
+     timed at the median quality-buffer size of the corpus's chunks;
   5. real size, paired-end: the same for a seeded 2 x 320k-read corpus of
      150 bp pairs (96 Mbase, 8 chunks of 40k pairs) whose inserts give
      forward and backward mate overlaps, through -i/-I and -o/-O; the
@@ -75,9 +82,9 @@ WORK = os.path.join(ROOT, ".smoke")
 # (name, source, TPU kernel it replaces, the main paths that launch it)
 KERNELS = [
     ("encode_frontend", "repaq_tpu_torch/csrc/frontend.cu",
-     "repaq_tpu/ops/pallas_tpu.py:249", ("se",)),
+     "repaq_tpu/ops/pallas_tpu.py:249", ("se", "pe")),
     ("encode_frontend_bytes", "repaq_tpu_torch/csrc/frontend.cu",
-     "repaq_tpu/ops/pallas_tpu.py:249", ("pe",)),
+     "repaq_tpu/ops/pallas_tpu.py:249", ()),
     ("pack_bases", "repaq_tpu_torch/csrc/frontend.cu",
      "repaq_tpu/ops/pallas_tpu.py:94", ()),
     ("unpack_bases", "repaq_tpu_torch/csrc/unpack.cu",
@@ -95,6 +102,9 @@ KERNELS = [
 
 # why a kernel is on no main path (its launches there are 0)
 NO_PATH = {
+    "encode_frontend_bytes": "none: the PE encode reads encode_frontend's "
+                             "meta bytes; the byte form keeps JAX's "
+                             "signature for the tests and phase 2",
     "pack_bases": "none: no production caller, in the JAX package either",
     "rans_decode": "none: the CLI reads .rfqz with the host decoder, as the "
                    "JAX CLI does; held against its plain version in phase 2 "
@@ -129,6 +139,10 @@ SE_GOLDENS = [
     ("se_bgi", "se_bgi.ref.rfq", []),
 ]
 
+# the card's memory rate (H100 SXM data sheet): every kernel here moves a
+# few bytes per operation, so its bound is its bytes over this rate
+HBM_BYTES_PER_S = 3.35e12
+
 # NovaSeq 4-bin quality profile: F (Q37), : (Q25), , (Q11), # (Q2)
 NOVA_QUALS = b"F:,#"
 NOVA_P = [0.86, 0.09, 0.04, 0.01]
@@ -162,39 +176,24 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-_NATIVE_PROBE = r"""
-import numpy as np
-from repaq_tpu.codec import _native, kernels_np as K
-assert _native.available(), "native library did not load"
-seq = np.frombuffer(b"ACGTNACGTN" * 4000, np.uint8)
-K.pack_2bit(seq)
-K.encode_positions_of(seq, ord("N"))
-q = np.frombuffer(b"FF:,#" * 8000, np.uint8)
-K.encode_qual_by_col(q, np.frombuffer(b"#,:", np.uint8), ord("F"))
-"""
+def build_native() -> None:
+    """Build the port's native host library from repaq_tpu_torch/native/
+    and load it; a failed build raises with the compiler's message."""
+    import numpy as np
 
+    from repaq_tpu_torch.codec import _native, kernels_np as K, oracle
 
-def probe_native() -> None:
-    """The committed host library was built with -march=native elsewhere:
-    load and run it in a subprocess first. Never rebuild or overwrite it:
-    repaq_tpu's loader would run `make` when the .so looks older than its
-    source, so that case goes without it too."""
-    native = os.path.join(ROOT, "repaq_tpu", "native")
-    so = os.path.join(native, "librepaq_native.so")
-    cpp = os.path.join(native, "repaq_native.cpp")
-    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(cpp):
-        os.environ["REPAQ_TPU_NO_NATIVE"] = "1"
-        log("native host library: missing or older than its source; not "
-            "rebuilding it, running with REPAQ_TPU_NO_NATIVE=1")
-        return
-    r = subprocess.run([sys.executable, "-c", _NATIVE_PROBE], cwd=ROOT,
-                       capture_output=True, text=True, timeout=300)
-    if r.returncode != 0:
-        os.environ["REPAQ_TPU_NO_NATIVE"] = "1"
-        log("native host library: probe died (rc %d); running with "
-            "REPAQ_TPU_NO_NATIVE=1" % r.returncode)
-    else:
-        log("native host library: loads and runs")
+    t0 = time.perf_counter()
+    path = _native.build()
+    check(_native.available(), "native host library built at %s but did "
+          "not load (REPAQ_TPU_NO_NATIVE set?)" % path)
+    seq = np.frombuffer(b"ACGTNACGTN" * 4000, np.uint8)
+    check(K.pack_2bit(seq).tobytes()
+          == oracle.pack_bases_2bit(seq.tobytes()),
+          "native pack_2bit differs from the oracle")
+    log("native host library: built from repaq_tpu_torch/native/ and loaded "
+        "in %.1f s (%s)" % (time.perf_counter() - t0,
+                            os.path.relpath(path, ROOT)))
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +230,148 @@ def max_abs_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max().item())
 
 
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (nested tuples flattened, None skipped)."""
+    total = 0
+    for t in tensors:
+        if isinstance(t, tuple):
+            total += nbytes(*t)
+        elif t is not None:
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound_fields(moved: int, ms: float) -> dict:
+    """The least time the card could take for `moved` bytes at its memory
+    rate, which bounds every kernel here (a few integer operations per
+    byte), and the kernel's share of it."""
+    bound = 1e3 * moved / HBM_BYTES_PER_S
+    return {"bound_ms": bound, "bound_by": "bytes",
+            "share_of_bound": bound / ms}
+
+
+def held_and_timed(name, kern, plain, inputs, shape, plain_runs=15,
+                   moved=None) -> dict:
+    """kern() exact against plain(), both timed; moved: the bytes the
+    function must move (default: its inputs read once, its outputs written
+    once)."""
+    import torch
+
+    got = kern()
+    want = plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0, "%s differs from its plain version at %s (max abs err "
+          "%d)" % (name, shape, err))
+    ms = cuda_ms(kern)
+    plain_ms = cuda_ms(plain, runs=plain_runs)
+    if moved is None:
+        moved = nbytes(*inputs) + nbytes(got)
+    res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           **bound_fields(moved, ms), "library_ms": None}
+    log("kernel %-21s exact at %s: %.4f ms (bound %.4f ms, %.0f%%), plain "
+        "torch %.4f ms" % (name, shape, ms, res["bound_ms"],
+                           100 * res["share_of_bound"], plain_ms))
+    return res
+
+
+FSM_KINDS = ("random", "forced_edges", "all4", "all4_shifted", "clamp")
+
+
+def fsm_case(n: int, kind: str, seed: int, tile: int):
+    """(lens int32, force or None) of one token-FSM edge case, of a kind in
+    FSM_KINDS: random 1/2/4-byte tokens without force ("random"), or with
+    0.1% forced restarts plus one at every tile's first byte
+    ("forced_edges"); all 4-byte tokens ("all4"), the same after one 1-byte
+    token so that tokens cross the tile edges ("all4_shifted"); lengths
+    the kernel clamps to 1..4 (-1, 0, 5, 6, 255, 300 among 1/2/4; -1 and
+    300 are 255 and 44 as uint8) with the forced restarts ("clamp")."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if kind.startswith("all4"):
+        lens = np.full(n, 4, dtype=np.int32)
+        lens[0] = 1 if kind == "all4_shifted" else 4
+        return lens, None
+    pool = [1, 1, 2, 4] + ([-1, 0, 5, 6, 255, 300] if kind == "clamp" else [])
+    lens = rng.choice(pool, size=n).astype(np.int32)
+    if kind == "random":
+        return lens, None
+    force = rng.random(n) < 0.001
+    force[::tile] = True
+    return lens, force
+
+
+def fsm_edge_cases(dev) -> int:
+    """The token FSM exact against its plain version, one launch a call,
+    at n = 1, tile - 1, tile, tile + 1 and past 3,000 tiles, for every
+    fsm_case kind, with uint8 and int32 lengths; returns the case count."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    tile = TK.fsm_tile()
+    cases = 0
+    for n in (1, tile - 1, tile, tile + 1, 3000 * tile + 5):
+        for kind in FSM_KINDS:
+            lens, force = fsm_case(n, kind, n, tile)
+            lens = torch.from_numpy(lens).to(dev)
+            force = None if force is None else torch.from_numpy(force).to(dev)
+            for dtype in (torch.uint8, torch.int32):
+                lens_t = lens.to(dtype)
+                want = TK.token_start_mask_plain(lens_t, force)
+                before = TK.launches["token_start_mask"]
+                got = TK.token_start_mask(lens_t, force)
+                torch.cuda.synchronize()
+                check(TK.launches["token_start_mask"] == before + 1,
+                      "token_start_mask took more than one launch")
+                check(torch.equal(got, want), "token_start_mask differs from "
+                      "its plain version at n=%d, %s, %s lengths"
+                      % (n, kind, dtype))
+                cases += 1
+    return cases
+
+
+def frontend_ragged_cases(dev) -> list:
+    """The frontend kernel exact against its plain version at n % 4 = 1,
+    2, 3 with 'N' and the major qual in the tail; returns the sizes."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    rng = np.random.default_rng(4)
+    bins = torch.tensor(list(b"#,:"), dtype=torch.uint8, device=dev)
+    sizes = [1, 2, 3, 17, 4 * 1001 + 2, (1 << 20) + 3, PE_BASES - 1]
+    for n in sizes:
+        seq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=n)
+        qual = rng.choice(np.frombuffer(NOVA_QUALS, np.uint8), size=n,
+                          p=NOVA_P)
+        seq[-1], qual[-1] = ord("N"), ord("F")
+        if n > 1:
+            seq[-2], qual[-2] = ord("N"), ord("#")
+        args = (torch.from_numpy(seq).to(dev), torch.from_numpy(qual).to(dev),
+                bins, ord("F"))
+        got = TK.encode_frontend(*args)
+        want = TK.encode_frontend_plain(*args)
+        torch.cuda.synchronize()
+        check(max_abs_err(got, want) == 0 and got[0].shape[0] == (n + 3) // 4,
+              "encode_frontend differs from its plain version at n=%d" % n)
+    return sizes
+
+
+def fsm_inputs(dev, n: int, dtype, seed: int):
+    """Seeded token-FSM inputs of the decode's quality stream: lengths
+    {1, 1, 2, 4} and 0.1% forced restarts."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    lens = rng.choice(np.array([1, 1, 2, 4], np.uint8), size=n)
+    return (torch.from_numpy(lens).to(dev).to(dtype),
+            torch.from_numpy(rng.random(n) < 0.001).to(dev))
+
+
 def kernel_phase(dev) -> dict:
     import numpy as np
     import torch
@@ -250,9 +391,8 @@ def kernel_phase(dev) -> dict:
     major = ord("F")
     packed = torch.from_numpy(
         rng.integers(0, 256, size=n // 4, dtype=np.uint8)).to(dev)
-    lens = torch.from_numpy(
-        rng.choice(np.array([1, 1, 2, 4], np.int32), size=n)).to(dev)
-    force = torch.from_numpy(rng.random(n) < 0.001).to(dev)
+    lens8, force = fsm_inputs(dev, n, torch.uint8, 175)
+    lens32 = lens8.to(torch.int32)
     # the PE chunk: elided seq (G past the stored bases) and full qual
     pe_seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=PE_BASES)
     pe_seq[rng.random(PE_BASES) < 0.001] = ord("N")
@@ -265,44 +405,73 @@ def kernel_phase(dev) -> dict:
     pk_seq = torch.from_numpy(
         rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=12_000_003)).to(dev)
 
-    cases = {
-        "encode_frontend": (
+    se_shape = "seq+qual %d bases, 0.1%% N, NovaSeq quals" % n
+    pe_shape = "PE chunk of %d bases, 0.1%% N, NovaSeq quals" % PE_BASES
+    fsm_shape = ("%d token bytes, lengths {1,1,2,4}, 0.1%% forced restarts"
+                 % n)
+    results = {
+        "encode_frontend": held_and_timed(
+            "encode_frontend",
             lambda: TK.encode_frontend(seq_t, qual_t, bins, major),
             lambda: TK.encode_frontend_plain(seq_t, qual_t, bins, major),
-            "seq+qual %d bases, 0.1%% N, NovaSeq quals" % n),
-        "encode_frontend_bytes": (
+            (seq_t, qual_t, bins), se_shape),
+        "encode_frontend_bytes": held_and_timed(
+            "encode_frontend_bytes",
             lambda: TK.encode_frontend_bytes(pe_seq_t, pe_qual_t, bins,
                                              major),
             lambda: TK.encode_frontend_bytes_plain(pe_seq_t, pe_qual_t, bins,
                                                    major),
-            "PE chunk of %d bases, 0.1%% N, NovaSeq quals" % PE_BASES),
-        "pack_bases": (
-            lambda: TK.pack_bases(pk_seq),
-            lambda: TK.pack_bases_plain(pk_seq),
+            (pe_seq_t, pe_qual_t, bins), pe_shape),
+        "pack_bases": held_and_timed(
+            "pack_bases", lambda: TK.pack_bases(pk_seq),
+            lambda: TK.pack_bases_plain(pk_seq), (pk_seq,),
             "%d bases" % pk_seq.shape[0]),
-        "unpack_bases": (
-            lambda: TK.unpack_bases(packed),
-            lambda: TK.unpack_bases_plain(packed),
+        "unpack_bases": held_and_timed(
+            "unpack_bases", lambda: TK.unpack_bases(packed),
+            lambda: TK.unpack_bases_plain(packed), (packed,),
             "%d packed bytes" % (n // 4)),
-        "token_start_mask": (
-            lambda: TK.token_start_mask(lens, force),
-            lambda: TK.token_start_mask_plain(lens, force),
-            "%d token bytes, lengths {1,1,2,4}, 0.1%% forced restarts" % n),
+        "token_start_mask": held_and_timed(
+            "token_start_mask", lambda: TK.token_start_mask(lens8, force),
+            lambda: TK.token_start_mask_plain(lens8, force), (lens8, force),
+            fsm_shape + ", uint8 lengths"),
     }
-    results = {}
-    for name, (kern, plain, shape) in cases.items():
-        got = kern()
-        want = plain()
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        check(err == 0, "%s differs from its plain version (max abs err %d)"
-              % (name, err))
-        ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain)
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        log("kernel %-21s exact at %s: %.4f ms, plain torch %.4f ms"
-            % (name, shape, ms, plain_ms))
+    # what the frontend costs the PE path, and the FSM with int32 lengths
+    results["encode_frontend"]["by_shape"] = {
+        se_shape: dict(results["encode_frontend"]),
+        pe_shape: held_and_timed(
+            "encode_frontend",
+            lambda: TK.encode_frontend(pe_seq_t, pe_qual_t, bins, major),
+            lambda: TK.encode_frontend_plain(pe_seq_t, pe_qual_t, bins,
+                                             major),
+            (pe_seq_t, pe_qual_t, bins), pe_shape)}
+    results["token_start_mask"]["by_shape"] = {
+        fsm_shape + ", uint8 lengths": dict(results["token_start_mask"]),
+        fsm_shape + ", int32 lengths": held_and_timed(
+            "token_start_mask", lambda: TK.token_start_mask(lens32, force),
+            lambda: TK.token_start_mask_plain(lens32, force),
+            (lens32, force), fsm_shape + ", int32 lengths")}
+    log("kernel token_start_mask exact on %d edge cases (n = 1, tile - 1, "
+        "tile, tile + 1, 3000 tiles + 5; forced restarts at tile starts, "
+        "all 4-byte tokens, tokens across tile edges, lengths outside "
+        "1..4; uint8 and int32 lengths), one launch each"
+        % fsm_edge_cases(dev))
+    log("kernel encode_frontend exact at n = %s (n %% 4 = 1, 2, 3, 'N' and "
+        "the major qual in the tail)" % frontend_ragged_cases(dev))
     return results
+
+
+def fsm_at_size(dev, n: int) -> dict:
+    """The token FSM timed at n bytes (uint8 lengths, as the decode passes
+    them), beside its bound."""
+    from repaq_tpu_torch.ops import kernels as TK
+
+    import torch
+
+    lens, force = fsm_inputs(dev, n, torch.uint8, n)
+    return held_and_timed(
+        "token_start_mask", lambda: TK.token_start_mask(lens, force),
+        lambda: TK.token_start_mask_plain(lens, force), (lens, force),
+        "%d token bytes, uint8 lengths" % n, plain_runs=3)
 
 
 def rans_kernel_phase(dev) -> dict:
@@ -312,7 +481,7 @@ def rans_kernel_phase(dev) -> dict:
     import numpy as np
     import torch
 
-    from repaq_tpu.codec import rans_np
+    from repaq_tpu_torch.codec import rans_np
     from repaq_tpu_torch.ops import rans_device as RD
 
     rng = np.random.default_rng(330)
@@ -343,33 +512,28 @@ def rans_kernel_phase(dev) -> dict:
         out = RD.rans_decode_device(*dec, offsets=off)
         check(np.array_equal(out.cpu().numpy(), data),
               "rans_decode did not give the order-%d section back" % order)
+        # bytes each function must move: its inputs once, its outputs once
+        # (the layout writes the payload's `total` bytes)
         cases = {
             "rans_encode": (
                 lambda: RD.rans_encode_device(d, f, c, lanes, order),
-                lambda: RD.rans_encode_plain(d, f, c, lanes, order)),
+                lambda: RD.rans_encode_plain(d, f, c, lanes, order),
+                nbytes(d, f, c) + nbytes(enc)),
             "rans_layout": (lambda: RD.rans_layout(*enc, start, cap),
-                            lambda: RD.rans_layout_plain(*enc, start, cap)),
+                            lambda: RD.rans_layout_plain(*enc, start, cap),
+                            nbytes(enc, start) + int(total)),
             "rans_decode": (
                 lambda: RD.rans_decode_device(*dec, offsets=off),
-                lambda: RD.rans_decode_plain(*dec, offsets=off)),
+                lambda: RD.rans_decode_plain(*dec, offsets=off),
+                nbytes(*dec[:5]) + n),
         }
         shape = "order-%d %d B in %d lanes" % (order, n, lanes)
-        for name, (kern, plain) in cases.items():
-            got = kern()
-            want = plain()
-            torch.cuda.synchronize()
-            err = max_abs_err(got, want)
-            check(err == 0, "%s differs from its plain version at %s (max "
-                  "abs err %d)" % (name, shape, err))
-            ms = cuda_ms(kern)
-            plain_ms = cuda_ms(plain, runs=3)
-            log("kernel %-21s exact at %s: %.4f ms, plain torch %.4f ms"
-                % (name, shape, ms, plain_ms))
-            r = results.setdefault(name, {"max_abs_err": err, "ms": ms,
-                                          "plain_ms": plain_ms,
-                                          "by_shape": {}})
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            r["by_shape"][shape] = {"ms": ms, "plain_ms": plain_ms}
+        for name, (kern, plain, moved) in cases.items():
+            res = held_and_timed(name, kern, plain, (), shape, plain_runs=3,
+                                 moved=moved)
+            r = results.setdefault(name, dict(res, by_shape={}))
+            r["max_abs_err"] = max(r["max_abs_err"], res["max_abs_err"])
+            r["by_shape"][shape] = res
     return results
 
 
@@ -533,8 +697,8 @@ def make_pe_corpus(paths: list, pairs: int, read_len: int, seed: int) -> int:
 
 def read_chunks(rfq: str):
     """(header, chunks) of an .rfq file."""
-    from repaq_tpu.format.chunk import RfqChunk
-    from repaq_tpu.format.header import RfqHeader
+    from repaq_tpu_torch.format.chunk import RfqChunk
+    from repaq_tpu_torch.format.header import RfqHeader
 
     chunks = []
     with open(rfq, "rb") as f:
@@ -546,14 +710,21 @@ def read_chunks(rfq: str):
             chunks.append(chunk)
 
 
+def qual_buffer_sizes(header, chunks) -> list:
+    """Per chunk, the quality buffer the device decode runs the token FSM
+    over, as the engine sizes it."""
+    from repaq_tpu_torch.codec.device_engine import DeviceEngine
+
+    return [DeviceEngine.decode_caps(header, c)[0] for c in chunks]
+
+
 def corpus_phase(device: str, pe: bool, reads: int = 640_000,
                  read_len: int = 150, chunk_kb: int = 12_000) -> dict:
     """One corpus through repaq_tpu_torch.cli.main twice; the launch
     counts of the first run (the main path's) and the rates of both."""
     import numpy as np
 
-    from repaq_tpu import pipeline
-    from repaq_tpu_torch import cli
+    from repaq_tpu_torch import cli, pipeline
     from repaq_tpu_torch.codec.device_engine import DeviceEngine
     from repaq_tpu_torch.ops import kernels as TK
 
@@ -628,7 +799,10 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
             check(launches[name] > 0, "kernel %s never launched on the %s "
                   "path" % (name, tag))
     res = {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
-           "host_enc_s": host_s, "chunks": len(chunks), "fqs": fqs}
+           "host_enc_s": host_s, "chunks": len(chunks), "fqs": fqs,
+           "qual_bufs": qual_buffer_sizes(header, chunks)}
+    log("corpus %s: quality buffers of the token FSM on decode: %s bytes"
+        % (tag, res["qual_bufs"]))
     if pe:
         check(header.encode_pe_by_overlap(), "pe: no overlap elision")
         ov = np.concatenate([np.frombuffer(c.overlap_buf, np.int8)
@@ -660,9 +834,9 @@ def rfqz_phase(tag: str, fqs: list, fastq_bytes: int) -> dict:
     rans_np, and -d gives the inputs back."""
     from collections import Counter
 
-    from repaq_tpu.codec import rans_np
-    from repaq_tpu.format import rfqz
     from repaq_tpu_torch import cli
+    from repaq_tpu_torch.codec import rans_np
+    from repaq_tpu_torch.format import rfqz
     from repaq_tpu_torch.codec.device_engine import DeviceEngine
     from repaq_tpu_torch.ops import kernels as TK
     from repaq_tpu_torch.ops import rans_device as RD
@@ -732,9 +906,8 @@ def rfqz_phase(tag: str, fqs: list, fastq_bytes: int) -> dict:
         dev["out"] = out
         runs[label] = dev
     main, shared = runs["default"], runs["k12000"]
-    frontend = "encode_frontend_bytes" if tag == "pe" else "encode_frontend"
     check(shared["stats"]["device_chunks"] > 0
-          and shared["launches"][frontend] > 0,
+          and shared["launches"]["encode_frontend"] > 0,
           "%s: with -k 12000 no chunk took the device engine (%s)"
           % (tag, shared["stats"]))
 
@@ -812,24 +985,27 @@ def main() -> int:
     log("python %s, torch %s, CUDA %s, %s"
         % (sys.version.split()[0], torch.__version__, torch.version.cuda,
            kind))
-    probe_native()
     from repaq_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    _build.library()
-    log("kernels: built from repaq_tpu_torch/csrc and loaded in %.1f s"
-        % (time.perf_counter() - t0))
-
     try:
+        build_native()
+        t0 = time.perf_counter()
+        _build.library()
+        log("kernels: built from repaq_tpu_torch/csrc and loaded in %.1f s"
+            % (time.perf_counter() - t0))
         kres = kernel_phase(torch.device("cuda:0"))
         kres.update(rans_kernel_phase(torch.device("cuda:0")))
         golden_phase()
         cres = {"se": corpus_phase("cuda:0", pe=False),
                 "pe": corpus_phase("cuda:0", pe=True)}
+        median = int(statistics.median(cres["se"]["qual_bufs"]))
+        kres["token_start_mask"]["by_shape"][
+            "median SE quality buffer, %d token bytes, uint8 lengths"
+            % median] = fsm_at_size(torch.device("cuda:0"), median)
         for tag in ("se", "pe"):
             cres["rfqz_" + tag] = rfqz_phase(tag, cres[tag]["fqs"],
                                              cres[tag]["bytes"])
-    except SmokeFailure as e:
+    except (SmokeFailure, RuntimeError) as e:
         log("chip_smoke: FAIL: %s" % e)
         return 1
     for tag in ("se", "pe"):

@@ -1,57 +1,188 @@
 """Command-line interface of the PyTorch/CUDA port:
-``python -m repaq_tpu_torch.cli``, flag-compatible with ``repaq_tpu.cli``
-for ``.rfq``, ``.rfq.xz`` and ``.rfqz`` files.
+``python -m repaq_tpu_torch.cli``, flag-compatible with the reference tool
+(reference main.cpp:29-49) and with ``repaq_tpu.cli`` for ``.rfq``,
+``.rfq.xz`` and ``.rfqz`` files.
 
-It reuses the JAX package's argument parser, validation messages and
-pipeline functions (none of which import JAX) and binds ``--engine device``
-to the torch engine on ``cuda:0``. ``auto`` picks that engine when CUDA is
-available and the host ``vectorized`` engine otherwise. The device engine
-never runs on the CPU: without CUDA, ``--engine device`` exits non-zero.
-Under ``--engine device`` a ``.rfqz`` output's rANS sections are coded on
-``cuda:0`` too (``ops/rans_device.py``), where the JAX CLI uses its device
-coder; ``.rfqz`` input is read with the host decoder, as there.
+``--engine device`` binds the torch engine on ``cuda:0``. ``auto`` picks
+that engine when CUDA is available and the host ``vectorized`` engine
+otherwise. The device engine never runs on the CPU: without CUDA,
+``--engine device`` exits non-zero. Under ``--engine device`` a ``.rfqz``
+output's rANS sections are coded on ``cuda:0`` too (``ops/rans_device.py``);
+``.rfqz`` input is read with the host decoder.
+
+The ``.rfq.xz`` paths pipe through the external ``xz`` binary with the same
+level/dict-size policy as the reference (main.cpp:134-177), but via an
+in-process subprocess pipe instead of re-invoking the CLI through a shell.
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
 import os
 import subprocess
 import sys
 
-import torch
+from . import pipeline
+from .constants import VERSION_NUM
+from .format.header import RfqFormatError
+from .format.rfqz import RfqzReader, RfqzWriter
 
-from repaq_tpu import cli as _base
-from repaq_tpu import pipeline
-from repaq_tpu.format.header import RfqFormatError
-from repaq_tpu.format.rfqz import RfqzReader, RfqzWriter
-
-_die = _base._die
-
-# features of the JAX CLI the port does not have yet, by ROADMAP item
+# features of repaq_tpu.cli the port does not have yet, by ROADMAP item
 _NOT_YET = {
     "--mesh_devices": "A8 (multi-GPU)",
     "--num_shards": "A10 (multi-host)",
 }
 
 
-def get_engine(name: str = "auto") -> pipeline.EngineConfig:
-    """Engine by name: 'device' is the torch engine on cuda:0 (no CUDA is
-    an error), 'auto' is 'device' when CUDA is available and 'vectorized'
-    otherwise, REPAQ_ENGINE overrides 'auto' as in the JAX CLI."""
-    if name == "auto":
-        name = os.environ.get("REPAQ_ENGINE", "auto")
-    if name == "auto":
-        name = "device" if torch.cuda.is_available() else "vectorized"
-    if name == "device":
-        if not torch.cuda.is_available():
-            _die("--engine device needs a CUDA device, and torch sees none "
-                 "(the torch engine never runs on the CPU; use --engine "
-                 "vectorized for the host codec)")
-        from .codec.device_engine import make_engine_config
+def is_fastq_file(name: str) -> bool:
+    return name.endswith((".fq", ".fastq", ".fq.gz", ".fastq.gz"))
 
-        return make_engine_config("cuda:0")
-    return pipeline.get_engine(name)
+
+def is_rfq_file(name: str) -> bool:
+    # .rfqz is this framework's native second entropy stage (interleaved
+    # rANS, format/rfqz.py) — the in-process replacement for the
+    # reference's external `xz` pipeline.
+    return name.endswith((".rfq", ".rfq.xz", ".rfqz"))
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="repaq-tpu",
+        description="repack FASTQ to a smaller binary file (.rfq), on a CUDA GPU",
+    )
+    p.add_argument("--in1", "-i", default="", help="input file name")
+    p.add_argument("--out1", "-o", default="", help="output file name")
+    p.add_argument("--in2", "-I", default="", help="read2 input file name (PE)")
+    p.add_argument("--out2", "-O", default="", help="read2 output file name (PE)")
+    p.add_argument("--compress", "-c", action="store_true")
+    p.add_argument("--decompress", "-d", action="store_true")
+    p.add_argument(
+        "--chunk", "-k", type=int, default=None,
+        help="chunk size (kilo bases) for encoding, default 1000 "
+        "(16000 for .rfqz output: bigger chunks give the entropy stage "
+        "purer per-stream sections)",
+    )
+    p.add_argument("--stdin", action="store_true", help="input from STDIN")
+    p.add_argument("--stdout", action="store_true", help="write to STDOUT")
+    p.add_argument("--interleaved_in", action="store_true")
+    p.add_argument("--verify", "-v", action="store_true")
+    p.add_argument("--fast_verify", "-f", action="store_true")
+    p.add_argument("--compare", "-p", action="store_true")
+    p.add_argument("--rfq_to_compare", "-r", default="")
+    p.add_argument("--json_compare_result", "-j", default="")
+    p.add_argument("--thread", "-t", type=int, default=1)
+    p.add_argument("--compression", "-z", type=int, default=3)
+    p.add_argument(
+        "--engine", default="auto",
+        choices=["auto", "oracle", "vectorized", "device"],
+        help="codec engine: 'device' runs the CUDA kernels on cuda:0 as "
+        "the chunk codec (host route for ragged/tiny/oversized chunks); "
+        "'auto' is 'device' when CUDA is available, else 'vectorized' "
+        "(REPAQ_ENGINE overrides it)",
+    )
+    p.add_argument(
+        "--workers", "-w", type=int, default=0,
+        help="codec worker threads for compress AND decompress (chunks are "
+        "data-parallel; output is identical for any worker count). "
+        "0 (default) = auto: one worker per CPU, capped at 8; 1 forces "
+        "the serial path. Extension over the reference.",
+    )
+    p.add_argument(
+        "--profile", action="store_true",
+        help="print per-stage wall-clock/throughput counters to stderr",
+    )
+    p.add_argument(
+        "--num_shards", type=int, default=0,
+        help="multi-host data-parallel compress or decompress; not "
+        "ported yet (rejected)",
+    )
+    p.add_argument(
+        "--shard", type=int, default=0,
+        help="this process's rank in [0, num_shards)",
+    )
+    p.add_argument(
+        "--mesh_devices", type=int, default=0,
+        help="chunks fanned across N local devices; not ported yet "
+        "(rejected)",
+    )
+    p.add_argument(
+        "--no_assemble", action="store_true",
+        help="with --num_shards: leave part files on disk (rank 0 does not "
+        "concatenate); use when ranks run on different hosts",
+    )
+    p.add_argument("--version", action="version",
+                   version="repaq-tpu %s" % VERSION_NUM.decode())
+    return p
+
+
+def _xz_compress_args(compression: int, threads: int) -> list[str]:
+    # reference main.cpp:138-154
+    args = ["xz", "-z", "-c"]
+    if threads > 1:
+        args.append("-T%d" % threads)
+    if compression <= 4:
+        args.append("-%d" % (compression + 5))
+    else:
+        dict_size = (64 * 1024 * 1024) << (compression - 4)
+        if compression == 9:
+            dict_size = 1536 * 1024 * 1024
+        args.append("--lzma2=dict=%d" % dict_size)
+    if compression >= 4 and threads > 1:
+        print(
+            "WARNING: when repaq compression level is >= 4, only single "
+            "thread will be used for xz. Your options: compression = %d, "
+            "thread = %d" % (compression, threads),
+            file=sys.stderr,
+        )
+    return args
+
+
+def self_test() -> int:
+    """Built-in self test (`repaq-tpu test`, reference main.cpp:20-24 /
+    unittest.cpp). Runs the name-parser check the reference runs, plus
+    coder roundtrips."""
+    import numpy as np
+
+    from .codec import kernels_np as K
+    from .codec import oracle
+    from .meta import parse_name
+
+    m = parse_name(b"@A00251:28:H3YV7DSXX:40:1101:2356:1000 1:N:0:TAAGTGGC")
+    assert m.name_part1 == b"@A00251:28:H3YV7DSXX"
+    assert (m.lane, m.tile, m.x, m.y) == (40, 1101, 2356, 1000)
+    assert m.name_part2 == b" 1:N:0:TAAGTGGC"
+    print("FastqMeta test: PASSED")
+
+    seq = b"ACGTNACGTACGTGGCCATTA"
+    assert bytes(oracle.unpack_bases_2bit(oracle.pack_bases_2bit(seq), len(seq))) == (
+        seq.replace(b"N", b"G")
+    )
+    print("2-bit pack test: PASSED")
+
+    assert oracle.reverse_complement(b"ACGTN") == b"NACGT"
+    print("reverse complement test: PASSED")
+
+    qual = np.frombuffer(b"FF::F,FFF::F", dtype=np.uint8)
+    enc = K.encode_positions(np.flatnonzero(qual == ord(":")))
+    assert np.array_equal(
+        K.decode_positions(enc), np.flatnonzero(qual == ord(":"))
+    )
+    print("position coder test: PASSED")
+
+    vals = np.array([1000, 1000, 1032, 15000, 15000, 2000000], dtype=np.int64)
+    assert np.array_equal(K.decode_coords(K.encode_coords(vals), 6), vals)
+    print("coordinate coder test: PASSED")
+    return 0
+
+
+def get_engine(name: str = "auto") -> pipeline.EngineConfig:
+    """pipeline.get_engine, with its refusal of 'device' without CUDA
+    turned into the CLI's error exit."""
+    try:
+        return pipeline.get_engine(name)
+    except RuntimeError as e:
+        _die("--engine %s: %s" % (name, e))
 
 
 def rfqz_section_coder(engine_name: str):
@@ -77,8 +208,8 @@ def main(argv: list[str] | None = None,
     if argv is None:
         argv = sys.argv[1:]
     if len(argv) == 1 and argv[0] == "test":
-        return _base.self_test()
-    args = _base.build_parser().parse_args(argv)
+        return self_test()
+    args = build_parser().parse_args(argv)
     if args.workers < 1:
         args.workers = max(1, min(8, os.cpu_count() or 1))
     if args.mesh_devices:
@@ -149,20 +280,20 @@ def main(argv: list[str] | None = None,
     if mode == "compress":
         if args.out2:
             _die("In compress mode, only one RFQ output file is allowed, but you specified <out2>")
-        if _base.is_fastq_file(out1):
+        if is_fastq_file(out1):
             _die("In compress mode, the output should not be a FASTQ file. Expect a .rfq or .rfq.xz file, but got " + out1)
-        if _base.is_rfq_file(in1):
+        if is_rfq_file(in1):
             _die("In compress mode, the input should not be a RFQ file. Expect a .fq or .fq.gz file, but got " + in1)
-        if args.in2 and _base.is_rfq_file(args.in2):
+        if args.in2 and is_rfq_file(args.in2):
             _die("In compress mode, the read2 input should not be a RFQ file.")
     if mode == "decompress":
         if args.in2:
             _die("In decompress mode, only one RFQ input file is allowed, but you specified <in2>")
-        if _base.is_fastq_file(in1):
+        if is_fastq_file(in1):
             _die("In decompress mode, the input should not be a FASTQ file. Expect a .rfq or .rfq.xz file, but got " + in1)
-        if _base.is_rfq_file(out1):
+        if is_rfq_file(out1):
             _die("In decompress mode, the output should not be a RFQ file. Expect a .fq or .fq.gz file, but got " + out1)
-        if args.out2 and _base.is_rfq_file(args.out2):
+        if args.out2 and is_rfq_file(args.out2):
             _die("In decompress mode, the read2 output should not be a RFQ file.")
     if mode == "compare":
         if args.stdin:
@@ -192,47 +323,47 @@ def main(argv: list[str] | None = None,
             if out1.endswith(".rfqz"):
                 w = RfqzWriter(out1,
                                encode_section=rfqz_section_coder(args.engine))
-                _base._run_compress(args, in1, "", chunk_size, engine, w)
+                _run_compress(args, in1, "", chunk_size, engine, w)
                 w.close()
             elif out1.endswith(".xz"):
                 xz = subprocess.Popen(
-                    _base._xz_compress_args(compression, threads),
+                    _xz_compress_args(compression, threads),
                     stdin=subprocess.PIPE,
                     stdout=open(out1, "wb"),
                 )
-                _base._run_compress(args, in1, "", chunk_size, engine,
+                _run_compress(args, in1, "", chunk_size, engine,
                                     xz.stdin)
                 xz.stdin.close()
                 if xz.wait() != 0:
                     _die("failed to call xz, please confirm that xz is installed in your system")
             else:
-                _base._run_compress(args, in1, out1, chunk_size, engine, None)
+                _run_compress(args, in1, out1, chunk_size, engine, None)
         elif mode == "decompress":
             if in1.endswith(".rfqz"):
-                _base._run_decompress(args, "", out1, engine,
+                _run_decompress(args, "", out1, engine,
                                       RfqzReader(in1))
             elif in1.endswith(".xz"):
                 xz = subprocess.Popen(
                     ["xz", "-d", "-c", in1], stdout=subprocess.PIPE
                 )
-                _base._run_decompress(args, "", out1, engine, xz.stdout)
+                _run_decompress(args, "", out1, engine, xz.stdout)
                 if xz.wait() != 0:
                     _die("failed to call xz")
             else:
-                _base._run_decompress(args, in1, out1, engine, None)
+                _run_decompress(args, in1, out1, engine, None)
         else:
             if rfq_compare.endswith(".rfqz"):
-                result = _base._run_compare(args, in1, "", engine,
+                result = _run_compare(args, in1, "", engine,
                                             RfqzReader(rfq_compare))
             elif rfq_compare.endswith(".xz"):
                 xz = subprocess.Popen(
                     ["xz", "-d", "-c", rfq_compare], stdout=subprocess.PIPE
                 )
-                result = _base._run_compare(args, in1, "", engine, xz.stdout)
+                result = _run_compare(args, in1, "", engine, xz.stdout)
                 if xz.wait() != 0:
                     _die("failed to call xz")
             else:
-                result = _base._run_compare(args, in1, rfq_compare, engine,
+                result = _run_compare(args, in1, rfq_compare, engine,
                                             None)
             if result["result"] != "passed":
                 return 1
@@ -240,6 +371,60 @@ def main(argv: list[str] | None = None,
         print("ERROR: %s" % e, file=sys.stderr)
         return -1
     return 0
+
+
+def _run_compress(args, in1, out1, chunk_size, engine, out_stream):
+    if args.in2 or args.interleaved_in:
+        pipeline.compress_pe(
+            in1,
+            args.in2,
+            out1,
+            chunk_size=chunk_size,
+            interleaved=args.interleaved_in,
+            verify=args.verify,
+            fast_verify=args.fast_verify,
+            engine=engine,
+            out_stream=out_stream,
+            profile=args.profile,
+            workers=args.workers,
+        )
+    else:
+        pipeline.compress_se(
+            in1,
+            out1,
+            chunk_size=chunk_size,
+            verify=args.verify,
+            fast_verify=args.fast_verify,
+            engine=engine,
+            out_stream=out_stream,
+            profile=args.profile,
+            workers=args.workers,
+        )
+
+
+def _run_decompress(args, in1, out1, engine, in_stream):
+    if args.out2:
+        pipeline.decompress_pe(in1, out1, args.out2, engine=engine,
+                               in_stream=in_stream, workers=args.workers)
+    else:
+        pipeline.decompress(in1, out1, engine=engine, in_stream=in_stream,
+                            workers=args.workers)
+
+
+def _run_compare(args, in1, rfq, engine, in_stream):
+    if args.in2:
+        return pipeline.compare_pe(
+            in1, args.in2, rfq, args.json_compare_result, engine=engine,
+            in_stream=in_stream,
+        )
+    return pipeline.compare(
+        in1, rfq, args.json_compare_result, engine=engine, in_stream=in_stream
+    )
+
+
+def _die(msg: str) -> None:
+    print("ERROR: %s" % msg, file=sys.stderr)
+    raise SystemExit(-1)
 
 
 if __name__ == "__main__":

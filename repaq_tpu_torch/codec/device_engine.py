@@ -13,7 +13,7 @@ Division of labour per chunk, as in the JAX engine:
   host    FASTQ parse, name metadata and all-same predicates, the exact
           stream-size caps, the PE expansion tables, container assembly
 
-Routes to the host engine (repaq_tpu.codec.vectorized), byte-identical by
+Routes to the host engine (codec/vectorized.py), byte-identical by
 construction and counted in ``stats``: PE-interleaved chunks of ragged
 read lengths, chunks outside the size window or past the int32 key
 packing, non-by-column quality modes, palettes of 64 bins (past the
@@ -34,17 +34,16 @@ import threading
 import numpy as np
 import torch
 
-from repaq_tpu.codec import kernels_np as K
-from repaq_tpu.codec import vectorized
-from repaq_tpu.codec.blocks import ReadBlock, lens_to_offsets
-from repaq_tpu.constants import BIT_PE_INTERLEAVED
-from repaq_tpu.format.chunk import RfqChunk
-from repaq_tpu.format.header import RfqHeader
-from repaq_tpu.format.header import quality_stats as host_quality_stats
-from repaq_tpu.pipeline import EngineConfig
-
+from ..constants import BIT_PE_INTERLEAVED
+from ..format.chunk import RfqChunk
+from ..format.header import RfqHeader
+from ..format.header import quality_stats as host_quality_stats
 from ..ops import device_streams as ds
 from ..ops import kernels
+from ..pipeline import EngineConfig
+from . import kernels_np as K
+from . import vectorized
+from .blocks import ReadBlock, lens_to_offsets
 
 _G = ord("G")
 _N = ord("N")
@@ -72,6 +71,14 @@ def _bucket(x: int, lo: int = 1024) -> int:
             return c + (c >> 1)
         c *= 2
     return c
+
+
+def _decode_n_cap(pe: bool, read_lens) -> int:
+    """Bases the device decode pads a chunk to: whole (reads, L) rows of a
+    PE-interleaved chunk, else its total rounded up to a bucket."""
+    if pe:
+        return _bucket(len(read_lens), lo=256) * int(read_lens[0])
+    return _bucket(int(read_lens.sum()), lo=4096)
 
 
 def _qfetch(nonmajor: int, esc: int, nbins: int, n_cap: int) -> int:
@@ -465,14 +472,15 @@ class DeviceEngine:
         with _span("enc.compaction"):
             seq_concat, total_stored = _elide(tseq, ov, n_reads)
         qual_flat = tqual.reshape(-1)
+        n_cap = qual_flat.shape[0]
         with _span("enc.frontend"):  # over the elided seq, the full qual
-            packed, nmask, bid = kernels.encode_frontend_bytes(
-                seq_concat, qual_flat, bins, major)
+            packed, meta = kernels.encode_frontend(seq_concat, qual_flat,
+                                                   bins, major)
         with _span("enc.streams"):
             qual_out, qual_len = ds.qualcol_encode_device(
-                None, qual_flat, nbins, esc_cap=esc_cap, nonmajor_cap=nm_cap,
-                out_size=qfetch, bid=bid)
-            npos = (ds.encode_positions_from_mask(nmask, npfetch,
+                meta, qual_flat, nbins, esc_cap=esc_cap, nonmajor_cap=nm_cap,
+                out_size=qfetch)
+            npos = (ds.encode_positions_from_meta(meta, n_cap, npfetch,
                                                   pos_cap=np_cap)
                     if want_npos else None)
             ov_store = ((ov + shift) & 0xFF).to(torch.uint8)
@@ -502,7 +510,7 @@ class DeviceEngine:
         )
         block = None
         if eligible and pe:
-            block = self._decode_device_pe(header, chunk, n, L)
+            block = self._decode_device_pe(header, chunk, n, L, read_lens)
         elif eligible:
             block = self._decode_device_flat(header, chunk, n, read_lens)
         if block is None:
@@ -520,7 +528,7 @@ class DeviceEngine:
         n_total = int(read_lens.sum())
         if (n_total + 3) // 4 != len(chunk.seq_buf):
             return None  # corrupt container: the host path raises
-        n_cap = _bucket(n_total, lo=4096)
+        n_cap = _decode_n_cap(False, read_lens)
         raw = self._decode_run(header, chunk, n_cap)
         if raw is None:
             return None
@@ -530,13 +538,14 @@ class DeviceEngine:
             header, chunk, b, read_lens, lens_to_offsets(read_lens), seq, qual
         )
 
-    def _decode_device_pe(self, header, chunk, b, L) -> ReadBlock | None:
+    def _decode_device_pe(self, header, chunk, b, L,
+                          read_lens) -> ReadBlock | None:
         """PE-interleaved decode of b reads of length L: the overlap
         expansion (when the header elides overlaps) and the revcomp of the
         odd reads on the device (reference rfqcodec.cpp:860-901). None:
         host route."""
-        b_cap = _bucket(b, lo=256)
-        n_cap = b_cap * L
+        n_cap = _decode_n_cap(True, read_lens)
+        b_cap = n_cap // L
         stored = np.full(b, L, dtype=np.int64)
         tables = None
         if header.encode_pe_by_overlap():
@@ -576,7 +585,7 @@ class DeviceEngine:
         nbins = int(header.normal_qual_bins())
         qual_len = len(chunk.qual_buf)
         npos_len = len(chunk.npos_buf) if header.encode_n_pos() else 0
-        caps = self._decode_caps(n_cap, qual_len, npos_len, chunk, nbins)
+        caps = self.decode_caps(header, chunk, n_cap)
         if caps is None:
             return None  # corrupt quality stream: the host path raises
         qb_cap, nb_cap, np_cap, qcaps = caps
@@ -598,6 +607,20 @@ class DeviceEngine:
             has_npos=bool(header.encode_n_pos()),
             nbq=int(header.n_base_qual), **pe,
         ).cpu().numpy()
+
+    @classmethod
+    def decode_caps(cls, header, chunk, n_cap: int | None = None):
+        """The device decode's caps for a chunk padded to n_cap bases (by
+        default as decode_chunk pads it): (quality buffer, N-position
+        buffer, N positions, quality-stream caps), or None for a
+        length-corrupt quality stream. The token FSM runs over the quality
+        buffer."""
+        if n_cap is None:
+            n_cap = _decode_n_cap(bool(chunk.flags & BIT_PE_INTERLEAVED),
+                                  chunk.read_lengths())
+        npos_len = len(chunk.npos_buf) if header.encode_n_pos() else 0
+        return cls._decode_caps(n_cap, len(chunk.qual_buf), npos_len, chunk,
+                                int(header.normal_qual_bins()))
 
     @staticmethod
     def _decode_caps(n_cap: int, qual_len: int, npos_len: int, chunk,

@@ -13,8 +13,9 @@
 //     entry, B for an escape, B+1 for the major qual) and bit 7 set when
 //     the base is 'N'.
 // The TPU needed two entry points for this kernel because of its u32 word
-// relayout; here both forms launch the same kernel, and the byte form's
-// (nmask, bid) are the meta byte's two fields, split by the wrapper.
+// relayout; here both forms launch the same kernel for any n, and both
+// encode paths read its meta byte (the byte form's (nmask, bid), for the
+// tests, are the meta byte's two fields, split by the wrapper).
 //
 // pack_kernel: the 2-bit codes alone, for any n; bases past n pack as 'G'
 // (code 0), so the last byte of a ragged tail is zero-padded as the
@@ -31,8 +32,10 @@
 // `bins`/`major`; all lanes of a warp that read the same qual char hit one
 // shared-memory word, which the hardware broadcasts.
 //
-// The wrapper (repaq_tpu_torch/ops/kernels.py) guarantees 16-byte aligned
-// seq, qual and meta buffers, and n % 4 == 0 for the frontend.
+// A ragged n costs no padding copy: the 16-byte steps cover n / 16 whole
+// groups and block 0 finishes the last n % 16 bases byte by byte. The
+// wrapper (repaq_tpu_torch/ops/kernels.py) guarantees 16-byte aligned seq,
+// qual and meta buffers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -93,18 +96,21 @@ __global__ void frontend_kernel(const uint8_t* __restrict__ seq,
     reinterpret_cast<uint4*>(meta)[g] = make_uint4(mw[0], mw[1], mw[2], mw[3]);
   }
 
-  // tail of n % 16 bases (a multiple of 4): one packed byte per 4 bases
+  // tail of n % 16 bases: one packed byte per 4 bases, the missing bases
+  // of the last one as code 0 ('G'); no meta past n
   if (blockIdx.x == 0) {
-    for (long long i = (groups << 4) + 4LL * threadIdx.x; i < n;
-         i += 4LL * blockDim.x) {
+    const long long nbytes = (n + 3) >> 2;
+    for (long long j = (groups << 2) + threadIdx.x; j < nbytes;
+         j += blockDim.x) {
       uint32_t pk = 0;
       for (int k = 0; k < 4; ++k) {
-        const uint32_t b = seq[i + k];
+        const long long i = 4 * j + k;
+        if (i >= n) break;
+        const uint32_t b = seq[i];
         pk |= base_code(b) << (2 * k);
-        meta[i + k] = static_cast<uint8_t>(lut[qual[i + k]] |
-                                           (b == 'N' ? 0x80u : 0u));
+        meta[i] = static_cast<uint8_t>(lut[qual[i]] | (b == 'N' ? 0x80u : 0u));
       }
-      packed[i >> 2] = static_cast<uint8_t>(pk);
+      packed[j] = static_cast<uint8_t>(pk);
     }
   }
 }

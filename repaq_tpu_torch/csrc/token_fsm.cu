@@ -2,195 +2,374 @@
 //
 // Replaces: repaq_tpu/ops/pallas_tpu.py `_fsm_kernel`, as reached through
 // `token_fsm_pallas` + `token_start_mask_auto` (repaq_tpu/ops/
-// device_streams.py) on the flat decode path.
+// device_streams.py) on the decode path (N-position and quality streams).
 //
 // The gap/run stream grammar is a 4-state machine: the state is the number
 // of bytes left in the current token. At a byte where the state is 0 (or
 // where a restart is forced at a per-bin stream boundary) a token starts
 // and the state becomes len-1; elsewhere it drops by one. The output is
-// the "token starts here" mask. A 4-state map is packed into one byte, 2
-// bits per state; composing maps is associative.
+// the "token starts here" mask. A 4-state map is held in one word, the
+// image of state s in byte s (identity 0x03020100); composing maps is
+// associative and takes two byte permutes.
 //
-// Three passes:
-//   1. fsm_segments: one thread per kSeg-byte segment walks it from all
-//      four entry states at once and writes a 4-bit start mask per byte
-//      (bit s = "a token starts here if the segment was entered in state
-//      s"). The block then scans its kThreads segment maps in shared
-//      memory: each segment gets the composed map of the block's segments
-//      before it, and the block its whole composed map.
-//   2. fsm_scan: one block composes the block maps across the stream
-//      (each thread folds a run of them, the block scans the per-thread
-//      maps, each thread replays its run) and writes every block's entry
-//      state.
-//   3. fsm_select: each byte's entry state is its segment's in-block
-//      prefix map applied to its block's entry state; the byte takes that
-//      bit of its 4-bit mask.
+// What bounds it on the card: memory. The function reads each length once
+// (1 byte as uint8, 4 as int32) and each force flag once, and writes one
+// bool: 3 bytes per stream byte with uint8 lengths, 6 with int32. At 3.35
+// TB/s a 12-Mbyte stream cannot take less than ~11 us (uint8) or ~21 us
+// (int32). The work per byte is a dozen integer operations.
 //
-// What bounds it on the card: memory. Per stream byte pass 1 reads 5 bytes
-// (i32 length + force flag) and writes 1, and pass 3 reads 1 and writes 1:
-// 8 bytes per stream byte, ~95 MB for 12 Mbytes. Pass 1 stages each
-// block's 4 KiB tile through shared memory so that its global loads and
-// stores stay coalesced while each thread walks its own segment; the
-// segment stride in shared memory is padded to 36 bytes so that the 32
-// lanes of a warp read 32 different banks. The serial part, pass 2, sees
-// one map per 4 KiB of stream, so it stays a few microseconds.
+// The design is one kernel, one pass, nothing of size n in device memory
+// but the inputs and the output: a single-pass scan over tiles with
+// decoupled look-back (Merrill and Garland). A tile is kThreads segments of
+// kSeg bytes, one a thread. Per tile:
+//   1. Each warp loads its 32 segments' lengths and force flags with
+//      16-byte vector loads at consecutive addresses, makes 3-bit codes,
+//      len - 1 | force << 2, and passes them through a small stage in shared
+//      memory to the thread that walks them, four to a word.
+//   2. It walks the segment from all four entry states at once, the states
+//      one to a byte of a word: a token starts where a state's byte is 0 or
+//      the restart is forced. The four start bits of four bytes gather in
+//      one word (byte p, bit k: byte k starts a token from entry state p),
+//      and the final states give the segment's map.
+//   3. The segment maps are scanned across the block: shuffles within a
+//      warp, then one warp over the warp totals. Each thread gets the map
+//      of the segments before it in the tile, the block its tile's map.
+//   4. Look-back for the tile's entry state. Tiles take their index from an
+//      atomic counter in launch order, so a tile waits only on tiles that
+//      have started. Each publishes its map (flag 1) as soon as it has it,
+//      then its exit state (flag 2) once it knows its entry state, in one
+//      32-bit status word stored with release semantics; warp 0 reads the
+//      32 tiles before (one status line) with acquire loads, composes their
+//      maps back to the nearest exit state and applies them, or folds all
+//      32 and reads the 32 before those.
+//   5. Each thread spreads the start bits of its entry state to bytes, and
+//      the warp stores its segments back through its stage with 16-byte
+//      vector stores at consecutive addresses.
+// On an H100 this runs at about a third of the uint8 bound and near half
+// of the int32 one; with the look-back cut out it still takes three
+// quarters of its time, so the tiles' load-walk-store structure more than
+// the look-back holds it back (tools/profile_token_fsm.py, which builds the
+// switches below and an earlier design's source beside this one; PERF.md).
+// The wrapper (repaq_tpu_torch/ops/kernels.py) zeroes the status words and
+// the counter and guarantees 16-byte aligned lens, force and out buffers.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kSeg = 32;                 // stream bytes one thread walks
-constexpr int kSegStride = kSeg + 4;     // padded shared-memory stride
-constexpr int kThreads = 128;            // segments per block
-constexpr int kTile = kSeg * kThreads;   // stream bytes per block
-constexpr int kScanThreads = 1024;
-constexpr uint8_t kIdentity = 0xE4;      // map s -> s, 2 bits per state
+constexpr int kSeg = 32;                  // stream bytes one thread walks
+constexpr int kWords = kSeg / 4;          // code words a thread holds
+constexpr int kStage = kSeg + 16;         // a segment's stride in the stage
+constexpr int kThreads = 512;             // segments per tile
+constexpr int kWarps = kThreads / 32;
+constexpr long long kTile = kSeg * kThreads;  // stream bytes per tile
+constexpr uint32_t kIdentity = 0x03020100u;   // map s -> s
+constexpr uint32_t kMapBits = 0x03030303u;
+constexpr uint32_t kFlagMap = 1u << 4;    // status: map | flag, the tile's map
+constexpr uint32_t kFlagExit = 2u << 4;   // status: the tile's exit state
+constexpr uint32_t kOnes = 0x01010101u;
 
-__device__ __forceinline__ int apply_map(uint32_t map, int s) {
-  return static_cast<int>((map >> (2 * s)) & 3u);
+// Profiling switches, off in every build of the package; their output is
+// wrong on purpose. -DREPAQ_FSM_NO_LOOKBACK: every tile enters in state 0.
+// -DREPAQ_FSM_NO_TICKET, only with it: the tile index is blockIdx.x.
+#ifdef REPAQ_FSM_NO_LOOKBACK
+constexpr bool kLookBack = false;
+#else
+constexpr bool kLookBack = true;
+#endif
+#ifdef REPAQ_FSM_NO_TICKET
+constexpr bool kTicket = false;
+#else
+constexpr bool kTicket = true;
+#endif
+
+__device__ __forceinline__ uint32_t apply_map(uint32_t map, uint32_t s) {
+  return (map >> (8 * s)) & 3u;
 }
 
-// first `a`, then `b`
-__device__ __forceinline__ uint8_t compose(uint8_t a, uint8_t b) {
-  uint32_t r = 0;
+// first `a`, then `b`: byte s of the result is byte a[s] of b
+__device__ __forceinline__ uint32_t compose(uint32_t a, uint32_t b) {
+  const uint32_t sel = __byte_perm(a | (a >> 4), 0, 0x0020);  // a as nibbles
+  return __byte_perm(b, 0, sel);
+}
+
+__device__ __forceinline__ uint32_t status_flag(uint32_t w) {
+  return (w >> 4) & 3u;
+}
+
+__device__ __forceinline__ void store_release(uint32_t* p, uint32_t v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t load_acquire(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// code of one stream byte: clamp(len, 1, 4) - 1 in bits 0-1, force in bit 2
+__device__ __forceinline__ uint32_t code_of(long long len, bool forced) {
+  return static_cast<uint32_t>(len < 1 ? 0 : (len > 4 ? 3 : len - 1)) |
+         (forced ? 4u : 0u);
+}
+
+// The codes of a warp's 32 segments from `at`, whole within the stream:
+// the warp loads them with 16-byte vector loads at consecutive addresses
+// (every access of a load instruction in one run of bytes) into its stage
+// in shared memory, at a segment stride of kStage bytes so that the 16-byte
+// reads of the segments by their threads take no bank twice; then each
+// thread reads its own segment's words.
+template <typename T>
+__device__ __forceinline__ void stage_codes(const T* __restrict__ lens,
+                                            const uint8_t* __restrict__ force,
+                                            long long at, int lane,
+                                            uint8_t* stage,
+                                            uint32_t code[kWords]) {
+  constexpr int kChunks = 32 * kSeg / 16;  // 16-byte chunks of the warp
 #pragma unroll
-  for (int s = 0; s < 4; ++s) r |= apply_map(b, apply_map(a, s)) << (2 * s);
-  return static_cast<uint8_t>(r);
-}
-
-// Inclusive scan of part[0..n) in shared memory by all threads of the
-// block (n == blockDim.x); returns this thread's exclusive prefix.
-__device__ uint8_t block_scan(uint8_t* part, int n) {
-  const int t = threadIdx.x;
-  for (int d = 1; d < n; d <<= 1) {
-    const uint8_t prev = t >= d ? part[t - d] : kIdentity;
-    const uint8_t cur = part[t];
-    __syncthreads();
-    part[t] = compose(prev, cur);
-    __syncthreads();
-  }
-  return t > 0 ? part[t - 1] : kIdentity;
-}
-
-__global__ void fsm_segments(const int32_t* __restrict__ lens,
-                             const uint8_t* __restrict__ force, long long n,
-                             uint8_t* __restrict__ mask4,
-                             uint8_t* __restrict__ seg_prefix,
-                             uint8_t* __restrict__ block_maps) {
-  __shared__ uint8_t tile[kThreads * kSegStride];
-  __shared__ uint8_t part[kThreads];
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-
-  // coalesced load: code = clamp(len, 1, 4) | force << 3; bytes past the
-  // stream end are 1-byte tokens and never reach the output
-  for (int k = threadIdx.x; k < kTile; k += kThreads) {
-    const long long i = base + k;
-    uint8_t code = 1;
-    if (i < n) {
-      int len = lens[i];
-      len = len < 1 ? 1 : (len > 4 ? 4 : len);
-      code = static_cast<uint8_t>(len | ((force != nullptr && force[i]) << 3));
+  for (int v = 0; v < kChunks / 32; ++v) {
+    const int c = lane + 32 * v;
+    uint4 f = make_uint4(0, 0, 0, 0);
+    if (force != nullptr) f = *reinterpret_cast<const uint4*>(force + at + 16 * c);
+    // a force byte is 0 or 1: bit 2 of the code
+    f.x = (f.x & kOnes) << 2, f.y = (f.y & kOnes) << 2;
+    f.z = (f.z & kOnes) << 2, f.w = (f.w & kOnes) << 2;
+    if constexpr (sizeof(T) == 1) {
+      const uint4 l = *reinterpret_cast<const uint4*>(lens + at + 16 * c);
+      f.x |= __vminu4(__vmaxu4(l.x, kOnes), 4 * kOnes) - kOnes;
+      f.y |= __vminu4(__vmaxu4(l.y, kOnes), 4 * kOnes) - kOnes;
+      f.z |= __vminu4(__vmaxu4(l.z, kOnes), 4 * kOnes) - kOnes;
+      f.w |= __vminu4(__vmaxu4(l.w, kOnes), 4 * kOnes) - kOnes;
     }
-    tile[(k / kSeg) * kSegStride + (k % kSeg)] = code;
+    *reinterpret_cast<uint4*>(stage + (c * 16 / kSeg) * kStage +
+                              (c * 16) % kSeg) = f;
   }
-  __syncthreads();
-
-  // walk this thread's segment from all four entry states
-  uint8_t* seg = tile + threadIdx.x * kSegStride;
-  int s0 = 0, s1 = 1, s2 = 2, s3 = 3;
-#pragma unroll 8
-  for (int i = 0; i < kSeg; ++i) {
-    const int code = seg[i];
-    const int forced = code >> 3;
-    const int next = (code & 7) - 1;  // state after a token starts here
-    const int st0 = forced | (s0 == 0);
-    const int st1 = forced | (s1 == 0);
-    const int st2 = forced | (s2 == 0);
-    const int st3 = forced | (s3 == 0);
-    s0 = st0 ? next : s0 - 1;
-    s1 = st1 ? next : s1 - 1;
-    s2 = st2 ? next : s2 - 1;
-    s3 = st3 ? next : s3 - 1;
-    seg[i] = static_cast<uint8_t>(st0 | (st1 << 1) | (st2 << 2) | (st3 << 3));
+  if constexpr (sizeof(T) == 4) {
+    __syncwarp();
+#pragma unroll
+    for (int v = 0; v < kChunks * 4 / 32; ++v) {
+      const int c = lane + 32 * v;  // 4 lengths, stream bytes 4c .. 4c+3
+      const int4 l = *reinterpret_cast<const int4*>(lens + at + 4 * c);
+      const uint32_t w = static_cast<uint32_t>(min(max(l.x, 1), 4) - 1) |
+                         static_cast<uint32_t>(min(max(l.y, 1), 4) - 1) << 8 |
+                         static_cast<uint32_t>(min(max(l.z, 1), 4) - 1) << 16 |
+                         static_cast<uint32_t>(min(max(l.w, 1), 4) - 1) << 24;
+      *reinterpret_cast<uint32_t*>(stage + (c * 4 / kSeg) * kStage +
+                                   (c * 4) % kSeg) |= w;
+    }
   }
-  part[threadIdx.x] = static_cast<uint8_t>(s0 | (s1 << 2) | (s2 << 4) |
-                                           (s3 << 6));
-  __syncthreads();
-  const uint8_t prefix = block_scan(part, kThreads);
-  seg_prefix[static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x] =
-      prefix;
-  if (threadIdx.x == kThreads - 1) block_maps[blockIdx.x] = part[kThreads - 1];
-
-  for (int k = threadIdx.x; k < kTile; k += kThreads) {
-    const long long i = base + k;
-    if (i < n) mask4[i] = tile[(k / kSeg) * kSegStride + (k % kSeg)];
+  __syncwarp();
+#pragma unroll
+  for (int v = 0; v < kWords / 4; ++v) {
+    const uint4 w = *reinterpret_cast<const uint4*>(stage + lane * kStage + 16 * v);
+    code[4 * v] = w.x, code[4 * v + 1] = w.y, code[4 * v + 2] = w.z,
+    code[4 * v + 3] = w.w;
   }
 }
 
-// entry[j] = state entering block j when the stream starts in state 0
-__global__ void fsm_scan(const uint8_t* __restrict__ maps, long long nblk,
-                         uint8_t* __restrict__ entry) {
-  __shared__ uint8_t part[kScanThreads];
+// The codes of the segment of kSeg bytes from `at`, four to a word, at the
+// stream's end, byte by byte; bytes past n are 1-byte tokens and never
+// reach the output.
+template <typename T>
+__device__ __forceinline__ void load_codes(const T* __restrict__ lens,
+                                           const uint8_t* __restrict__ force,
+                                           long long at, long long n,
+                                           uint32_t code[kWords]) {
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    uint32_t c = 0;
+    for (int k = 0; k < 4; ++k) {
+      const long long i = at + 4 * q + k;
+      if (i < n) {
+        c |= code_of(static_cast<long long>(lens[i]),
+                     force != nullptr && force[i] != 0) << (8 * k);
+      }
+    }
+    code[q] = c;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+token_fsm_kernel(const T* __restrict__ lens, const uint8_t* __restrict__ force,
+                 long long n, uint32_t* __restrict__ status,
+                 uint32_t* __restrict__ counter, uint8_t* __restrict__ out) {
+  __shared__ __align__(16) uint8_t stage[kWarps][32 * kStage];
+  __shared__ uint32_t warp_maps[kWarps];
+  __shared__ uint32_t shared_tile_id;
+  __shared__ uint32_t shared_entry;
   const int t = threadIdx.x;
-  const long long per = (nblk + kScanThreads - 1) / kScanThreads;
-  const long long lo = t * per;
-  const long long hi = lo + per < nblk ? lo + per : nblk;
+  const int lane = t & 31;
+  const int warp = t >> 5;
 
-  uint8_t acc = kIdentity;
-  for (long long j = lo; j < hi; ++j) acc = compose(acc, maps[j]);
-  part[t] = acc;
+  if (t == 0) shared_tile_id = kTicket ? atomicAdd(counter, 1u) : blockIdx.x;
   __syncthreads();
-  int state = apply_map(block_scan(part, kScanThreads), 0);
-  for (long long j = lo; j < hi; ++j) {
-    entry[j] = static_cast<uint8_t>(state);
-    state = apply_map(maps[j], state);
+  const uint32_t tile_id = shared_tile_id;
+  const long long at = static_cast<long long>(tile_id) * kTile + kSeg * t;
+
+  // 1. this thread's codes
+  uint32_t code[kWords];
+  const long long warp_at = at - kSeg * lane;
+  if (warp_at + 32 * kSeg <= n) {
+    stage_codes<T>(lens, force, warp_at, lane, stage[warp], code);
+  } else {
+    load_codes<T>(lens, force, at, n, code);
+  }
+
+  // 2. walk from all four entry states, state p in byte p of `st`
+  uint32_t st = 0x03020100u;
+  uint32_t starts[kWords];  // byte p, bit k: byte 4w + k starts from state p
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    uint32_t z4 = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t c = __byte_perm(code[w], 0, 0x1111u * k);  // byte k, 4x
+      // bit 0 of a byte: its state is 0, or the restart is forced
+      const uint32_t z = (~(st | (st >> 1)) | (c >> 2)) & kOnes;
+      const uint32_t zm = z * 0xFFu;
+      st = ((st - (z ^ kOnes)) & ~zm) | (c & zm & 0x03030303u);
+      z4 |= z << k;
+    }
+    starts[w] = z4;
+  }
+  const uint32_t my_map = st;
+
+  // 3. block scan of the segment maps: inclusive within the warp ...
+  uint32_t incl = my_map;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t before = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl = compose(before, incl);
+  }
+  uint32_t excl = __shfl_up_sync(0xFFFFFFFFu, incl, 1);
+  if (lane == 0) excl = kIdentity;
+  if (lane == 31) warp_maps[warp] = incl;
+  __syncthreads();
+  // ... then across the warps, by warp 0 (kWarps <= 32)
+  if (warp == 0) {
+    const uint32_t own = lane < kWarps ? warp_maps[lane] : kIdentity;
+    uint32_t wincl = own;
+#pragma unroll
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const uint32_t before = __shfl_up_sync(0xFFFFFFFFu, wincl, d);
+      if (lane >= d) wincl = compose(before, wincl);
+    }
+    uint32_t wexcl = __shfl_up_sync(0xFFFFFFFFu, wincl, 1);
+    if (lane == 0) wexcl = kIdentity;
+    const uint32_t tile_map = __shfl_sync(0xFFFFFFFFu, wincl, kWarps - 1);
+    __syncwarp();
+    if (lane < kWarps) warp_maps[lane] = wexcl;
+
+    // 4. publish the tile's map, then look back for its entry state
+    if (lane == 0) store_release(status + tile_id, kFlagMap | tile_map);
+    uint32_t acc = kIdentity;  // entry state of tile `hi + 1` -> this tile's
+    long long hi = static_cast<long long>(tile_id) - 1;
+    uint32_t entry = 0;
+    while (kLookBack) {
+      // lane l reads tile hi - l: one status line; before tile 0 the
+      // stream's start reads as an exit state of 0
+      const long long j = hi - lane;
+      uint32_t sw = j < 0 ? kFlagExit : load_acquire(status + j);
+      while (!__all_sync(0xFFFFFFFFu, sw != 0)) {
+        if (sw == 0) sw = load_acquire(status + j);
+      }
+      // compose the maps of the tiles nearer than the nearest exit state
+      // (lane k; all 32 without one), the earliest first, by a shuffle
+      // reduction
+      const uint32_t exits = __ballot_sync(0xFFFFFFFFu, status_flag(sw) == 2);
+      const int k = exits ? __ffs(exits) - 1 : 32;
+      uint32_t m = lane < k ? sw & kMapBits : kIdentity;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const uint32_t earlier = __shfl_down_sync(0xFFFFFFFFu, m, d);
+        if (lane + d < 32) m = compose(earlier, m);
+      }
+      const uint32_t span = __shfl_sync(0xFFFFFFFFu, m, 0);
+      if (exits) {
+        entry = apply_map(acc, apply_map(span, __shfl_sync(0xFFFFFFFFu,
+                                                            sw & 3u, k)));
+        break;
+      }
+      acc = compose(span, acc);
+      hi -= 32;
+    }
+    if (lane == 0) {
+      store_release(status + tile_id, kFlagExit | apply_map(tile_map, entry));
+      shared_entry = entry;
+    }
+  }
+  __syncthreads();
+
+  // 5. the start bits of this segment's entry state, one byte each
+  const uint32_t s = apply_map(compose(warp_maps[warp], excl), shared_entry);
+  uint32_t o[kWords];
+#pragma unroll
+  for (int w = 0; w < kWords; ++w) {
+    // bit k of the nibble to bit 0 of byte k
+    o[w] = (((starts[w] >> (8 * s)) & 0xFu) * 0x00204081u) & kOnes;
+  }
+  if (warp_at + 32 * kSeg <= n) {
+    // back through the stage, then 16-byte stores at consecutive addresses
+    uint8_t* sg = stage[warp];
+#pragma unroll
+    for (int v = 0; v < kWords / 4; ++v) {
+      *reinterpret_cast<uint4*>(sg + lane * kStage + 16 * v) =
+          make_uint4(o[4 * v], o[4 * v + 1], o[4 * v + 2], o[4 * v + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int v = 0; v < kSeg / 16; ++v) {
+      const int c = lane + 32 * v;
+      *reinterpret_cast<uint4*>(out + warp_at + 16 * c) =
+          *reinterpret_cast<const uint4*>(sg + (c * 16 / kSeg) * kStage +
+                                          (c * 16) % kSeg);
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      for (int k = 0; k < 4; ++k) {
+        if (at + 4 * w + k < n) out[at + 4 * w + k] = (o[w] >> (8 * k)) & 1u;
+      }
+    }
   }
 }
 
-__global__ void fsm_select(const uint8_t* __restrict__ mask4,
-                           const uint8_t* __restrict__ seg_prefix,
-                           const uint8_t* __restrict__ block_entry,
-                           long long n, uint8_t* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const int s = apply_map(seg_prefix[i / kSeg], block_entry[i / kTile]);
-    out[i] = static_cast<uint8_t>((mask4[i] >> s) & 1u);
-  }
-}
-
-long long num_blocks(long long n) { return (n + kTile - 1) / kTile; }
+long long num_tiles(long long n) { return (n + kTile - 1) / kTile; }
 
 }  // namespace
 
-// Bytes of scratch repaq_token_start_mask needs for an n-byte stream.
-extern "C" long long repaq_token_fsm_scratch(long long n) {
-  return n + num_blocks(n) * (kThreads + 2);
+// Stream bytes per tile (the card tests place their edge cases by it).
+extern "C" long long repaq_token_fsm_tile() { return kTile; }
+
+// 32-bit words of zeroed status repaq_token_start_mask needs for an n-byte
+// stream: one per tile, then the tile counter.
+extern "C" long long repaq_token_fsm_status_words(long long n) {
+  return num_tiles(n) + 1;
 }
 
-extern "C" int repaq_token_start_mask(const void* lens, const void* force,
-                                      long long n, void* scratch, void* out,
-                                      void* stream) {
+// lens_bytes: 1 for uint8 lengths, 4 for int32; force may be null.
+extern "C" int repaq_token_start_mask(const void* lens, int lens_bytes,
+                                      const void* force, long long n,
+                                      void* status, void* out, void* stream) {
   if (n <= 0) return 0;
+  if (lens_bytes != 1 && lens_bytes != 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long blocks = num_blocks(n);
-  uint8_t* mask4 = static_cast<uint8_t*>(scratch);
-  uint8_t* seg_prefix = mask4 + n;
-  uint8_t* block_maps = seg_prefix + blocks * kThreads;
-  uint8_t* block_entry = block_maps + blocks;
-  fsm_segments<<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      static_cast<const int32_t*>(lens), static_cast<const uint8_t*>(force),
-      n, mask4, seg_prefix, block_maps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fsm_scan<<<1, kScanThreads, 0, st>>>(block_maps, blocks, block_entry);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  long long sel_blocks = (n + 255) / 256;
-  if (sel_blocks > (1LL << 20)) sel_blocks = 1LL << 20;
-  fsm_select<<<static_cast<unsigned>(sel_blocks), 256, 0, st>>>(
-      mask4, seg_prefix, block_entry, n, static_cast<uint8_t*>(out));
+  const long long tiles = num_tiles(n);
+  uint32_t* words = static_cast<uint32_t*>(status);
+  const uint8_t* f = static_cast<const uint8_t*>(force);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  if (lens_bytes == 1) {
+    token_fsm_kernel<uint8_t><<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+        static_cast<const uint8_t*>(lens), f, n, words, words + tiles, o);
+  } else {
+    token_fsm_kernel<int32_t><<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+        static_cast<const int32_t*>(lens), f, n, words, words + tiles, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -107,10 +107,12 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_pack_bases.restype = ci
     lib.repaq_unpack_bases.argtypes = [vp, vp, ll, vp]
     lib.repaq_unpack_bases.restype = ci
-    lib.repaq_token_start_mask.argtypes = [vp, vp, ll, vp, vp, vp]
+    lib.repaq_token_start_mask.argtypes = [vp, ci, vp, ll, vp, vp, vp]
     lib.repaq_token_start_mask.restype = ci
-    lib.repaq_token_fsm_scratch.argtypes = [ll]
-    lib.repaq_token_fsm_scratch.restype = ll
+    lib.repaq_token_fsm_status_words.argtypes = [ll]
+    lib.repaq_token_fsm_status_words.restype = ll
+    lib.repaq_token_fsm_tile.argtypes = []
+    lib.repaq_token_fsm_tile.restype = ll
     lib.repaq_rans_encode.argtypes = [vp, vp, ci, vp, ci, ll, vp, vp, vp, vp]
     lib.repaq_rans_encode.restype = ci
     lib.repaq_rans_layout.argtypes = [vp, vp, vp, vp, ci, ll, vp, ll, vp]

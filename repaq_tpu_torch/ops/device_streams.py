@@ -526,11 +526,12 @@ def coords_encode2_device(values2: torch.Tensor, out_cap: int,
 
 def _stream_lens_device(buf: torch.Tensor) -> torch.Tensor:
     """Per-byte token length for the gap/run stream grammar (valid only at
-    token starts): 0xxxxxxx=1, 10xxxxxx=2, 110xxxxx=1, 111xxxxx=4."""
+    token starts): 0xxxxxxx=1, 10xxxxxx=2, 110xxxxx=1, 111xxxxx=4, as
+    uint8 (the token FSM reads a byte per length)."""
     b = buf.to(_I32)
     return torch.where(
         b < 0x80, 1, torch.where(b < 0xC0, 2, torch.where(b < 0xE0, 1, 4))
-    ).to(_I32)
+    ).to(torch.uint8)
 
 
 def _window32(buf: torch.Tensor) -> torch.Tensor:

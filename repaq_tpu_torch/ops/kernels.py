@@ -119,26 +119,26 @@ def encode_frontend_plain(seq: torch.Tensor, qual: torch.Tensor,
     return pack_bases_plain(seq), _qual_lut(bins, major)[qual.long()] | nflag
 
 
-def _check_frontend(seq, qual, bins, major, need4: bool) -> None:
+def _check_frontend(seq, qual, bins, major) -> None:
     for name, t in (("seq", seq), ("qual", qual), ("bins", bins)):
         _check_u8(name, t)
-    n = seq.shape[0]
-    if qual.shape[0] != n or (need4 and n % 4):
-        raise ValueError("seq and qual need one equal length%s (got %d and "
-                         "%d)" % (", a multiple of 4" if need4 else "", n,
-                                  qual.shape[0]))
+    if qual.shape[0] != seq.shape[0]:
+        raise ValueError("seq and qual need one length (got %d and %d)"
+                         % (seq.shape[0], qual.shape[0]))
     if bins.shape[0] > 63 or not 0 <= int(major) < 256:
         raise ValueError("need B <= 63 and a byte major (B=%d, major=%r)"
                          % (bins.shape[0], major))
 
 
 def _frontend_launch(name: str, seq, qual, bins, major: int):
-    """Launch the frontend kernel (n % 4 == 0), counted under `name`."""
-    lib = _build.library()
+    """Launch the frontend kernel, counted under `name`."""
     n = seq.shape[0]
-    seq, qual, bins = _aligned(seq), _aligned(qual), bins.contiguous()
-    packed = torch.empty(n // 4, dtype=torch.uint8, device=seq.device)
+    packed = torch.empty((n + 3) // 4, dtype=torch.uint8, device=seq.device)
     meta = torch.empty(n, dtype=torch.uint8, device=seq.device)
+    if n == 0:
+        return packed, meta
+    lib = _build.library()
+    seq, qual, bins = _aligned(seq), _aligned(qual), bins.contiguous()
     with torch.cuda.device(seq.device):
         _launch(name, lib.repaq_encode_frontend, seq.data_ptr(),
                 qual.data_ptr(), bins.data_ptr(), int(bins.shape[0]),
@@ -149,28 +149,25 @@ def _frontend_launch(name: str, seq, qual, bins, major: int):
 
 def encode_frontend(seq: torch.Tensor, qual: torch.Tensor,
                     bins: torch.Tensor, major: int):
-    """(seq (n,) u8, qual (n,) u8, bins (B,) u8, major) -> (packed (n/4,)
-    u8, meta (n,) u8). Packed: 2-bit codes A=1 T=2 C=3 else 0, base k of
-    each group of four in bits 2k..2k+1. Meta: quality bin id in bits 0-6
-    (0..B-1 palette entry, B escape, B+1 major), bit 7 set for 'N'. n must
-    be a multiple of 4; B <= 63."""
-    _check_frontend(seq, qual, bins, major, need4=True)
+    """(seq (n,) u8, qual (n,) u8, bins (B,) u8, major) -> (packed
+    ((n+3)//4,) u8, meta (n,) u8), any n. Packed: 2-bit codes A=1 T=2 C=3
+    else 0, base k of each group of four in bits 2k..2k+1, the last byte's
+    missing bases as code 0 ('G'). Meta: quality bin id in bits 0-6 (0..B-1
+    palette entry, B escape, B+1 major), bit 7 set for 'N'. B <= 63."""
+    _check_frontend(seq, qual, bins, major)
     if not _on_cuda(seq, qual, bins):
         return encode_frontend_plain(seq, qual, bins, int(major))
     return _frontend_launch("encode_frontend", seq, qual, bins, int(major))
 
 
-def _split_meta(packed, meta, n: int):
-    meta = meta[:n]
+def _split_meta(packed, meta):
     return packed, meta >= 0x80, (meta & 0x7F).to(torch.int32)
 
 
 def encode_frontend_bytes_plain(seq: torch.Tensor, qual: torch.Tensor,
                                 bins: torch.Tensor, major: int):
     """Plain torch version of ``encode_frontend_bytes``."""
-    return _split_meta(*encode_frontend_plain(
-        _pad4(seq, _G), _pad4(qual, int(major)), bins, int(major)),
-        seq.shape[0])
+    return _split_meta(*encode_frontend_plain(seq, qual, bins, int(major)))
 
 
 def encode_frontend_bytes(seq: torch.Tensor, qual: torch.Tensor,
@@ -179,15 +176,14 @@ def encode_frontend_bytes(seq: torch.Tensor, qual: torch.Tensor,
     repaq_tpu.ops.pallas_tpu.encode_frontend_pallas: (seq (n,) u8, qual
     (n,) u8, bins (B,) u8, major) -> (packed ((n+3)//4,) u8, nmask (n,)
     bool, bid (n,) int32), any n. bid: 0..B-1 palette entry, B escape, B+1
-    major. Pads to a multiple of 4 with 'G' and the major qual, launches
-    the frontend kernel (counted as ``encode_frontend_bytes``) and splits
-    its meta bytes."""
-    _check_frontend(seq, qual, bins, major, need4=False)
+    major. Launches the frontend kernel (counted as
+    ``encode_frontend_bytes``) and splits its meta bytes; the engine reads
+    the meta bytes of ``encode_frontend`` instead."""
+    _check_frontend(seq, qual, bins, major)
     if not _on_cuda(seq, qual, bins):
         return encode_frontend_bytes_plain(seq, qual, bins, major)
     return _split_meta(*_frontend_launch(
-        "encode_frontend_bytes", _pad4(seq, _G), _pad4(qual, int(major)),
-        bins, int(major)), seq.shape[0])
+        "encode_frontend_bytes", seq, qual, bins, int(major)))
 
 
 def pack_bases(seq: torch.Tensor) -> torch.Tensor:
@@ -241,8 +237,14 @@ def unpack_bases(packed: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# token FSM (TPU: pallas_tpu._fsm_kernel via token_start_mask_auto)
+# token FSM (TPU: pallas_tpu._fsm_kernel via token_fsm_pallas)
 # ---------------------------------------------------------------------------
+
+
+def fsm_tile() -> int:
+    """Stream bytes per tile of the token FSM kernel, as the built library
+    reports it; the card tests and chip_smoke.py place edge cases by it."""
+    return int(_build.library().repaq_token_fsm_tile())
 
 
 def token_start_mask_plain(lens: torch.Tensor,
@@ -276,8 +278,10 @@ def token_start_mask(lens: torch.Tensor,
     and meaning of repaq_tpu.ops.device_streams.token_start_mask).
 
     lens: (n,) int token length IF a token started at that byte (clamped
-    to 1..4); force_start: optional (n,) bool, a token starts there
-    whatever the state. Returns the (n,) bool start mask."""
+    to 1..4), of any integer type; the kernel reads uint8 and int32 as
+    they are (uint8 moves half the bytes), other types after a clamp to
+    uint8. force_start: optional (n,) bool, a token starts there whatever
+    the state. Returns the (n,) bool start mask."""
     if lens.dim() != 1:
         raise ValueError("lens must be 1-D")
     if force_start is not None and force_start.shape != lens.shape:
@@ -285,20 +289,23 @@ def token_start_mask(lens: torch.Tensor,
     tensors = (lens,) if force_start is None else (lens, force_start)
     if not _on_cuda(*tensors):
         return token_start_mask_plain(lens, force_start)
-    lib = _build.library()
     dev = lens.device
     n = lens.shape[0]
     out = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return out
-    lens = lens.to(torch.int32).contiguous()
+    lib = _build.library()
+    if lens.dtype not in (torch.uint8, torch.int32):
+        lens = lens.clamp(1, 4).to(torch.uint8)
+    lens = _aligned(lens)
     if force_start is not None:
-        force_start = force_start.to(torch.bool).contiguous()
-    scratch = torch.empty(lib.repaq_token_fsm_scratch(n), dtype=torch.uint8,
-                          device=dev)
+        force_start = _aligned(force_start.to(torch.bool))
+    # the tiles' status words and the tile counter start at zero
+    status = torch.zeros(lib.repaq_token_fsm_status_words(n),
+                         dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         _launch("token_start_mask", lib.repaq_token_start_mask,
-                lens.data_ptr(),
+                lens.data_ptr(), lens.element_size(),
                 None if force_start is None else force_start.data_ptr(), n,
-                scratch.data_ptr(), out.data_ptr(), _stream(dev))
+                status.data_ptr(), out.data_ptr(), _stream(dev))
     return out

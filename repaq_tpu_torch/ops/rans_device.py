@@ -39,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repaq_tpu.codec import rans_np
+from ..codec import rans_np
 
 from . import _build
 from .kernels import _check_u8, _launch, _on_cuda, _stream

@@ -13,14 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from repaq_tpu.codec import rans_np as R
-from repaq_tpu.codec import vectorized
 from repaq_tpu_torch import cli as tcli
+from repaq_tpu_torch.codec import rans_np as R
+from repaq_tpu_torch.codec import vectorized
 from repaq_tpu_torch.codec.device_engine import DeviceEngine
 from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
+from chip_smoke import FSM_KINDS, fsm_case
 from test_device_engine import _mk_block
 
 
@@ -50,9 +51,14 @@ def _frontend_case(n, seed, n_frac, esc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [4, 16, 4 * 1001, 1 << 20])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 16, 17, 4 * 1001 + 1,
+                               4 * 1001 + 2, 4 * 1001 + 3, 1 << 20,
+                               (1 << 20) + 3])
 def test_frontend_kernel_matches_plain(cuda, n):
+    """Any n: n % 4 in {1, 2, 3} with 'N' and the major qual in the
+    tail."""
     seq, qual, table, major = _frontend_case(n, n, 0.01, True)
+    seq[-1], qual[-1] = ord("N"), major
     args = [torch.from_numpy(a) for a in (seq, qual, table)]
     want = TK.encode_frontend_plain(*[a.to(cuda) for a in args], major)
     before = TK.launches["encode_frontend"]
@@ -108,16 +114,24 @@ def test_unpack_kernel_matches_plain(cuda, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,force_p", [(1, 0.0), (4095, 0.0), (4097, 0.01),
-                                       (3 << 20, 0.001)])
-def test_token_fsm_kernel_matches_plain(cuda, n, force_p):
-    rng = np.random.default_rng(n)
-    lens = torch.from_numpy(rng.choice([1, 1, 2, 4], size=n).astype(np.int32))
-    force = (torch.from_numpy(rng.random(n) < force_p).to(cuda)
-             if force_p else None)
-    lens = lens.to(cuda)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int32])
+@pytest.mark.parametrize("kind", FSM_KINDS)
+@pytest.mark.parametrize("tiles,extra", [(0, 1), (1, -1), (1, 0), (1, 1),
+                                         (3000, 5)])
+def test_token_fsm_kernel_matches_plain(cuda, tiles, extra, kind, dtype):
+    """One launch per call, exact against the plain version at n = 1,
+    tile - 1, tile, tile + 1 and past 3,000 tiles, for every edge-case
+    kind of chip_smoke.fsm_case (lengths outside 1..4 included), uint8 and
+    int32 lengths."""
+    tile = TK.fsm_tile()
+    n = tiles * tile + extra
+    lens, force = fsm_case(n, kind, n, tile)
+    lens = torch.from_numpy(lens).to(cuda).to(dtype)
+    force = None if force is None else torch.from_numpy(force).to(cuda)
+    before = TK.launches["token_start_mask"]
     got = TK.token_start_mask(lens, force)
     torch.cuda.synchronize()
+    assert TK.launches["token_start_mask"] == before + 1
     assert torch.equal(got, TK.token_start_mask_plain(lens, force))
 
 
@@ -160,8 +174,9 @@ def test_pe_engine_on_cuda_matches_host(cuda):
     assert np.array_equal(back.seq_flat, block.seq_flat)
     assert np.array_equal(back.qual_flat, block.qual_flat)
     assert eng.stats["device_chunks"] == eng.stats["device_decodes"] == 1
-    for name in ("encode_frontend_bytes", "unpack_bases", "token_start_mask"):
+    for name in ("encode_frontend", "unpack_bases", "token_start_mask"):
         assert TK.launches[name] > 0, TK.launches
+    assert TK.launches["encode_frontend_bytes"] == 0  # the meta route
 
 
 @pytest.mark.cuda
@@ -195,7 +210,7 @@ def test_overlap_search_on_cuda_matches_cpu(cuda):
 def test_stream_coders_on_cuda_match_cpu(cuda, monkeypatch, wide):
     """The stream coders give the same bytes on the card as on the CPU:
     the spare-slot scatters, sorts and int32 scans behave alike."""
-    from repaq_tpu.codec import kernels_np as K
+    from repaq_tpu_torch.codec import kernels_np as K
     from repaq_tpu_torch.ops import device_streams as T
 
     if wide:

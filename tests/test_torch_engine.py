@@ -341,3 +341,37 @@ def test_cli_device_engine_needs_cuda_and_auto_goes_host(tmp_path):
     assert r.returncode == 0, r.stderr
     with open(os.path.join(FX, "se_illumina.ref.rfq"), "rb") as f:
         assert (tmp_path / "auto.rfq").read_bytes() == f.read()
+
+
+def test_pipeline_get_engine_binds_the_card_when_cuda_is_there(monkeypatch):
+    """The engine every pipeline entry point takes when the caller names
+    none: 'auto' and 'device' bind the device engine on cuda:0 once torch
+    sees CUDA, REPAQ_ENGINE pins 'auto', and 'device' without CUDA
+    raises."""
+    import torch
+
+    from repaq_tpu_torch import pipeline
+    from repaq_tpu_torch.codec import device_engine as TE
+
+    bound = []
+
+    def fake_config(device):
+        bound.append(device)
+        return pipeline.EngineConfig(None, None, None, None, name="device")
+
+    monkeypatch.setattr(TE, "make_engine_config", fake_config)
+    monkeypatch.delenv("REPAQ_ENGINE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert pipeline.get_engine().name == "device"
+    assert pipeline.get_engine("device").name == "device"
+    assert cli.get_engine("auto").name == "device"
+    assert bound == ["cuda:0"] * 3
+    monkeypatch.setenv("REPAQ_ENGINE", "vectorized")
+    assert pipeline.get_engine().name == "vectorized"
+    monkeypatch.delenv("REPAQ_ENGINE")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert pipeline.get_engine().name == "vectorized"
+    assert pipeline.get_engine("oracle").name == "oracle"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.get_engine("device")
+    assert len(bound) == 3

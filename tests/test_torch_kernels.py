@@ -58,10 +58,35 @@ def test_frontend_plain_ragged_tail_and_bins():
     assert np.array_equal(meta.numpy(), want)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 4 * 257 + 1, 4 * 1001 + 2,
+                               16 * 500 + 3])
+def test_frontend_plain_at_ragged_n_matches_byte_form_and_pallas(n):
+    """Any n, with 'N' and the major qual in the tail: the meta bytes that
+    both encode paths read split into the byte form's (nmask, bid), and
+    equal JAX's encode_frontend_pallas (interpret mode) and the host
+    pack."""
+    seq, qual, table, major = _frontend_case(n, n, 0.02, True)
+    seq[-1], qual[-1] = ord("N"), major
+    if n > 2:
+        seq[-2], qual[-2] = ord("N"), table[0]
+    args = [torch.from_numpy(a) for a in (seq, qual, table)]
+    packed, meta = TK.encode_frontend(*args, major)
+    want = TK.encode_frontend_bytes_plain(*args, major)
+    assert torch.equal(packed, want[0])
+    assert torch.equal(meta >= 0x80, want[1])
+    assert torch.equal((meta & 0x7F).int(), want[2])
+    jp, jn, jb = PT.encode_frontend_pallas(
+        jnp.asarray(seq), jnp.asarray(qual), jnp.asarray(table), major)
+    assert np.array_equal(packed.numpy(), np.asarray(jp))
+    assert np.array_equal(want[1].numpy(), np.asarray(jn))
+    assert np.array_equal(want[2].numpy(), np.asarray(jb))
+    assert np.array_equal(packed.numpy(), K.pack_2bit(seq))
+
+
 def test_frontend_rejects_bad_shapes():
     s = torch.zeros(10, dtype=torch.uint8)
-    with pytest.raises(ValueError):
-        TK.encode_frontend(s, s, torch.zeros(2, dtype=torch.uint8), 70)
+    with pytest.raises(ValueError):  # any n, but one for seq and qual
+        TK.encode_frontend(s, s[:9], torch.zeros(2, dtype=torch.uint8), 70)
     with pytest.raises(ValueError):
         TK.encode_frontend(s[:8], s[:8], torch.zeros(64, dtype=torch.uint8),
                            70)
@@ -92,6 +117,25 @@ def test_token_start_mask_plain_matches_jax(n, force_p):
     if force is None:  # the host token walk
         starts = K._token_starts(lens, lens.astype(np.int64))
         assert np.array_equal(np.flatnonzero(got), starts)
+
+
+@pytest.mark.parametrize("n,force_p", [(1, 0.0), (1, 1.0), (8191, 0.0),
+                                       (8193, 0.002), (40_000, 0.01)])
+def test_token_start_mask_u8_lens_match_i32_and_jax(n, force_p):
+    """The decode callers pass uint8 lengths: the same mask as int32 ones
+    and as JAX's, out-of-range lengths (0, 5, 6) clamped alike."""
+    rng = np.random.default_rng(n + 7)
+    lens = rng.choice([0, 1, 1, 1, 2, 4, 4, 5, 6], size=n).astype(np.int32)
+    force = rng.random(n) < force_p if force_p else None
+    f = None if force is None else torch.from_numpy(force)
+    got8 = TK.token_start_mask(torch.from_numpy(lens.astype(np.uint8)), f)
+    got32 = TK.token_start_mask(torch.from_numpy(lens), f)
+    got64 = TK.token_start_mask(torch.from_numpy(lens.astype(np.int64)), f)
+    want = np.asarray(jax.jit(D.token_start_mask)(
+        jnp.asarray(lens), None if force is None else jnp.asarray(force)))
+    assert got8.dtype == torch.bool
+    for got in (got8, got32, got64):
+        assert np.array_equal(got.numpy(), want)
 
 
 def test_token_start_mask_plain_matches_pallas_fsm():

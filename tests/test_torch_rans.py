@@ -24,6 +24,7 @@ from repaq_tpu.codec import vectorized
 from repaq_tpu.format import rfqz
 from repaq_tpu.ops import rans_device as D
 from repaq_tpu_torch import cli as tcli
+from repaq_tpu_torch.codec import rans_np as TR
 from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as T
@@ -251,7 +252,7 @@ def test_decode_section_errors_match_jax():
                                       device="cpu")):
             with pytest.raises(ValueError, match="rANS section truncated"):
                 dec(enc[:cut])
-        with pytest.raises(R.RansTruncated):
+        with pytest.raises(TR.RansTruncated):
             T.decode_section_device(enc[:cut], device="cpu")
     bad = bytearray(enc)
     bad[tbl + 4] ^= 0x01  # lane 0's byte count, now odd
@@ -259,7 +260,7 @@ def test_decode_section_errors_match_jax():
                 functools.partial(T.decode_section_device, device="cpu")):
         with pytest.raises(ValueError, match="lane table corrupt"):
             dec(bytes(bad))
-    with pytest.raises(R.RansTruncated):
+    with pytest.raises(TR.RansTruncated):
         T.decode_section_device(enc[:5], device="cpu")
 
 
