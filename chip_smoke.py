@@ -25,7 +25,11 @@ Phases, each of which must pass:
      (forced restarts at tile starts, all 4-byte tokens, tokens across
      tile edges; uint8 and int32 lengths), timed with both length types;
      the frontend also at n % 4 = 1, 2, 3 with 'N' and the major qual in
-     the tail;
+     the tail; the unpack also at m = 0, 1, 15, 16, 17 and 4109 (every
+     tail of its words and of a thread's four words) and into the
+     decode's (4m + 1)-byte buffer, and timed at 16 bytes (the fixed cost
+     of one event-timed launch), at 32 Mbyte and back to back over 8
+     buffer sets;
   3. goldens: `python -m repaq_tpu_torch.cli -c --engine device` on the
      single-end fixtures and, with -i/-I and -o/-O, the paired-end ones,
      byte-compared with the reference encoder's goldens, and `-d` back to
@@ -56,7 +60,15 @@ Phases, each of which must pass:
      the host oracle). Then every rANS section of the default-chunk file
      (the LZ sections' inner ones included) is decoded on the card and
      held against rans_np, and `-d` must give the inputs back. The section
-     census, the ratio and both encode rates are printed.
+     census, the ratio and both encode rates are printed;
+  7. the multi-GPU mesh (--mesh_devices), both corpora: compress_se_mesh /
+     compress_pe_mesh and decompress_se_mesh (PE with out2) on two engines
+     sharing cuda:0 (the mesh path whose launch counts are reported) and,
+     when torch sees more cards, on every card; then the CLI with
+     --mesh_devices -1 both ways. Bytes must equal the serial run's of
+     phase 4 or 5, the decode must give the inputs back, and every engine
+     must have coded and decoded chunks on the device. The device count is
+     printed: one card gives a byte check, not a scaling figure.
 
 The last line of standard output is the JSON result; the two lines before
 it are the kernels' JSON record and the nvidia-smi name/power line. Without
@@ -82,15 +94,15 @@ WORK = os.path.join(ROOT, ".smoke")
 # (name, source, TPU kernel it replaces, the main paths that launch it)
 KERNELS = [
     ("encode_frontend", "repaq_tpu_torch/csrc/frontend.cu",
-     "repaq_tpu/ops/pallas_tpu.py:249", ("se", "pe")),
+     "repaq_tpu/ops/pallas_tpu.py:249", ("se", "pe", "mesh_se", "mesh_pe")),
     ("encode_frontend_bytes", "repaq_tpu_torch/csrc/frontend.cu",
      "repaq_tpu/ops/pallas_tpu.py:249", ()),
     ("pack_bases", "repaq_tpu_torch/csrc/frontend.cu",
      "repaq_tpu/ops/pallas_tpu.py:94", ()),
     ("unpack_bases", "repaq_tpu_torch/csrc/unpack.cu",
-     "repaq_tpu/ops/pallas_tpu.py:127", ("se", "pe")),
+     "repaq_tpu/ops/pallas_tpu.py:127", ("se", "pe", "mesh_se", "mesh_pe")),
     ("token_start_mask", "repaq_tpu_torch/csrc/token_fsm.cu",
-     "repaq_tpu/ops/pallas_tpu.py:175", ("se", "pe")),
+     "repaq_tpu/ops/pallas_tpu.py:175", ("se", "pe", "mesh_se", "mesh_pe")),
     # the rANS kernels replace XLA scans and a sort, not Pallas kernels
     ("rans_encode", "repaq_tpu_torch/csrc/rans.cu",
      "repaq_tpu/ops/rans_device.py:152", ("rfqz_se", "rfqz_pe")),
@@ -360,6 +372,94 @@ def frontend_ragged_cases(dev) -> list:
     return sizes
 
 
+UNPACK_TAILS = (0, 1, 15, 16, 17, 4096 + 13)
+
+
+def unpack_cases(dev, packed) -> list:
+    """The unpack kernel exact against its plain version on every tail
+    length (m % 4 bytes past its last word, m % 16 past a thread's four
+    words), one launch each but none for m = 0, and at packed's size into
+    the (4m + 1)-byte buffer the decode gives it, whose last byte it must
+    leave alone; returns the lengths."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    rng = np.random.default_rng(127)
+    for m in UNPACK_TAILS:
+        p = torch.from_numpy(rng.integers(0, 256, size=m,
+                                          dtype=np.uint8)).to(dev)
+        before = TK.launches["unpack_bases"]
+        got = TK.unpack_bases(p)
+        torch.cuda.synchronize()
+        check(TK.launches["unpack_bases"] == before + (m > 0)
+              and torch.equal(got, TK.unpack_bases_plain(p)),
+              "unpack_bases differs from its plain version at m=%d" % m)
+    m = packed.shape[0]
+    buf = torch.full((4 * m + 1,), 7, dtype=torch.uint8, device=dev)
+    got = TK.unpack_bases(packed, out=buf)
+    torch.cuda.synchronize()
+    check(torch.equal(got, TK.unpack_bases_plain(packed))
+          and int(buf[-1]) == 7, "unpack_bases into the decode's (4m + "
+          "1)-byte buffer differs at m=%d" % m)
+    return list(UNPACK_TAILS) + [m]
+
+
+def back_to_back_ms(fn, sets: int, runs: int = 48) -> float:
+    """Device time a launch over `runs` launches of fn(i) in a row, i
+    taking `sets` buffer sets in turn (sized past the L2, so that each
+    launch reads memory), with the stream kept busy while the host
+    enqueues them: a launch's time without the fixed cost that a single
+    event-timed launch carries."""
+    import torch
+
+    for i in range(sets):
+        fn(i)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(runs):
+        fn(i % sets)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def unpack_readings(dev, packed):
+    """What holds the unpack kernel at the decode's size, beside its
+    single-launch time: the same time at 16 packed bytes (the fixed cost
+    of one event-timed launch) and at 32 Mbyte (the streaming rate, the
+    fixed cost spread thin), as by-shape results; and the time a launch
+    back to back over 8 buffer sets, in ms."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    m = packed.shape[0]
+    res = {}
+    for size, what in ((16, "one event-timed launch's fixed cost"),
+                       (32 << 20, "the streaming rate")):
+        p = torch.randint(0, 256, (size,), dtype=torch.uint8, device=dev)
+        res["%d packed bytes (%s)" % (size, what)] = held_and_timed(
+            "unpack_bases", lambda: TK.unpack_bases(p),
+            lambda: TK.unpack_bases_plain(p), (p,),
+            "%d packed bytes" % size, plain_runs=3)
+        del p
+    sets = [(torch.randint(0, 256, (m,), dtype=torch.uint8, device=dev),
+             torch.empty(4 * m, dtype=torch.uint8, device=dev))
+            for _ in range(8)]
+    b2b = back_to_back_ms(lambda i: TK.unpack_bases(sets[i][0],
+                                                    out=sets[i][1]), 8)
+    bound = 1e3 * 5 * m / HBM_BYTES_PER_S
+    log("kernel unpack_bases back to back at %d packed bytes, 48 launches "
+        "over 8 buffer sets: %.4f ms a launch (bound %.4f ms, %.0f%%)"
+        % (m, b2b, bound, 100 * bound / b2b))
+    return res, b2b
+
+
 def fsm_inputs(dev, n: int, dtype, seed: int):
     """Seeded token-FSM inputs of the decode's quality stream: lengths
     {1, 1, 2, 4} and 0.1% forced restarts."""
@@ -444,6 +544,12 @@ def kernel_phase(dev) -> dict:
             lambda: TK.encode_frontend_plain(pe_seq_t, pe_qual_t, bins,
                                              major),
             (pe_seq_t, pe_qual_t, bins), pe_shape)}
+    unpack = results["unpack_bases"]
+    by_shape, unpack["back_to_back_ms"] = unpack_readings(dev, packed)
+    unpack["by_shape"] = {"%d packed bytes" % (n // 4): dict(unpack),
+                          **by_shape}
+    log("kernel unpack_bases exact at m = %s (every tail; the last one into "
+        "the decode's buffer)" % unpack_cases(dev, packed))
     results["token_start_mask"]["by_shape"] = {
         fsm_shape + ", uint8 lengths": dict(results["token_start_mask"]),
         fsm_shape + ", int32 lengths": held_and_timed(
@@ -800,6 +906,7 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
                   "path" % (name, tag))
     res = {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
            "host_enc_s": host_s, "chunks": len(chunks), "fqs": fqs,
+           "rfq": out,
            "qual_bufs": qual_buffer_sizes(header, chunks)}
     log("corpus %s: quality buffers of the token FSM on decode: %s bytes"
         % (tag, res["qual_bufs"]))
@@ -814,6 +921,113 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
                                             100 * res["bwd"]))
         check(res["fwd"] >= 0.01 and res["bwd"] >= 0.01,
               "pe: forward or backward overlap share below 1%")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the multi-GPU mesh (--mesh_devices)
+# ---------------------------------------------------------------------------
+
+
+def mesh_phase(tag: str, corpus: dict) -> dict:
+    """A corpus of phase 4 or 5 through the mesh entries on two engines
+    sharing cuda:0 (the main path, launch counts from 0) and, when torch
+    sees more cards, on every card; then through the CLI with
+    --mesh_devices -1. Every run's bytes must equal the serial run's
+    (phase 4 or 5), the decode must give the inputs back, and every engine
+    must have coded and decoded chunks on the device."""
+    import torch
+
+    from repaq_tpu_torch import cli
+    from repaq_tpu_torch.codec.device_engine import DeviceEngine
+    from repaq_tpu_torch.ops import kernels as TK
+    from repaq_tpu_torch.parallel import mesh_engine as M
+
+    pe = tag == "pe"
+    fqs = corpus["fqs"]
+    with open(corpus["rfq"], "rb") as f:
+        serial = f.read()
+    out = os.path.join(WORK, tag + ".mesh.rfq")
+    backs = [os.path.join(WORK, "%s%d.mesh.fq" % (tag, m))
+             for m in range(1, len(fqs) + 1)]
+    workers = max(1, min(8, os.cpu_count() or 1))
+
+    def same_as_input(what: str) -> None:
+        for fq, back in zip(fqs, backs):
+            with open(fq, "rb") as f, open(back, "rb") as g:
+                check(f.read() == g.read(), "%s %s: decode differs from the "
+                      "input" % (tag, what))
+
+    sets = [["cuda:0"] * 2]
+    if torch.cuda.device_count() > 1:
+        sets.append(M.cuda_devices())
+    res = {"runs": []}
+    for i, devices in enumerate(sets):
+        what = "on %s" % ", ".join(devices)
+        if i == 0:
+            TK.reset_launches()
+        t0 = time.perf_counter()
+        if pe:
+            enc = M.compress_pe_mesh(fqs[0], fqs[1], out,
+                                     chunk_size=12_000_000, devices=devices,
+                                     workers=workers)
+        else:
+            enc = M.compress_se_mesh(fqs[0], out, chunk_size=12_000_000,
+                                     devices=devices, workers=workers)
+        enc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dec = M.decompress_se_mesh(out, backs[0], devices=devices,
+                                   out2=backs[1] if pe else "",
+                                   workers=workers)
+        dec_s = time.perf_counter() - t0
+        if i == 0:
+            res["launches"] = dict(TK.launches)
+        with open(out, "rb") as f:
+            check(f.read() == serial, "%s %s: mesh bytes differ from the "
+                  "serial run's" % (tag, what))
+        same_as_input(what)
+        for stats, key in ((enc, "device_chunks"), (dec, "device_decodes")):
+            check(all(s[key] > 0 for s in stats["engines"]), "%s %s: an "
+                  "engine has no %s: %s" % (tag, what, key, stats))
+        res["runs"].append((devices, enc_s, dec_s))
+        log("mesh %s %s: bytes equal to the serial run's, inputs back; "
+            "encode %.3f s, decode %.3f s; engines %s, then %s"
+            % (tag, what, enc_s, dec_s, enc["engines"], dec["engines"]))
+    for name, _src, _rep, paths in KERNELS:
+        if "mesh_" + tag in paths:
+            check(res["launches"][name] > 0, "kernel %s never launched on "
+                  "the mesh %s path" % (name, tag))
+    log("mesh %s: kernel launches on two engines sharing cuda:0: %s"
+        % (tag, {k: v for k, v in res["launches"].items() if v}))
+
+    # the CLI: -1 is every card torch sees; one card runs the serial
+    # pipeline on the engine given, as the JAX CLI does
+    made = []
+    make = M.make_engine
+    M.make_engine = lambda d: made.append(make(d)) or made[-1]
+    one = DeviceEngine("cuda:0")
+    ins = ["-i", fqs[0]] + (["-I", fqs[1]] if pe else [])
+    outs = ["-o", backs[0]] + (["-O", backs[1]] if pe else [])
+    try:
+        for argv in (["-c", *ins, "-o", out, "-k", "12000"],
+                     ["-d", "-i", out, *outs]):
+            rc = cli.main([*argv, "--mesh_devices", "-1", "--engine",
+                           "device"], engine=one.config())
+            check(rc == 0, "%s: %s --mesh_devices -1 exited %d"
+                  % (tag, argv[0], rc))
+    finally:
+        M.make_engine = make
+    with open(out, "rb") as f:
+        check(f.read() == serial, "%s: the CLI's --mesh_devices -1 bytes "
+              "differ from the serial run's" % tag)
+    same_as_input("CLI --mesh_devices -1")
+    engines = made or [one]
+    for e in engines:
+        check(e.stats["device_chunks"] + e.stats["device_decodes"] > 0,
+              "%s CLI: an engine took no chunk: %s" % (tag, e.stats))
+    log("mesh %s CLI --mesh_devices -1 (%d card(s) seen): bytes equal to the "
+        "serial run's, inputs back; engines %s"
+        % (tag, torch.cuda.device_count(), [e.stats for e in engines]))
     return res
 
 
@@ -1005,6 +1219,12 @@ def main() -> int:
         for tag in ("se", "pe"):
             cres["rfqz_" + tag] = rfqz_phase(tag, cres[tag]["fqs"],
                                              cres[tag]["bytes"])
+        log("mesh: torch sees %d CUDA device(s)%s"
+            % (torch.cuda.device_count(),
+               "; two engines share cuda:0, so this is a byte check, not a "
+               "scaling figure" if torch.cuda.device_count() == 1 else ""))
+        for tag in ("se", "pe"):
+            cres["mesh_" + tag] = mesh_phase(tag, cres[tag])
     except (SmokeFailure, RuntimeError) as e:
         log("chip_smoke: FAIL: %s" % e)
         return 1
@@ -1026,6 +1246,11 @@ def main() -> int:
             % (tag, rz["size"], 100 * rz["size"] / res["bytes"],
                mb / rz["enc_s"], rz["enc_s"], mb / rz["host_s"], rz["host_s"],
                card))
+        for devices, enc_s, dec_s in cres["mesh_" + tag]["runs"]:
+            log("mesh %s on %s: encode %.1f MB/s (%.3f s), decode %.1f MB/s "
+                "(%.3f s), FASTQ MB per wall second through the mesh entries "
+                "on %s" % (tag, ", ".join(devices), mb / enc_s, enc_s,
+                           mb / dec_s, dec_s, card))
     shutil.rmtree(WORK, ignore_errors=True)
 
     log(json.dumps({"kernels": [

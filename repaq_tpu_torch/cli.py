@@ -8,7 +8,9 @@ that engine when CUDA is available and the host ``vectorized`` engine
 otherwise. The device engine never runs on the CPU: without CUDA,
 ``--engine device`` exits non-zero. Under ``--engine device`` a ``.rfqz``
 output's rANS sections are coded on ``cuda:0`` too (``ops/rans_device.py``);
-``.rfqz`` input is read with the host decoder.
+``.rfqz`` input is read with the host decoder. ``--mesh_devices`` fans the
+chunks over CUDA devices, one device engine each (parallel/mesh_engine.py),
+and exits non-zero without CUDA.
 
 The ``.rfq.xz`` paths pipe through the external ``xz`` binary with the same
 level/dict-size policy as the reference (main.cpp:134-177), but via an
@@ -30,7 +32,6 @@ from .format.rfqz import RfqzReader, RfqzWriter
 
 # features of repaq_tpu.cli the port does not have yet, by ROADMAP item
 _NOT_YET = {
-    "--mesh_devices": "A8 (multi-GPU)",
     "--num_shards": "A10 (multi-host)",
 }
 
@@ -103,8 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--mesh_devices", type=int, default=0,
-        help="chunks fanned across N local devices; not ported yet "
-        "(rejected)",
+        help="chunks fanned across N local CUDA devices (-1: every device "
+        "torch sees), one device engine each whatever --engine says; "
+        "output identical to the serial run",
     )
     p.add_argument(
         "--no_assemble", action="store_true",
@@ -212,8 +214,6 @@ def main(argv: list[str] | None = None,
     args = build_parser().parse_args(argv)
     if args.workers < 1:
         args.workers = max(1, min(8, os.cpu_count() or 1))
-    if args.mesh_devices:
-        _reject_not_yet("--mesh_devices")
     if args.num_shards > 0:
         _reject_not_yet("--num_shards")
 
@@ -315,6 +315,9 @@ def main(argv: list[str] | None = None,
 
     if args.profile:
         os.environ["REPAQ_PROFILE"] = "1"
+    # compare mode decodes on one engine, as in repaq_tpu.cli
+    mesh = (_mesh_devices(args.mesh_devices)
+            if args.mesh_devices and mode != "compare" else None)
     if engine is None:
         engine = get_engine(args.engine)
 
@@ -323,7 +326,7 @@ def main(argv: list[str] | None = None,
             if out1.endswith(".rfqz"):
                 w = RfqzWriter(out1,
                                encode_section=rfqz_section_coder(args.engine))
-                _run_compress(args, in1, "", chunk_size, engine, w)
+                _run_compress(args, in1, "", chunk_size, engine, w, mesh)
                 w.close()
             elif out1.endswith(".xz"):
                 xz = subprocess.Popen(
@@ -332,25 +335,26 @@ def main(argv: list[str] | None = None,
                     stdout=open(out1, "wb"),
                 )
                 _run_compress(args, in1, "", chunk_size, engine,
-                                    xz.stdin)
+                              xz.stdin, mesh)
                 xz.stdin.close()
                 if xz.wait() != 0:
                     _die("failed to call xz, please confirm that xz is installed in your system")
             else:
-                _run_compress(args, in1, out1, chunk_size, engine, None)
+                _run_compress(args, in1, out1, chunk_size, engine, None,
+                              mesh)
         elif mode == "decompress":
             if in1.endswith(".rfqz"):
-                _run_decompress(args, "", out1, engine,
-                                      RfqzReader(in1))
+                _run_decompress(args, "", out1, engine, RfqzReader(in1),
+                                mesh)
             elif in1.endswith(".xz"):
                 xz = subprocess.Popen(
                     ["xz", "-d", "-c", in1], stdout=subprocess.PIPE
                 )
-                _run_decompress(args, "", out1, engine, xz.stdout)
+                _run_decompress(args, "", out1, engine, xz.stdout, mesh)
                 if xz.wait() != 0:
                     _die("failed to call xz")
             else:
-                _run_decompress(args, in1, out1, engine, None)
+                _run_decompress(args, in1, out1, engine, None, mesh)
         else:
             if rfq_compare.endswith(".rfqz"):
                 result = _run_compare(args, in1, "", engine,
@@ -373,7 +377,36 @@ def main(argv: list[str] | None = None,
     return 0
 
 
-def _run_compress(args, in1, out1, chunk_size, engine, out_stream):
+def _mesh_devices(n: int) -> list:
+    """The devices --mesh_devices n names: every CUDA device torch sees
+    for n < 0, else the first min(n, count), as repaq_tpu.cli does."""
+    from .parallel import mesh_engine
+
+    devices = mesh_engine.cuda_devices()
+    if not devices:
+        _die("--mesh_devices needs CUDA devices, and torch sees none (the "
+             "mesh never runs on the CPU)")
+    return devices if n < 0 else devices[:n]
+
+
+def _run_compress(args, in1, out1, chunk_size, engine, out_stream, mesh):
+    if mesh:
+        from .parallel.mesh_engine import compress_pe_mesh, compress_se_mesh
+
+        if args.in2 or args.interleaved_in:
+            compress_pe_mesh(
+                in1, args.in2, out1, chunk_size=chunk_size,
+                interleaved=args.interleaved_in, engine=engine,
+                out_stream=out_stream, devices=mesh, verify=args.verify,
+                fast_verify=args.fast_verify, workers=args.workers,
+            )
+        else:
+            compress_se_mesh(
+                in1, out1, chunk_size=chunk_size, engine=engine,
+                out_stream=out_stream, devices=mesh, verify=args.verify,
+                fast_verify=args.fast_verify, workers=args.workers,
+            )
+        return
     if args.in2 or args.interleaved_in:
         pipeline.compress_pe(
             in1,
@@ -402,7 +435,14 @@ def _run_compress(args, in1, out1, chunk_size, engine, out_stream):
         )
 
 
-def _run_decompress(args, in1, out1, engine, in_stream):
+def _run_decompress(args, in1, out1, engine, in_stream, mesh):
+    if mesh:
+        from .parallel.mesh_engine import decompress_se_mesh
+
+        decompress_se_mesh(in1, out1, engine=engine, in_stream=in_stream,
+                           devices=mesh, out2=args.out2 or "",
+                           workers=args.workers)
+        return
     if args.out2:
         pipeline.decompress_pe(in1, out1, args.out2, engine=engine,
                                in_stream=in_stream, workers=args.workers)

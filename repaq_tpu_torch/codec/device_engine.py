@@ -670,14 +670,15 @@ class DeviceEngine:
         n_cap = 4 * packed.shape[0]
         tok_cap, pos_cap, esc_cap, run_cap = qcaps
         with _span("dec.unpack"):
-            seq = kernels.unpack_bases(packed)
+            # one spare byte past the bases: the N scatter's dump slot
+            buf = torch.empty(n_cap + 1, dtype=torch.uint8,
+                              device=packed.device)
+            seq = kernels.unpack_bases(packed, out=buf)
             if has_npos:  # in stored (elided) space
                 pos, _cnt = ds.decode_positions_device(npos_buf, npos_len,
                                                        np_cap)
                 tgt = torch.where((pos >= 0) & (pos < n_cap), pos, n_cap)
-                seq = torch.cat([seq, seq.new_zeros(1)])
-                seq[tgt.long()] = _N
-                seq = seq[:n_cap]
+                buf[tgt.long()] = _N
         if tables is not None:
             with _span("dec.expand"):
                 seq = _expand(seq, tables, L)
@@ -698,10 +699,8 @@ class DeviceEngine:
         return torch.cat([seq, qual])
 
 
-def make_engine_config(device) -> EngineConfig:
-    """pipeline.EngineConfig of a DeviceEngine on ``device``: header
-    inference with the device quality scan, chunk codec on the device with
-    the documented host routes. REPAQ_DEVICE_MIN_BASES /
+def make_engine(device) -> DeviceEngine:
+    """A DeviceEngine on ``device``. REPAQ_DEVICE_MIN_BASES /
     REPAQ_DEVICE_MAX_BASES override the size window (tests put tiny
     fixtures on the device path)."""
     return DeviceEngine(
@@ -710,4 +709,11 @@ def make_engine_config(device) -> EngineConfig:
                                      _MIN_DEVICE_BASES)),
         max_bases=int(os.environ.get("REPAQ_DEVICE_MAX_BASES",
                                      _MAX_DEVICE_BASES)),
-    ).config()
+    )
+
+
+def make_engine_config(device) -> EngineConfig:
+    """pipeline.EngineConfig of ``make_engine(device)``: header inference
+    with the device quality scan, chunk codec on the device with the
+    documented host routes."""
+    return make_engine(device).config()

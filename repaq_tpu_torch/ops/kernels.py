@@ -210,26 +210,48 @@ def pack_bases(seq: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def unpack_bases_plain(packed: torch.Tensor) -> torch.Tensor:
+def unpack_bases_plain(packed: torch.Tensor,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain torch version of ``unpack_bases``."""
     shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed.device)
     c = ((packed[:, None] >> shifts) & 3).reshape(-1)
-    return torch.where(c == 0, _G, torch.where(
+    chars = torch.where(c == 0, _G, torch.where(
         c == 1, _A, torch.where(c == 2, _T, _C))).to(torch.uint8)
+    if out is None:
+        return chars
+    return out[:chars.shape[0]].copy_(chars)
 
 
-def unpack_bases(packed: torch.Tensor) -> torch.Tensor:
-    """(m,) packed u8 -> (4m,) base chars, low bits first: 0->G 1->A 2->T
-    3->C."""
+def _check_unpack_out(packed: torch.Tensor, out) -> None:
     _check_u8("packed", packed)
-    if not _on_cuda(packed):
-        return unpack_bases_plain(packed)
-    lib = _build.library()
+    if out is None:
+        return
+    _check_u8("out", out)
+    if not out.is_contiguous() or out.data_ptr() % 16:
+        raise ValueError("out must be contiguous with a 16-byte aligned "
+                         "start")
+    if out.shape[0] < 4 * packed.shape[0]:
+        raise ValueError("out holds %d bytes, the unpack writes %d"
+                         % (out.shape[0], 4 * packed.shape[0]))
+
+
+def unpack_bases(packed: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """(m,) packed u8 -> (4m,) base chars, low bits first: 0->G 1->A 2->T
+    3->C. out: an optional contiguous, 16-byte aligned u8 buffer of at
+    least 4m bytes on packed's device; the chars go to its first 4m bytes
+    and that view is returned (the rest of out is left as it was)."""
+    _check_unpack_out(packed, out)
+    if not _on_cuda(packed, *(() if out is None else (out,))):
+        return unpack_bases_plain(packed, out)
     packed = _aligned(packed)
     m = packed.shape[0]
-    out = torch.empty(4 * m, dtype=torch.uint8, device=packed.device)
+    if out is None:
+        out = torch.empty(4 * m, dtype=torch.uint8, device=packed.device)
+    out = out[:4 * m]
     if m == 0:
         return out
+    lib = _build.library()
     with torch.cuda.device(packed.device):
         _launch("unpack_bases", lib.repaq_unpack_bases, packed.data_ptr(),
                 out.data_ptr(), m, _stream(packed.device))

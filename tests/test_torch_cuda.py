@@ -100,17 +100,28 @@ def test_pack_kernel_matches_plain(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 3, 4, 10_001, 1 << 20])
+@pytest.mark.parametrize("m", [1, 3, 4, 10_001, 1 << 20, 0, 15, 16, 17,
+                               4096 + 13, 2_957_312])
 def test_unpack_kernel_matches_plain(cuda, m):
+    """Every tail: m % 4 bytes past the last word, m % 16 past a thread's
+    four words, a partial last block; and the decode's chunk size."""
     rng = np.random.default_rng(m)
     packed = torch.from_numpy(rng.integers(0, 256, size=m, dtype=np.uint8))
     packed = packed.to(cuda)
+    before = TK.launches["unpack_bases"]
     got = TK.unpack_bases(packed)
     torch.cuda.synchronize()
+    assert TK.launches["unpack_bases"] == before + (m > 0)
     assert torch.equal(got, TK.unpack_bases_plain(packed))
     # a misaligned view is copied to an aligned buffer, not refused
     assert torch.equal(TK.unpack_bases(packed[1:]),
                        TK.unpack_bases_plain(packed[1:]))
+    # into a larger buffer: the bytes past 4m stay as they were
+    buf = torch.full((4 * m + 17,), 7, dtype=torch.uint8, device=cuda)
+    assert torch.equal(TK.unpack_bases(packed, out=buf),
+                       TK.unpack_bases_plain(packed))
+    torch.cuda.synchronize()
+    assert bool((buf[4 * m:] == 7).all())
 
 
 @pytest.mark.cuda
@@ -177,6 +188,47 @@ def test_pe_engine_on_cuda_matches_host(cuda):
     for name in ("encode_frontend", "unpack_bases", "token_start_mask"):
         assert TK.launches[name] > 0, TK.launches
     assert TK.launches["encode_frontend_bytes"] == 0  # the meta route
+
+
+def _round_robin(stats, key):
+    """Every chunk on the device, the k-th on engine k mod D."""
+    got = [s[key] for s in stats["engines"]]
+    n, d = sum(got), len(got)
+    assert n > 0 and got == [(n - i + d - 1) // d for i in range(d)], got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base,golden,pe", [
+    ("se_big", "se_big.ref.k100.rfq", False),
+    ("pe_big", "pe_big.ref.k100.rfq", True)])
+def test_mesh_on_cuda_matches_goldens(cuda, fixtures_dir, tmp_path,
+                                      monkeypatch, base, golden, pe):
+    """Two engines on one card (and every card when there are more): the
+    golden bytes out, the input back, chunk k on engine k mod D."""
+    from repaq_tpu_torch.parallel import mesh_engine as M
+
+    monkeypatch.setenv("REPAQ_DEVICE_MIN_BASES", "0")
+    devices = ["cuda:0"] * 2
+    if torch.cuda.device_count() > 1:
+        devices = M.cuda_devices()
+    ins = ([str(fixtures_dir / (base + "_R1.fq")),
+            str(fixtures_dir / (base + "_R2.fq"))] if pe
+           else [str(fixtures_dir / (base + ".fq"))])
+    out = tmp_path / "m.rfq"
+    if pe:
+        stats = M.compress_pe_mesh(*ins, str(out), chunk_size=100_000,
+                                   devices=devices)
+    else:
+        stats = M.compress_se_mesh(*ins, str(out), chunk_size=100_000,
+                                   devices=devices)
+    assert out.read_bytes() == (fixtures_dir / golden).read_bytes()
+    _round_robin(stats, "device_chunks")
+    backs = [tmp_path / ("b%d.fq" % i) for i in range(len(ins))]
+    stats = M.decompress_se_mesh(str(out), str(backs[0]), devices=devices,
+                                 out2=str(backs[1]) if pe else "")
+    _round_robin(stats, "device_decodes")
+    for src, back in zip(ins, backs):
+        assert back.read_bytes() == open(src, "rb").read()
 
 
 @pytest.mark.cuda

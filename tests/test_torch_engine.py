@@ -195,6 +195,23 @@ def test_quality_stats_header_identical(eng):
     _roundtrip(eng, got, block2, chunk)
 
 
+@pytest.mark.parametrize("pe_overlap,nfrac", [(0.5, 0.01), (0.0, 0.0),
+                                              (0.9, 0.0005)])
+def test_quality_stats_header_identical_pe(eng, pe_overlap, nfrac):
+    """The PE header through the device quality scan (the case of
+    tests/test_device_engine.py:226-230): the port's make_header_pe with
+    the engine's stats gives the JAX package's host header, its bytes and
+    its support_interleaved."""
+    from repaq_tpu_torch.codec import vectorized as tvec
+
+    pe = _mk_block(600, 96, seed=34, pe_overlap=pe_overlap, nfrac=nfrac)
+    want = vectorized.make_header_pe(pe)
+    got = tvec.make_header_pe(pe, stats_fn=eng.quality_stats)
+    assert got.to_bytes() == want.to_bytes()
+    assert got.support_interleaved == want.support_interleaved
+    assert eng.config().make_header_pe(pe).to_bytes() == want.to_bytes()
+
+
 def test_concurrent_workers_share_one_engine(eng):
     """More threads than cores on one engine with a short switch interval:
     every chunk byte-identical and no count lost."""
@@ -287,12 +304,30 @@ def test_cli_goldens_through_the_engine(tmp_path, monkeypatch, base, golden,
     (["--num_shards", "2"], "A10"),
     (["-o", "{tmp}/o.rfqz"], "A9"),
 ])
-def test_cli_rejects_what_is_not_ported(tmp_path, capsys, argv, item):
+def test_cli_rejects_what_is_not_ported(tmp_path, capsys, monkeypatch, argv,
+                                        item):
     """A feature not ported yet exits non-zero naming its ROADMAP item.
     A9 (.rfqz output) is ported: it is accepted, and the file reads back
-    to the .rfq stream of the same chunking."""
+    to the .rfq stream of the same chunking. A8 (--mesh_devices) is
+    ported: without CUDA it exits non-zero for want of a device, not of a
+    port, and on devices it runs (CPU devices stand in here)."""
     fq = _fastq(tmp_path, "se_illumina")
     argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
+    if item == "A8":
+        from repaq_tpu_torch.parallel import mesh_engine
+
+        out = tmp_path / "o.rfq"
+        monkeypatch.setattr(mesh_engine, "cuda_devices", lambda: [])
+        with pytest.raises(SystemExit) as e:
+            cli.main(["-c", "-i", str(fq), *argv, "-o", str(out)])
+        err = capsys.readouterr().err
+        assert e.value.code != 0 and "CUDA" in err
+        assert "not ported" not in err and not out.exists()
+        monkeypatch.setattr(mesh_engine, "cuda_devices", lambda: ["cpu"] * 2)
+        assert cli.main(["-c", "-i", str(fq), *argv, "-o", str(out)]) == 0
+        with open(os.path.join(FX, "se_illumina.ref.rfq"), "rb") as f:
+            assert out.read_bytes() == f.read()
+        return
     if item == "A9":
         rfq = tmp_path / "o.rfq"
         assert cli.main(["-c", "-i", str(fq), *argv, "--engine",

@@ -92,7 +92,9 @@ def test_frontend_rejects_bad_shapes():
                            70)
 
 
-@pytest.mark.parametrize("m", [1, 1024, 10_001])
+# the kernel's tails: m % 4 bytes past its last word, m % 16 past a
+# thread's four words
+@pytest.mark.parametrize("m", [1, 1024, 10_001, 0, 15, 16, 17, 4096 + 13])
 def test_unpack_plain_matches_pallas_and_host(m):
     rng = np.random.default_rng(m)
     packed = rng.integers(0, 256, size=m, dtype=np.uint8)
@@ -100,6 +102,31 @@ def test_unpack_plain_matches_pallas_and_host(m):
     want = jax.jit(PT.unpack_bases_pallas)(jnp.asarray(packed))
     assert np.array_equal(got, np.asarray(want))
     assert np.array_equal(got, K.unpack_2bit(packed, 4 * m))
+
+
+@pytest.mark.parametrize("m", [0, 17, 4096 + 13])
+def test_unpack_into_a_larger_buffer(m):
+    """out=: the chars fill the buffer's first 4m bytes and come back as
+    that view; the rest of the buffer is untouched."""
+    packed = torch.from_numpy(np.random.default_rng(m).integers(
+        0, 256, size=m, dtype=np.uint8))
+    buf = torch.full((4 * m + 5,), 7, dtype=torch.uint8)
+    got = TK.unpack_bases(packed, out=buf)
+    assert got.shape == (4 * m,)
+    assert (got.untyped_storage().data_ptr()
+            == buf.untyped_storage().data_ptr())
+    assert torch.equal(got, TK.unpack_bases(packed))
+    assert bool((buf[4 * m:] == 7).all())
+
+
+def test_unpack_rejects_a_bad_out_buffer():
+    packed = torch.zeros(8, dtype=torch.uint8)
+    for bad in (torch.empty(31, dtype=torch.uint8),   # short
+                torch.empty(33, dtype=torch.uint8)[1:],  # misaligned
+                torch.empty(32, dtype=torch.int32),
+                torch.empty(64, dtype=torch.uint8)[::2]):
+        with pytest.raises(ValueError):
+            TK.unpack_bases(packed, out=bad)
 
 
 @pytest.mark.parametrize("n,force_p", [(1, 0.0), (5000, 0.0),
