@@ -68,7 +68,25 @@ Phases, each of which must pass:
      --mesh_devices -1 both ways. Bytes must equal the serial run's of
      phase 4 or 5, the decode must give the inputs back, and every engine
      must have coded and decoded chunks on the device. The device count is
-     printed: one card gives a byte check, not a scaling figure.
+     printed: one card gives a byte check, not a scaling figure;
+  8. sharded (--num_shards and the torch.distributed transport), both
+     corpora at -k 12000: (a) the CLI, `--num_shards 2` compress with
+     --engine device, each rank a process calling
+     repaq_tpu_torch.cli.main(argv, engine=...) that prints its engine's
+     stats and kernel launches, then `--num_shards 2` decompress of that
+     .rfq; the bytes must equal the serial run's of phase 4 or 5, the
+     decode must give the inputs back, every rank's chunks must have taken
+     the device both ways, and encode_frontend, unpack_bases and
+     token_start_mask must have launched in every rank (their sums are
+     the launches of the shard_se and shard_pe paths). On one card both
+     ranks share cuda:0; with more, rank r sees card r alone
+     (CUDA_VISIBLE_DEVICES) and a run with one rank a card (at most 4) is
+     added. (b) the transport, compress_distributed_torch: NCCL at world
+     size 1 on cuda:0, gloo at world size 2 with both ranks' engines on
+     cuda:0 and, with two or more cards, NCCL at world size min(count, 4),
+     one card a rank; each must give the serial bytes, and each rank's
+     timings and slab rounds are printed. Every rank process has a time
+     limit, and any failure, timeout or non-zero rank fails the phase.
 
 The last line of standard output is the JSON result; the two lines before
 it are the kernels' JSON record and the nvidia-smi name/power line. Without
@@ -94,15 +112,18 @@ WORK = os.path.join(ROOT, ".smoke")
 # (name, source, TPU kernel it replaces, the main paths that launch it)
 KERNELS = [
     ("encode_frontend", "repaq_tpu_torch/csrc/frontend.cu",
-     "repaq_tpu/ops/pallas_tpu.py:249", ("se", "pe", "mesh_se", "mesh_pe")),
+     "repaq_tpu/ops/pallas_tpu.py:249",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
     ("encode_frontend_bytes", "repaq_tpu_torch/csrc/frontend.cu",
      "repaq_tpu/ops/pallas_tpu.py:249", ()),
     ("pack_bases", "repaq_tpu_torch/csrc/frontend.cu",
      "repaq_tpu/ops/pallas_tpu.py:94", ()),
     ("unpack_bases", "repaq_tpu_torch/csrc/unpack.cu",
-     "repaq_tpu/ops/pallas_tpu.py:127", ("se", "pe", "mesh_se", "mesh_pe")),
+     "repaq_tpu/ops/pallas_tpu.py:127",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
     ("token_start_mask", "repaq_tpu_torch/csrc/token_fsm.cu",
-     "repaq_tpu/ops/pallas_tpu.py:175", ("se", "pe", "mesh_se", "mesh_pe")),
+     "repaq_tpu/ops/pallas_tpu.py:175",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
     # the rANS kernels replace XLA scans and a sort, not Pallas kernels
     ("rans_encode", "repaq_tpu_torch/csrc/rans.cu",
      "repaq_tpu/ops/rans_device.py:152", ("rfqz_se", "rfqz_pe")),
@@ -906,7 +927,7 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
                   "path" % (name, tag))
     res = {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
            "host_enc_s": host_s, "chunks": len(chunks), "fqs": fqs,
-           "rfq": out,
+           "rfq": out, "chunk_kb": chunk_kb,
            "qual_bufs": qual_buffer_sizes(header, chunks)}
     log("corpus %s: quality buffers of the token FSM on decode: %s bytes"
         % (tag, res["qual_bufs"]))
@@ -1182,6 +1203,230 @@ def rfqz_phase(tag: str, fqs: list, fastq_bytes: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: sharded (--num_shards, and the torch.distributed transport)
+# ---------------------------------------------------------------------------
+
+# one rank of the sharded CLI: argv[1] is its engine's device, the rest the
+# CLI's arguments; prints the rank's wall, engine stats and kernel launches
+SHARD_CLI_RANK = r"""
+import json, sys, time
+from repaq_tpu_torch import cli
+from repaq_tpu_torch.codec.device_engine import DeviceEngine
+from repaq_tpu_torch.ops import kernels as TK
+
+eng = DeviceEngine(sys.argv[1])
+TK.reset_launches()
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[2:], engine=eng.config())
+print(json.dumps({"rc": rc, "wall_s": time.perf_counter() - t0,
+                  "stats": eng.stats, "launches": TK.launches}))
+sys.exit(rc)
+"""
+
+# one rank of compress_distributed_torch, on a process group the rank makes
+# itself: its engine's device, backend, rendezvous URL, world size, rank,
+# in1, in2 ("" for SE), out1, chunk size in bases, codec workers; prints
+# the rank's wall, timings, stats, launches
+TRANSPORT_RANK = r"""
+import datetime, json, sys, time
+import torch.distributed as tdist
+from repaq_tpu_torch.codec.device_engine import DeviceEngine
+from repaq_tpu_torch.ops import kernels as TK
+from repaq_tpu_torch.parallel import torchdist as T
+
+dev, backend, url, nproc, pid, in1, in2, out1, k, workers = sys.argv[1:11]
+eng = DeviceEngine(dev)
+timings = {}
+TK.reset_launches()
+t0 = time.perf_counter()
+tdist.init_process_group(backend, init_method=url, world_size=int(nproc),
+                         rank=int(pid),
+                         timeout=datetime.timedelta(seconds=300))
+try:
+    T.compress_distributed_torch(
+        in1, out1, in2=in2, chunk_size=int(k), engine=eng.config(),
+        is_pe=bool(in2), workers=int(workers), timings=timings)
+finally:
+    tdist.destroy_process_group()
+print(json.dumps({"wall_s": time.perf_counter() - t0, "timings": timings,
+                  "stats": eng.stats, "launches": TK.launches}))
+"""
+
+RANK_TIMEOUT_S = 300
+
+# the kernels each direction of a shard must launch in every rank
+SHARD_KERNELS = {"compress": ("encode_frontend",),
+                 "decompress": ("unpack_bases", "token_start_mask")}
+
+
+def rank_env(rank: int, per_card: bool) -> dict:
+    """A rank process's environment: the checkout on the path, process
+    groups over the loopback (one host), and with per_card the rank-th
+    card the only one it sees."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    if per_card:
+        import torch
+
+        seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+        ids = (seen.split(",") if seen else
+               [str(i) for i in range(torch.cuda.device_count())])
+        env["CUDA_VISIBLE_DEVICES"] = ids[rank]
+    return env
+
+
+def run_ranks(cmds, envs) -> tuple:
+    """Every rank process started at once, each with its environment; all
+    must exit 0 within RANK_TIMEOUT_S. Returns the wall from the first
+    start to the last exit and the JSON of each rank's last output line."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=ROOT, env=e, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE)
+             for c, e in zip(cmds, envs)]
+    try:
+        outs = [p.communicate(timeout=RANK_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure("a rank process ran past %d s: %s"
+                           % (RANK_TIMEOUT_S, " ".join(e.cmd[3:]))) from e
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, "rank %d of %d exited %d:\n%s"
+              % (r, len(procs), p.returncode,
+                 err.decode(errors="replace")[-3000:]))
+        ranks.append(json.loads(out.decode().strip().splitlines()[-1]))
+    return wall, ranks
+
+
+def shard_plan() -> tuple:
+    """(the CLI's shard counts, whether each rank sees its own card, the
+    transport's (backend, world size, one card a rank) runs) for the
+    cards torch sees."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards == 1:
+        return [2], False, [("nccl", 1, False), ("gloo", 2, False)]
+    return (sorted({2, min(cards, 4)}), True,
+            [("nccl", 1, False), ("gloo", 2, False),
+             ("nccl", min(cards, 4), True)])
+
+
+def shard_phase(tag: str, corpus: dict, card: str) -> dict:
+    """A corpus of phase 4 or 5 through the sharded CLI, compress then
+    decompress, at 2 shards (the main path, whose summed launches are
+    reported) and, with more cards, at one shard a card; then through
+    compress_distributed_torch over NCCL and gloo. Bytes must equal the
+    serial run's, the decode the inputs; every rank's chunks must take
+    the device, and its kernels launch."""
+    from repaq_tpu_torch.parallel.distributed import partition
+
+    pe = tag == "pe"
+    fqs, chunks = corpus["fqs"], corpus["chunks"]
+    k = str(corpus["chunk_kb"])
+    with open(corpus["rfq"], "rb") as f:
+        serial = f.read()
+    counts, per_card, runs = shard_plan()
+    workers = max(1, min(8, os.cpu_count() or 1))
+    out = os.path.join(WORK, tag + ".shard.rfq")
+    backs = [os.path.join(WORK, "%s%d.shard.fq" % (tag, m))
+             for m in range(1, len(fqs) + 1)]
+    ins = ["-i", fqs[0]] + (["-I", fqs[1]] if pe else [])
+    outs = ["-o", backs[0]] + (["-O", backs[1]] if pe else [])
+    res = {"cli": [], "transport": []}
+
+    for n in counts:
+        where = ("one card a rank" if per_card
+                 else "both ranks on cuda:0")
+        envs = [rank_env(r, per_card) for r in range(n)]
+        launches = {}
+        walls = {}
+        for what, argv, done, host in (
+                ("compress", ["-c", *ins, "-o", out, "-k", k],
+                 "device_chunks", "host_chunks"),
+                ("decompress", ["-d", "-i", out, *outs],
+                 "device_decodes", "host_decodes")):
+            wall, ranks = run_ranks(
+                [[sys.executable, "-c", SHARD_CLI_RANK, "cuda:0", *argv,
+                  "--engine", "device", "--num_shards", str(n), "--shard",
+                  str(r)] for r in range(n)], envs)
+            for r, (rank, (lo, hi)) in enumerate(zip(ranks,
+                                                     partition(chunks, n))):
+                st = rank["stats"]
+                check(st[done] == hi - lo and st[host] == 0,
+                      "%s --num_shards %d %s: rank %d took %s of its %d "
+                      "chunks to the device: %s"
+                      % (tag, n, what, r, st[done], hi - lo, st))
+                for name in SHARD_KERNELS[what]:
+                    check(hi == lo or rank["launches"][name] > 0,
+                          "%s --num_shards %d %s: kernel %s never launched "
+                          "in rank %d" % (tag, n, what, name, r))
+                for name, count in rank["launches"].items():
+                    launches[name] = launches.get(name, 0) + count
+            walls[what] = (wall, [rank["wall_s"] for rank in ranks])
+            log("shard %s CLI --num_shards %d %s (%s): %.3f s wall from the "
+                "first rank's start to the last one's exit, ranks %s s "
+                "inside cli.main, on %s; engine stats %s"
+                % (tag, n, what, where, wall,
+                   ["%.3f" % rank["wall_s"] for rank in ranks], card,
+                   [rank["stats"] for rank in ranks]))
+        with open(out, "rb") as f:
+            check(f.read() == serial, "%s --num_shards %d: bytes differ "
+                  "from the serial run's" % (tag, n))
+        for fq, back in zip(fqs, backs):
+            with open(fq, "rb") as f, open(back, "rb") as g:
+                check(f.read() == g.read(), "%s --num_shards %d: decode "
+                      "differs from the input" % (tag, n))
+        log("shard %s CLI --num_shards %d: bytes equal to the serial run's, "
+            "inputs back; kernel launches summed over the ranks %s"
+            % (tag, n, {k_: v for k_, v in launches.items() if v}))
+        if n == 2:
+            res["launches"] = launches
+        res["cli"].append((n, where, walls))
+
+    tout = os.path.join(WORK, tag + ".torchdist.rfq")
+    for backend, n, per_card in runs:
+        rdv = os.path.join(WORK, "rendezvous.%s.%s.%d" % (tag, backend, n))
+        if os.path.exists(rdv):
+            os.remove(rdv)
+        where = ("one card a rank" if per_card
+                 else "every rank's engine on cuda:0")
+        wall, ranks = run_ranks(
+            [[sys.executable, "-c", TRANSPORT_RANK, "cuda:0", backend,
+              "file://" + rdv, str(n), str(r), fqs[0],
+              fqs[1] if pe else "", tout, str(int(k) * 1000), str(workers)]
+             for r in range(n)], [rank_env(r, per_card) for r in range(n)])
+        with open(tout, "rb") as f:
+            check(f.read() == serial, "%s compress_distributed_torch over "
+                  "%s at world size %d: bytes differ from the serial run's"
+                  % (tag, backend, n))
+        for r, rank in enumerate(ranks):
+            check(rank["stats"]["host_chunks"] == 0
+                  and rank["stats"]["device_chunks"] > 0,
+                  "%s %s world size %d: rank %d's chunks did not all take "
+                  "the device: %s" % (tag, backend, n, r, rank["stats"]))
+            log("shard %s transport %s world size %d (%s), rank %d: %s; "
+                "%.3f s inside the call; on %s"
+                % (tag, backend, n, where, r,
+                   json.dumps(rank["timings"], sort_keys=True),
+                   rank["wall_s"], card))
+        log("shard %s transport %s world size %d: bytes equal to the serial "
+            "run's; %d slab rounds of %d-byte parts; %.3f s wall for the "
+            "group, on %s" % (tag, backend, n, ranks[0]["timings"]["rounds"],
+                              max(rk["timings"]["part_bytes"]
+                                  for rk in ranks), wall, card))
+        res["transport"].append((backend, n, where, wall,
+                                 [rk["timings"] for rk in ranks]))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1225,6 +1470,16 @@ def main() -> int:
                "scaling figure" if torch.cuda.device_count() == 1 else ""))
         for tag in ("se", "pe"):
             cres["mesh_" + tag] = mesh_phase(tag, cres[tag])
+        counts, per_card, runs = shard_plan()
+        log("shard: torch sees %d CUDA device(s); the CLI runs --num_shards "
+            "%s (%s); the transport runs %s"
+            % (torch.cuda.device_count(), " and ".join(map(str, counts)),
+               "one card a rank" if per_card else "both ranks on cuda:0",
+               ", ".join("%s at world size %d%s"
+                         % (b, n, " one card a rank" if pc else "")
+                         for b, n, pc in runs)))
+        for tag in ("se", "pe"):
+            cres["shard_" + tag] = shard_phase(tag, cres[tag], card)
     except (SmokeFailure, RuntimeError) as e:
         log("chip_smoke: FAIL: %s" % e)
         return 1
@@ -1251,6 +1506,11 @@ def main() -> int:
                 "(%.3f s), FASTQ MB per wall second through the mesh entries "
                 "on %s" % (tag, ", ".join(devices), mb / enc_s, enc_s,
                            mb / dec_s, dec_s, card))
+        for n, where, walls in cres["shard_" + tag]["cli"]:
+            log("shard %s CLI --num_shards %d (%s): compress %.3f s, "
+                "decompress %.3f s wall per file, rank processes' start "
+                "included, on %s" % (tag, n, where, walls["compress"][0],
+                                     walls["decompress"][0], card))
     shutil.rmtree(WORK, ignore_errors=True)
 
     log(json.dumps({"kernels": [

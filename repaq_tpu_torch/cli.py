@@ -10,7 +10,11 @@ otherwise. The device engine never runs on the CPU: without CUDA,
 output's rANS sections are coded on ``cuda:0`` too (``ops/rans_device.py``);
 ``.rfqz`` input is read with the host decoder. ``--mesh_devices`` fans the
 chunks over CUDA devices, one device engine each (parallel/mesh_engine.py),
-and exits non-zero without CUDA.
+and exits non-zero without CUDA. ``--num_shards N --shard i`` codes the
+i-th of N contiguous chunk ranges to a part file, and shard 0 assembles the
+parts in order (parallel/distributed.py); under ``--engine device`` every
+shard runs its engine on ``cuda:0``, and a ``.rfqz`` part's sections take
+the host coder, as in repaq_tpu.cli. With both flags the shard branch wins.
 
 The ``.rfq.xz`` paths pipe through the external ``xz`` binary with the same
 level/dict-size policy as the reference (main.cpp:134-177), but via an
@@ -29,12 +33,6 @@ from . import pipeline
 from .constants import VERSION_NUM
 from .format.header import RfqFormatError
 from .format.rfqz import RfqzReader, RfqzWriter
-
-# features of repaq_tpu.cli the port does not have yet, by ROADMAP item
-_NOT_YET = {
-    "--num_shards": "A10 (multi-host)",
-}
-
 
 def is_fastq_file(name: str) -> bool:
     return name.endswith((".fq", ".fastq", ".fq.gz", ".fastq.gz"))
@@ -95,8 +93,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--num_shards", type=int, default=0,
-        help="multi-host data-parallel compress or decompress; not "
-        "ported yet (rejected)",
+        help="multi-host data-parallel compress OR decompress: total "
+        "process count. Each process codes a contiguous chunk range to "
+        "<out1>.part<shard>; shard 0 assembles the parts in order once "
+        "all exist. Extension over the reference (compress: plain non-gz "
+        "inputs, .rfq/.rfqz output; decompress: .rfq input, plain "
+        "non-gz FASTQ output).",
     )
     p.add_argument(
         "--shard", type=int, default=0,
@@ -116,6 +118,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="version",
                    version="repaq-tpu %s" % VERSION_NUM.decode())
     return p
+
+
+def _wait_for_parts(parts: list[str]) -> None:
+    """Rank-0 shard assembly: wait for peer part files with failure
+    detection. Besides the total deadline (REPAQ_SHARD_TIMEOUT, default
+    3600 s), die once no NEW part appears for REPAQ_SHARD_STALL seconds
+    (default 300): a crashed peer never writes its part, and a live one
+    writes within the stall window."""
+    import time as _time
+
+    timeout = float(os.environ.get("REPAQ_SHARD_TIMEOUT", 3600))
+    stall = float(os.environ.get("REPAQ_SHARD_STALL", 300))
+    deadline = _time.time() + timeout
+    seen = sum(os.path.exists(p) for p in parts)
+    last_progress = _time.time()
+    while not all(os.path.exists(p) for p in parts):
+        now = _time.time()
+        have = sum(os.path.exists(p) for p in parts)
+        if have > seen:
+            seen, last_progress = have, now
+        missing = [p for p in parts if not os.path.exists(p)]
+        if now > deadline:
+            _die("timed out waiting for shard part files: %s"
+                 % ", ".join(missing))
+        if now - last_progress > stall:
+            _die("no shard progress for %.0f s (peer crashed?); still "
+                 "missing: %s" % (stall, ", ".join(missing)))
+        _time.sleep(0.2)
 
 
 def _xz_compress_args(compression: int, threads: int) -> list[str]:
@@ -198,11 +228,6 @@ def rfqz_section_coder(engine_name: str):
     return functools.partial(encode_section_device, device="cuda:0")
 
 
-def _reject_not_yet(what: str) -> None:
-    _die("%s is not ported to repaq_tpu_torch yet (ROADMAP %s); use "
-         "python -m repaq_tpu.cli for it" % (what, _NOT_YET[what]))
-
-
 def main(argv: list[str] | None = None,
          engine: pipeline.EngineConfig | None = None) -> int:
     """CLI entry. engine: run this EngineConfig instead of the one
@@ -214,8 +239,6 @@ def main(argv: list[str] | None = None,
     args = build_parser().parse_args(argv)
     if args.workers < 1:
         args.workers = max(1, min(8, os.cpu_count() or 1))
-    if args.num_shards > 0:
-        _reject_not_yet("--num_shards")
 
     mode_count = sum([args.compress, args.decompress, args.compare])
     if mode_count > 1:
@@ -315,11 +338,14 @@ def main(argv: list[str] | None = None,
 
     if args.profile:
         os.environ["REPAQ_PROFILE"] = "1"
+    if engine is None:
+        engine = get_engine(args.engine)
+
+    if args.num_shards > 0 and mode in ("compress", "decompress"):
+        return _run_shard(args, mode, in1, out1, chunk_size, engine)
     # compare mode decodes on one engine, as in repaq_tpu.cli
     mesh = (_mesh_devices(args.mesh_devices)
             if args.mesh_devices and mode != "compare" else None)
-    if engine is None:
-        engine = get_engine(args.engine)
 
     try:
         if mode == "compress":
@@ -371,6 +397,77 @@ def main(argv: list[str] | None = None,
                                             None)
             if result["result"] != "passed":
                 return 1
+    except RfqFormatError as e:
+        print("ERROR: %s" % e, file=sys.stderr)
+        return -1
+    return 0
+
+
+def _run_shard(args, mode, in1, out1, chunk_size, engine) -> int:
+    """--num_shards: this shard's part of a compress or decompress, and
+    on shard 0 (unless --no_assemble) the ordered assembly once every part
+    exists; repaq_tpu.cli's two shard branches."""
+    from .parallel import distributed as dist
+
+    if not (0 <= args.shard < args.num_shards):
+        _die("--shard must be in [0, num_shards)")
+    if mode == "compress":
+        if out1.endswith(".xz") or args.stdout or args.stdin:
+            _die("--num_shards requires a .rfq or .rfqz output file and "
+                 "file inputs")
+        if in1.endswith(".gz") or (args.in2 and args.in2.endswith(".gz")):
+            _die("--num_shards requires non-gz inputs (byte-range plan)")
+    else:
+        if not in1.endswith(".rfq") or args.stdin:
+            _die("--num_shards decompress requires a plain .rfq input file "
+                 "(chunk-index scan; .xz/.rfqz streams are serial)")
+        if args.stdout or out1.endswith(".gz") or (
+            args.out2 and args.out2.endswith(".gz")
+        ):
+            _die("--num_shards decompress requires plain (non-gz) FASTQ "
+                 "output files")
+    outs = [out1] + ([args.out2] if mode == "decompress" and args.out2
+                     else [])
+    pe = bool(args.in2 or args.interleaved_in)
+    try:
+        if mode == "decompress":
+            dist.decompress_distributed(
+                in1, out1, args.out2, num_processes=args.num_shards,
+                process_id=args.shard, engine=engine, workers=args.workers,
+                assemble=False,
+            )
+        elif pe:
+            dist.compress_pe_distributed(
+                in1, args.in2, out1, chunk_size=chunk_size,
+                num_processes=args.num_shards, process_id=args.shard,
+                engine=engine, workers=args.workers, assemble=False,
+                interleaved=args.interleaved_in, verify=args.verify,
+                fast_verify=args.fast_verify,
+            )
+        else:
+            dist.compress_se_distributed(
+                in1, out1, chunk_size=chunk_size,
+                num_processes=args.num_shards, process_id=args.shard,
+                engine=engine, workers=args.workers, assemble=False,
+                verify=args.verify, fast_verify=args.fast_verify,
+            )
+        if args.shard == 0 and not args.no_assemble:
+            # ranks may run concurrently (other processes or hosts on a
+            # shared filesystem): wait for every part before the ordered
+            # concatenation
+            _wait_for_parts(["%s.part%d" % (o, pid) for o in outs
+                             for pid in range(args.num_shards)])
+            if mode == "decompress":
+                for o in outs:
+                    dist.assemble_fastq_parts(o, args.num_shards)
+                return 0
+            if pe:
+                header = dist.derive_header_pe(
+                    in1, args.in2, chunk_size, engine, args.interleaved_in)
+            else:
+                header = dist.derive_header(in1, chunk_size, engine)
+            dist.assemble_parts(out1, header.to_bytes(), args.num_shards,
+                                rfqz=out1.endswith(".rfqz"))
     except RfqFormatError as e:
         print("ERROR: %s" % e, file=sys.stderr)
         return -1

@@ -232,6 +232,65 @@ def test_mesh_on_cuda_matches_goldens(cuda, fixtures_dir, tmp_path,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("base,golden,pe", [
+    ("se_big", "se_big.ref.k100.rfq", False),
+    ("pe_big", "pe_big.ref.k100.rfq", True)])
+def test_shards_on_cuda_match_goldens(cuda, fixtures_dir, tmp_path, base,
+                                      golden, pe):
+    """--num_shards 3 --engine device, the shards run in turn in this
+    process on one engine: the golden bytes out (shard 0 assembles last),
+    then the input back, every chunk on the card both ways."""
+    eng = DeviceEngine("cuda:0", min_bases=0)
+    ins = (["-i", str(fixtures_dir / (base + "_R1.fq")),
+            "-I", str(fixtures_dir / (base + "_R2.fq"))] if pe
+           else ["-i", str(fixtures_dir / (base + ".fq"))])
+    out = tmp_path / "s.rfq"
+    backs = [tmp_path / ("b%d.fq" % i) for i in range(1 + pe)]
+    outs = ["-o", str(backs[0])] + (["-O", str(backs[1])] if pe else [])
+    for argv in (["-c", *ins, "-o", str(out), "-k", "100"],
+                 ["-d", "-i", str(out), *outs]):
+        for shard in (2, 1, 0):
+            assert tcli.main([*argv, "--engine", "device", "--num_shards",
+                              "3", "--shard", str(shard)],
+                             engine=eng.config()) == 0
+    assert out.read_bytes() == (fixtures_dir / golden).read_bytes()
+    for src, back in zip(ins[1::2], backs):
+        assert back.read_bytes() == open(src, "rb").read()
+    st = eng.stats
+    assert st["host_chunks"] == st["host_decodes"] == 0
+    assert st["device_chunks"] == st["device_decodes"] > 0
+
+
+@pytest.mark.cuda
+def test_torchdist_nccl_one_rank_matches_golden(cuda, fixtures_dir,
+                                                tmp_path, monkeypatch):
+    """compress_distributed_torch over NCCL at world size 1, the engine on
+    cuda:0 and a 4 KB slab (many gather rounds): the golden bytes."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    from repaq_tpu_torch.parallel import torchdist as T
+
+    monkeypatch.setattr(T, "_SLAB", 4096)
+    eng = DeviceEngine("cuda:0", min_bases=0)
+    out = tmp_path / "t.rfq"
+    timings = {}
+    tdist.init_process_group(
+        "nccl", init_method="file://" + str(tmp_path / "rdv"), world_size=1,
+        rank=0, timeout=datetime.timedelta(seconds=120))
+    try:
+        T.compress_distributed_torch(
+            str(fixtures_dir / "se_big.fq"), str(out), chunk_size=100_000,
+            engine=eng.config(), timings=timings)
+    finally:
+        tdist.destroy_process_group()
+    assert out.read_bytes() == (
+        fixtures_dir / "se_big.ref.k100.rfq").read_bytes()
+    assert timings["rounds"] > 1 and eng.stats["device_chunks"] > 0
+
+
+@pytest.mark.cuda
 def test_overlap_search_on_cuda_matches_cpu(cuda):
     """The int64-masked uint32 hashes and the overlap search give the same
     values on the card as on the CPU."""

@@ -301,16 +301,18 @@ def test_cli_goldens_through_the_engine(tmp_path, monkeypatch, base, golden,
 
 @pytest.mark.parametrize("argv,item", [
     (["--mesh_devices", "2"], "A8"),
-    (["--num_shards", "2"], "A10"),
+    (["--num_shards", "2", "--shard", "0", "--no_assemble"], "A10"),
     (["-o", "{tmp}/o.rfqz"], "A9"),
 ])
 def test_cli_rejects_what_is_not_ported(tmp_path, capsys, monkeypatch, argv,
                                         item):
-    """A feature not ported yet exits non-zero naming its ROADMAP item.
-    A9 (.rfqz output) is ported: it is accepted, and the file reads back
-    to the .rfq stream of the same chunking. A8 (--mesh_devices) is
-    ported: without CUDA it exits non-zero for want of a device, not of a
-    port, and on devices it runs (CPU devices stand in here)."""
+    """Every feature of repaq_tpu.cli is ported, and none is rejected as
+    not ported. A9 (.rfqz output) is accepted, and the file reads back to
+    the .rfq stream of the same chunking. A8 (--mesh_devices): without
+    CUDA it exits non-zero for want of a device, not of a port, and on
+    devices it runs (CPU devices stand in here). A10 (--num_shards): shard
+    0 with --no_assemble writes its part, the same bytes as repaq_tpu's
+    shard 0, and leaves the output to the assembly."""
     fq = _fastq(tmp_path, "se_illumina")
     argv = [a.replace("{tmp}", str(tmp_path)) for a in argv]
     if item == "A8":
@@ -339,10 +341,21 @@ def test_cli_rejects_what_is_not_ported(tmp_path, capsys, monkeypatch, argv,
         reader.close()
         assert item not in capsys.readouterr().err
         return
-    with pytest.raises(SystemExit) as e:
-        cli.main(["-c", "-i", str(fq), *argv, "-o", str(tmp_path / "o.rfq")])
-    assert e.value.code != 0
-    assert item in capsys.readouterr().err
+    from repaq_tpu import pipeline as jpipeline
+    from repaq_tpu.parallel import distributed as jdist
+
+    out = tmp_path / "o.rfq"
+    assert cli.main(["-c", "-i", str(fq), *argv, "-o", str(out), "--engine",
+                     "vectorized"]) == 0
+    assert "not ported" not in capsys.readouterr().err
+    assert not out.exists()
+    part = tmp_path / "o.rfq.part0"
+    want = jdist.compress_se_distributed(
+        str(fq), str(tmp_path / "j.rfq"), num_processes=2, process_id=0,
+        engine=jpipeline.get_engine("vectorized"), assemble=False)
+    with open(want, "rb") as f:
+        assert part.read_bytes() == f.read()
+    assert not (tmp_path / "o.rfq.part1").exists()
 
 
 def test_cli_device_engine_needs_cuda_and_auto_goes_host(tmp_path):

@@ -67,7 +67,8 @@ def test_port_module_imports_no_jax_package(path):
 def test_importing_the_port_loads_no_jax_package():
     code = ("import sys\n"
             "import repaq_tpu_torch.cli, repaq_tpu_torch.codec.device_engine,"
-            " repaq_tpu_torch.ops.rans_device\n"
+            " repaq_tpu_torch.ops.rans_device,"
+            " repaq_tpu_torch.parallel.torchdist\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repaq_tpu')))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -330,10 +330,18 @@ def test_cli_mesh_devices_goldens_both_ways(tmp_path, monkeypatch, argv,
 
 def test_cli_num_shards_still_rejected_with_mesh(tmp_path, monkeypatch,
                                                  capsys):
+    """--num_shards with --mesh_devices takes the shard branch, as
+    repaq_tpu.cli does: no mesh engine is made, each shard runs the engine
+    --engine names, and the assembled bytes equal the golden."""
     monkeypatch.setattr(M, "cuda_devices", lambda: ["cpu"] * 2)
-    fq = _fastq(tmp_path, "se_illumina")
-    with pytest.raises(SystemExit) as e:
-        cli.main(["-c", "-i", str(fq), "-o", str(tmp_path / "o.rfq"),
-                  "--mesh_devices", "2", "--num_shards", "2"])
-    assert e.value.code != 0
-    assert "A10" in capsys.readouterr().err
+    made = []
+    monkeypatch.setattr(M, "make_engine", lambda d: made.append(d))
+    fq = _fastq(tmp_path, "se_big")
+    out = tmp_path / "o.rfq"
+    for shard in (1, 0):  # shard 0 assembles once both parts exist
+        assert cli.main(["-c", "-i", str(fq), "-o", str(out), "-k", "100",
+                         "--engine", "vectorized", "--mesh_devices", "2",
+                         "--num_shards", "2", "--shard", str(shard)]) == 0
+    assert out.read_bytes() == _golden("se_big.ref.k100.rfq")
+    assert made == [] and "ERROR" not in capsys.readouterr().err
+    assert not list(tmp_path.glob("o.rfq.part*"))
