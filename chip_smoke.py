@@ -29,7 +29,13 @@ Phases, each of which must pass:
      tail of its words and of a thread's four words) and into the
      decode's (4m + 1)-byte buffer, and timed at 16 bytes (the fixed cost
      of one event-timed launch), at 32 Mbyte and back to back over 8
-     buffer sets;
+     buffer sets. The run-boundary scans (cummax, suffix_min) at a whole
+     chunk's 11,829,248 elements and at (2, 80000) coordinate rows, timed
+     also beside torch's library scan, and at n = 1, tile - 1, tile,
+     tile + 1 and past 3,000 tiles, 1-D and as 2 rows, on random, run-start,
+     run-end and monotone inputs; after phase 5 both are held and timed
+     again at the shapes the two corpora handed them (the SE and PE
+     quality streams, coordinate rows and decode token counts);
   3. goldens: `python -m repaq_tpu_torch.cli -c --engine device` on the
      single-end fixtures and, with -i/-I and -o/-O, the paired-end ones,
      byte-compared with the reference encoder's goldens, and `-d` back to
@@ -39,7 +45,9 @@ Phases, each of which must pass:
      compressed in 12-Mbase chunks through repaq_tpu_torch.cli.main,
      byte-compared with the host engine's output, decompressed and
      compared with the input; every chunk must have taken the device path
-     and every kernel of the SE path must have launched on it. The round
+     and every kernel of the SE path must have launched on it, the scans
+     at least once a chunk in each direction (suffix_min on encode only),
+     and the shapes they were handed are logged. The round
      trip runs twice: the first (cold) pays torch's lazy setup of each
      operator, the second (warm) is the steady rate. The token FSM is then
      timed at the median quality-buffer size of the corpus's chunks;
@@ -124,7 +132,13 @@ KERNELS = [
     ("token_start_mask", "repaq_tpu_torch/csrc/token_fsm.cu",
      "repaq_tpu/ops/pallas_tpu.py:175",
      ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
-    # the rANS kernels replace XLA scans and a sort, not Pallas kernels
+    # the scans and the rANS kernels replace XLA code, not Pallas kernels
+    ("cummax", "repaq_tpu_torch/csrc/scan.cu",
+     "repaq_tpu/ops/device_streams.py:33",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+    ("suffix_min", "repaq_tpu_torch/csrc/scan.cu",
+     "repaq_tpu/ops/device_streams.py:37",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
     ("rans_encode", "repaq_tpu_torch/csrc/rans.cu",
      "repaq_tpu/ops/rans_device.py:152", ("rfqz_se", "rfqz_pe")),
     ("rans_layout", "repaq_tpu_torch/csrc/rans.cu",
@@ -284,10 +298,11 @@ def bound_fields(moved: int, ms: float) -> dict:
 
 
 def held_and_timed(name, kern, plain, inputs, shape, plain_runs=15,
-                   moved=None) -> dict:
+                   moved=None, library=None) -> dict:
     """kern() exact against plain(), both timed; moved: the bytes the
     function must move (default: its inputs read once, its outputs written
-    once)."""
+    once); library: one PyTorch call that computes the same function, timed
+    beside them as a yardstick."""
     import torch
 
     got = kern()
@@ -301,10 +316,13 @@ def held_and_timed(name, kern, plain, inputs, shape, plain_runs=15,
     if moved is None:
         moved = nbytes(*inputs) + nbytes(got)
     res = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           **bound_fields(moved, ms), "library_ms": None}
+           **bound_fields(moved, ms),
+           "library_ms": None if library is None else cuda_ms(library)}
     log("kernel %-21s exact at %s: %.4f ms (bound %.4f ms, %.0f%%), plain "
-        "torch %.4f ms" % (name, shape, ms, res["bound_ms"],
-                           100 * res["share_of_bound"], plain_ms))
+        "torch %.4f ms%s" % (name, shape, ms, res["bound_ms"],
+                             100 * res["share_of_bound"], plain_ms,
+                             "" if library is None else ", library %.4f ms"
+                             % res["library_ms"]))
     return res
 
 
@@ -363,6 +381,89 @@ def fsm_edge_cases(dev) -> int:
                       % (n, kind, dtype))
                 cases += 1
     return cases
+
+
+SCAN_KINDS = ("random", "run_starts", "run_ends", "increasing",
+              "decreasing")
+
+
+def scan_case(n: int, rows: int, kind: str, seed: int):
+    """An int32 input of the scans, (n,) when rows == 0, else (rows, n), of
+    a kind in SCAN_KINDS: the whole int32 range ("random"); as the callers
+    build them, a fifth of the positions marked with their index and the
+    rest -1 ("run_starts", cummax's) or n ("run_ends", suffix_min's); or
+    monotone, rising or falling by row."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    shape = (n,) if rows == 0 else (rows, n)
+    i = np.broadcast_to(np.arange(n, dtype=np.int32), shape)
+    if kind == "random":
+        return rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(
+            np.int32)
+    if kind in ("run_starts", "run_ends"):
+        fill = -1 if kind == "run_starts" else n
+        return np.where(rng.random(shape) < 0.2, i, fill).astype(np.int32)
+    return (i if kind == "increasing" else n - i).astype(np.int32)
+
+
+def scan_edge_cases(dev) -> int:
+    """Both scans exact against their plain versions, one launch a call
+    (none for an empty input), at n = 1, tile - 1, tile, tile + 1 and past
+    3,000 tiles, 1-D and as 2 rows (rows after the first start unaligned
+    at an odd n), for every scan_case kind, and on an input whose start is
+    not 16-byte aligned; returns the case count."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    tile = TK.scan_tile()
+    cases = 0
+    inputs = [torch.from_numpy(scan_case(n, rows, kind, n + rows)).to(dev)
+              for n in (1, tile - 1, tile, tile + 1, 3000 * tile + 5)
+              for rows in (0, 2) for kind in SCAN_KINDS]
+    inputs += [torch.from_numpy(scan_case(tile + 9, 0, "random", 9)).to(
+        dev)[1:], torch.zeros((2, 0), dtype=torch.int32, device=dev)]
+    for x in inputs:
+        for name, kern, plain in (
+                ("cummax", TK.cummax_i32, TK.cummax_i32_plain),
+                ("suffix_min", TK.suffix_min_i32, TK.suffix_min_i32_plain)):
+            before = TK.launches[name]
+            got = kern(x)
+            torch.cuda.synchronize()
+            check(TK.launches[name] == before + (x.numel() > 0),
+                  "%s took other than one launch" % name)
+            check(torch.equal(got, plain(x)), "%s differs from its plain "
+                  "version at shape %s" % (name, tuple(x.shape)))
+            cases += 1
+    return cases
+
+
+def scans_at(dev, shape: tuple, label: str, seed: int) -> dict:
+    """Both scans exact against their plain versions on inputs of `shape`
+    built as their callers build them, timed beside their bound and
+    torch's library scan (torch.cummax; torch.cummin of the flipped input,
+    the flip made before the timing); {name: result}."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    rows = shape[0] if len(shape) == 2 else 0
+    xs = torch.from_numpy(scan_case(shape[-1], rows, "run_starts",
+                                    seed)).to(dev)
+    xe = torch.from_numpy(scan_case(shape[-1], rows, "run_ends",
+                                    seed)).to(dev)
+    xe_flipped = xe.flip(-1)
+    return {
+        "cummax": held_and_timed(
+            "cummax", lambda: TK.cummax_i32(xs),
+            lambda: TK.cummax_i32_plain(xs), (xs,), label,
+            library=lambda: torch.cummax(xs, -1)),
+        "suffix_min": held_and_timed(
+            "suffix_min", lambda: TK.suffix_min_i32(xe),
+            lambda: TK.suffix_min_i32_plain(xe), (xe,), label,
+            library=lambda: torch.cummin(xe_flipped, -1)),
+    }
 
 
 def frontend_ragged_cases(dev) -> list:
@@ -584,6 +685,17 @@ def kernel_phase(dev) -> dict:
         % fsm_edge_cases(dev))
     log("kernel encode_frontend exact at n = %s (n %% 4 = 1, 2, 3, 'N' and "
         "the major qual in the tail)" % frontend_ragged_cases(dev))
+    # the scans at a whole chunk's bases (the ceiling) and the coordinates'
+    # two rows of a 12-Mbase SE chunk's 80,000 reads
+    for shape, label in (((n,), "%d elements, a whole chunk's bases" % n),
+                         ((2, 80_000), "(2, 80000) coordinate rows")):
+        for name, res in scans_at(dev, shape, label, sum(shape)).items():
+            r = results.setdefault(name, dict(res, by_shape={}))
+            r["by_shape"][label] = res
+    log("kernels cummax and suffix_min exact on %d edge cases each (n = 1, "
+        "tile - 1, tile, tile + 1, 3000 tiles + 5, 1-D and 2 rows; random, "
+        "run starts, run ends, rising, falling; an unaligned start; an empty "
+        "input, no launch), one launch each" % (scan_edge_cases(dev) // 2))
     return results
 
 
@@ -662,6 +774,23 @@ def rans_kernel_phase(dev) -> dict:
             r["max_abs_err"] = max(r["max_abs_err"], res["max_abs_err"])
             r["by_shape"][shape] = res
     return results
+
+
+def scans_at_main_path_sizes(kres: dict, cres: dict) -> None:
+    """Both scans at the shapes the SE and PE corpora handed them (phases
+    4 and 5), added to their by-shape readings; the SE quality stream's
+    reading becomes each scan's headline."""
+    import torch
+
+    for tag in ("se", "pe"):
+        for what, shape in cres[tag]["scan_shapes"].items():
+            label = "%s %s %s" % (tag.upper(), what, shape)
+            for name, res in scans_at(torch.device("cuda:0"), shape, label,
+                                      sum(shape)).items():
+                r = kres[name]
+                r["by_shape"][label] = res
+                if tag == "se" and what == "quality stream":
+                    r.update(res)
 
 
 # ---------------------------------------------------------------------------
@@ -845,6 +974,42 @@ def qual_buffer_sizes(header, chunks) -> list:
     return [DeviceEngine.decode_caps(header, c)[0] for c in chunks]
 
 
+@contextlib.contextmanager
+def recorded_scan_shapes(shapes: list):
+    """Within the block, the scan wrappers append (name, shape) of each
+    call to `shapes` and then run as they are."""
+    from repaq_tpu_torch.ops import kernels as TK
+
+    saved = {"cummax": TK.cummax_i32, "suffix_min": TK.suffix_min_i32}
+
+    def recording(name):
+        def scan(x):
+            shapes.append((name, tuple(x.shape)))
+            return saved[name](x)
+        return scan
+
+    TK.cummax_i32 = recording("cummax")
+    TK.suffix_min_i32 = recording("suffix_min")
+    try:
+        yield
+    finally:
+        TK.cummax_i32 = saved["cummax"]
+        TK.suffix_min_i32 = saved["suffix_min"]
+
+
+def main_path_scan_shapes(shapes: list, cut: int) -> dict:
+    """The scan shapes of one round trip whose first `cut` calls were the
+    compress's: the quality stream's (the largest 1-D encode scan), the
+    coordinate rows' (the largest 2-D one) and the decode's token count
+    (the largest 1-D decode scan)."""
+    enc, dec = shapes[:cut], shapes[cut:]
+    pick = {"quality stream": [s for _n, s in enc if len(s) == 1],
+            "coordinate rows": [s for _n, s in enc if len(s) == 2],
+            "decode tokens": [s for _n, s in dec if len(s) == 1]}
+    return {k: max(v, key=lambda s: (s[-1], s)) for k, v in pick.items()
+            if v}
+
+
 def corpus_phase(device: str, pe: bool, reads: int = 640_000,
                  read_len: int = 150, chunk_kb: int = 12_000) -> dict:
     """One corpus through repaq_tpu_torch.cli.main twice; the launch
@@ -874,20 +1039,25 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
     ins = ["-i", fqs[0]] + (["-I", fqs[1]] if pe else [])
     outs = ["-o", backs[0]] + (["-O", backs[1]] if pe else [])
 
-    def roundtrip():
+    def roundtrip(seen=None):
         t0 = time.perf_counter()
         rc = cli.main(["-c", *ins, "-o", out, "-k", str(chunk_kb),
                        "--engine", "device"], engine=eng.config())
         enc_s = time.perf_counter() - t0
         check(rc == 0, "port compress exited %d" % rc)
+        if seen is not None:
+            seen["compress"] = (dict(TK.launches), len(seen["shapes"]))
         t0 = time.perf_counter()
         rc = cli.main(["-d", "-i", out, *outs, "--engine", "device"],
                       engine=eng.config())
         check(rc == 0, "port decompress exited %d" % rc)
         return enc_s, time.perf_counter() - t0
 
+    seen = {"shapes": []}
     TK.reset_launches()
-    cold = roundtrip()  # the first run in this process: torch's lazy setup
+    with recorded_scan_shapes(seen["shapes"]):
+        # the first run in this process: torch's lazy setup
+        cold = roundtrip(seen)
     launches = dict(TK.launches)
     stats = dict(eng.stats)
     warm = roundtrip()
@@ -925,10 +1095,24 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
         if tag in paths:
             check(launches[name] > 0, "kernel %s never launched on the %s "
                   "path" % (name, tag))
+    enc, cut = seen["compress"]
+    dec = {k: launches[k] - enc[k] for k in launches}
+    for what, counts, names in (("compress", enc, ("cummax", "suffix_min")),
+                                ("decompress", dec, ("cummax",))):
+        for name in names:
+            check(counts[name] >= len(chunks), "%s %s: %s launched %d times "
+                  "for %d chunks" % (tag, what, name, counts[name],
+                                     len(chunks)))
+    log("corpus %s: scan launches, compress %s, decompress %s, for %d chunks"
+        % (tag, {k: enc[k] for k in ("cummax", "suffix_min")},
+           {k: dec[k] for k in ("cummax", "suffix_min")}, len(chunks)))
     res = {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
            "host_enc_s": host_s, "chunks": len(chunks), "fqs": fqs,
            "rfq": out, "chunk_kb": chunk_kb,
-           "qual_bufs": qual_buffer_sizes(header, chunks)}
+           "qual_bufs": qual_buffer_sizes(header, chunks),
+           "scan_shapes": main_path_scan_shapes(seen["shapes"], cut)}
+    log("corpus %s: scan shapes on the main path: %s"
+        % (tag, res["scan_shapes"]))
     log("corpus %s: quality buffers of the token FSM on decode: %s bytes"
         % (tag, res["qual_bufs"]))
     if pe:
@@ -1255,8 +1439,9 @@ print(json.dumps({"wall_s": time.perf_counter() - t0, "timings": timings,
 RANK_TIMEOUT_S = 300
 
 # the kernels each direction of a shard must launch in every rank
-SHARD_KERNELS = {"compress": ("encode_frontend",),
-                 "decompress": ("unpack_bases", "token_start_mask")}
+SHARD_KERNELS = {"compress": ("encode_frontend", "cummax", "suffix_min"),
+                 "decompress": ("unpack_bases", "token_start_mask",
+                                "cummax")}
 
 
 def rank_env(rank: int, per_card: bool) -> dict:
@@ -1461,6 +1646,7 @@ def main() -> int:
         kres["token_start_mask"]["by_shape"][
             "median SE quality buffer, %d token bytes, uint8 lengths"
             % median] = fsm_at_size(torch.device("cuda:0"), median)
+        scans_at_main_path_sizes(kres, cres)
         for tag in ("se", "pe"):
             cres["rfqz_" + tag] = rfqz_phase(tag, cres[tag]["fqs"],
                                              cres[tag]["bytes"])

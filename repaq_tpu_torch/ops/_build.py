@@ -113,6 +113,12 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_token_fsm_status_words.restype = ll
     lib.repaq_token_fsm_tile.argtypes = []
     lib.repaq_token_fsm_tile.restype = ll
+    lib.repaq_scan_i32.argtypes = [vp, vp, ll, ll, ci, vp, vp]
+    lib.repaq_scan_i32.restype = ci
+    lib.repaq_scan_status_words.argtypes = [ll, ll]
+    lib.repaq_scan_status_words.restype = ll
+    lib.repaq_scan_tile.argtypes = []
+    lib.repaq_scan_tile.restype = ll
     lib.repaq_rans_encode.argtypes = [vp, vp, ci, vp, ci, ll, vp, vp, vp, vp]
     lib.repaq_rans_encode.restype = ci
     lib.repaq_rans_layout.argtypes = [vp, vp, vp, vp, ci, ll, vp, ll, vp]

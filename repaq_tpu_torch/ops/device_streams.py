@@ -17,6 +17,9 @@ it and with repaq_tpu.codec.kernels_np. What differs from JAX:
   (torch's uint32 support is partial); see the section's note.
 - The token FSM is ``kernels.token_start_mask``: the CUDA kernel for CUDA
   tensors at every size, its plain version for CPU tensors.
+- The run-boundary scans (JAX's ``lax.cummax`` and flipped ``lax.cummin``)
+  are ``kernels.cummax_i32`` and ``kernels.suffix_min_i32``, the same
+  dispatch, over the last dimension (the coordinates' two rows at once).
 """
 
 from __future__ import annotations
@@ -53,11 +56,11 @@ def _exclusive_cumsum(x: torch.Tensor):
 
 
 def _cummax(x: torch.Tensor) -> torch.Tensor:
-    return torch.cummax(x, 0).values
+    return kernels.cummax_i32(x)
 
 
 def _suffix_min(x: torch.Tensor) -> torch.Tensor:
-    return torch.cummin(x.flip(0), 0).values.flip(0)
+    return kernels.suffix_min_i32(x)
 
 
 def _shift1(x: torch.Tensor, first) -> torch.Tensor:
@@ -472,10 +475,9 @@ def coords_encode2_device(values2: torch.Tensor, out_cap: int,
     rep_prev = torch.cat([torch.zeros((R, 1), dtype=torch.bool, device=dev),
                           is_rep[:, :-1]], dim=1)
     rep_start = is_rep & ~rep_prev
-    rs_idx = torch.cummax(torch.where(rep_start, i, -1), dim=1).values
+    rs_idx = _cummax(torch.where(rep_start, i, -1))
     off_in_rep = torch.where(is_rep, i - rs_idx, 0)
-    end_idx = torch.cummin(torch.where(~is_rep, i, n).flip(1),
-                           dim=1).values.flip(1)
+    end_idx = _suffix_min(torch.where(~is_rep, i, n))
     rep_len = torch.where(is_rep, end_idx - rs_idx, 0)
 
     kk = off_in_rep + 1

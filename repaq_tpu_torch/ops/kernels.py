@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels of the port, each beside its plain torch
-version; the counterpart of repaq_tpu/ops/pallas_tpu.py.
+version; the counterpart of repaq_tpu/ops/pallas_tpu.py, and of the
+run-boundary scans that the JAX package left to XLA.
 
 Every wrapper decides by the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (built on
@@ -21,7 +22,7 @@ _G, _A, _T, _C, _N = 71, 65, 84, 67, 78
 
 launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
             "pack_bases": 0, "unpack_bases": 0, "token_start_mask": 0,
-            "rans_encode": 0, "rans_layout": 0, "rans_decode": 0}
+            "cummax": 0, "suffix_min": 0, "rans_encode": 0, "rans_layout": 0, "rans_decode": 0}
 _launch_lock = threading.Lock()
 
 
@@ -331,3 +332,71 @@ def token_start_mask(lens: torch.Tensor,
                 None if force_start is None else force_start.data_ptr(), n,
                 status.data_ptr(), out.data_ptr(), _stream(dev))
     return out
+
+
+# ---------------------------------------------------------------------------
+# run-boundary scans (JAX: XLA's lax.cummax and flipped lax.cummin, in
+# repaq_tpu/ops/device_streams.py `_cummax` / `_suffix_min`)
+# ---------------------------------------------------------------------------
+
+
+def scan_tile() -> int:
+    """Elements per tile of the scan kernel, as the built library reports
+    it; the card tests and chip_smoke.py place edge cases by it."""
+    return int(_build.library().repaq_scan_tile())
+
+
+def cummax_i32_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of ``cummax_i32``."""
+    return torch.cummax(x, -1).values
+
+
+def suffix_min_i32_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of ``suffix_min_i32``."""
+    return torch.cummin(x.flip(-1), -1).values.flip(-1)
+
+
+def _check_scan(x: torch.Tensor) -> None:
+    if x.dtype != torch.int32 or x.dim() not in (1, 2):
+        raise ValueError("the scans take a 1-D or 2-D int32 tensor, got %s "
+                         "%s" % (x.dtype, tuple(x.shape)))
+
+
+def _scan(name: str, x: torch.Tensor, suffix_min: bool) -> torch.Tensor:
+    """Launch the scan kernel over the last dimension of x, counted under
+    `name`."""
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    lib = _build.library()
+    dev = x.device
+    x = _aligned(x)
+    rows = 1 if x.dim() == 1 else x.shape[0]
+    n = x.shape[-1]
+    # the tiles' status words and the tile counter start at zero
+    status = torch.zeros(lib.repaq_scan_status_words(rows, n),
+                         dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        _launch(name, lib.repaq_scan_i32, x.data_ptr(), out.data_ptr(), rows,
+                n, int(suffix_min), status.data_ptr(), _stream(dev))
+    return out
+
+
+def cummax_i32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running maximum of a (n,) or (rows, n) int32 tensor along
+    its last dimension, exactly as ``cummax_i32_plain``."""
+    _check_scan(x)
+    if not _on_cuda(x):
+        return cummax_i32_plain(x)
+    return _scan("cummax", x, False)
+
+
+def suffix_min_i32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running minimum from the end of a (n,) or (rows, n) int32
+    tensor along its last dimension (out[..., i] = x[..., i:].min()),
+    exactly as ``suffix_min_i32_plain``; the kernel reads backwards and
+    copies nothing."""
+    _check_scan(x)
+    if not _on_cuda(x):
+        return suffix_min_i32_plain(x)
+    return _scan("suffix_min", x, True)

@@ -21,7 +21,7 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
-from chip_smoke import FSM_KINDS, fsm_case
+from chip_smoke import FSM_KINDS, SCAN_KINDS, fsm_case, scan_case
 from test_device_engine import _mk_block
 
 
@@ -144,6 +144,48 @@ def test_token_fsm_kernel_matches_plain(cuda, tiles, extra, kind, dtype):
     torch.cuda.synchronize()
     assert TK.launches["token_start_mask"] == before + 1
     assert torch.equal(got, TK.token_start_mask_plain(lens, force))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 2])
+@pytest.mark.parametrize("kind", SCAN_KINDS)
+@pytest.mark.parametrize("tiles,extra", [(0, 1), (1, -1), (1, 0), (1, 1),
+                                         (33, 0), (700, 3)])
+def test_scan_kernels_match_plain(cuda, tiles, extra, kind, rows):
+    """One launch per call, both scans exact against their plain versions
+    at n = 1, tile - 1, tile, tile + 1, past one look-back window (33
+    tiles) and at 700 tiles + 3, 1-D and as 2 rows (the second row starts
+    unaligned at an odd n), on random, run-start, run-end and monotone
+    inputs."""
+    n = tiles * TK.scan_tile() + extra
+    x = torch.from_numpy(scan_case(n, rows, kind, n + rows)).to(cuda)
+    for name, kern, plain in (
+            ("cummax", TK.cummax_i32, TK.cummax_i32_plain),
+            ("suffix_min", TK.suffix_min_i32, TK.suffix_min_i32_plain)):
+        before = TK.launches[name]
+        got = kern(x)
+        torch.cuda.synchronize()
+        assert TK.launches[name] == before + 1
+        assert torch.equal(got, plain(x))
+
+
+@pytest.mark.cuda
+def test_scan_kernels_on_views_and_empty_inputs(cuda):
+    """An input whose start is not 16-byte aligned and a strided one scan
+    as their values; an empty one launches nothing."""
+    x = torch.from_numpy(scan_case(3 * TK.scan_tile() + 9, 2, "random",
+                                   5)).to(cuda)
+    for v in (x[0, 1:], x[:, ::3], x[:, 1:]):
+        assert torch.equal(TK.cummax_i32(v), TK.cummax_i32_plain(v))
+        assert torch.equal(TK.suffix_min_i32(v), TK.suffix_min_i32_plain(v))
+    before = dict(TK.launches)
+    for shape in ((0,), (2, 0)):
+        e = torch.zeros(shape, dtype=torch.int32, device=cuda)
+        assert TK.cummax_i32(e).shape == shape
+        assert TK.suffix_min_i32(e).shape == shape
+    assert TK.launches == before
+    with pytest.raises(ValueError):
+        TK.cummax_i32(x.long())
 
 
 @pytest.mark.cuda

@@ -3,18 +3,22 @@
 CUDA card: chip_smoke.py's seeded PE corpus (2 x 320k reads of 150 bp in
 12-Mbase chunks) through ``repaq_tpu_torch.cli.main``, one cold round trip,
 then one warm encode and one warm decode, each under ``torch.profiler``.
+With ``--se``, chip_smoke.py's single-end corpus instead (640k reads of
+150 bp, the same chunks).
 
 Run from the root of a checkout on a machine with a card:
 
-    python3 tools/profile_torch_pe.py [--pairs N] [--workers 8,1]
+    python3 tools/profile_torch_pe.py [--se] [--pairs N] [--workers 8,1]
 
 For each worker count and direction it prints the wall time, the device
 time (kernels and copies, summed), the device's idle share of the wall,
-the host-device copies, the kernels with the most device time, and the
-time inside each of the engine's named stage ranges (``enc.*`` /
-``dec.*``, see repaq_tpu_torch/codec/device_engine.py). The profiler
-records the ranges of the thread that runs it only, so they show with
-one worker, where the pipeline runs each chunk inline.
+the run-boundary scans' device time and share (the port's kernel of
+csrc/scan.cu, and torch's cummax/cummin kernels should any run), the
+host-device copies, the kernels with the most device time, and the time
+inside each of the engine's named stage ranges (``enc.*`` / ``dec.*``,
+see repaq_tpu_torch/codec/device_engine.py). The profiler records the
+ranges of the thread that runs it only, so they show with one worker,
+where the pipeline runs each chunk inline.
 """
 
 from __future__ import annotations
@@ -47,6 +51,11 @@ def report(label: str, prof, wall: float) -> None:
             kernels[e.name] = kernels.get(e.name, 0.0) + us
     print("%s: wall %.3f s, device %.3f s, device idle %.1f%% of the wall"
           % (label, wall, busy / 1e6, 100 * (1 - busy / 1e6 / wall)))
+    for what, key in (("the port's scan kernel", "run_boundary_scan"),
+                      ("torch's cummax/cummin", "with_indices")):
+        us = sum(v for k, v in kernels.items() if key in k)
+        print("  scans (%s) %.3f ms, %.2f%% of the device time"
+              % (what, us / 1e3, 100 * us / max(busy, 1e-9)))
     for name in sorted(set(dev_spans) | set(host_spans)):
         t, c = host_spans.get(name, (0.0, 0))
         print("  range %-15s device extent %.1f ms, host %.1f ms, %d calls"
@@ -61,6 +70,8 @@ def report(label: str, prof, wall: float) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--se", action="store_true",
+                    help="the single-end corpus (2 x --pairs reads)")
     ap.add_argument("--pairs", type=int, default=320_000)
     ap.add_argument("--workers", default="8,1",
                     help="comma-separated worker counts, one profile each")
@@ -77,17 +88,24 @@ def main() -> int:
 
     work = os.path.join(ROOT, ".smoke", "profile")
     os.makedirs(work, exist_ok=True)
-    fqs = [os.path.join(work, "r%d.fq" % m) for m in (1, 2)]
-    size = chip_smoke.make_pe_corpus(fqs, args.pairs, 150, seed=97)
-    rfq = os.path.join(work, "pe.rfq")
+    if args.se:
+        fqs = [os.path.join(work, "r1.fq")]
+        size = chip_smoke.make_corpus(fqs, 2 * args.pairs, 150, seed=96)
+    else:
+        fqs = [os.path.join(work, "r%d.fq" % m) for m in (1, 2)]
+        size = chip_smoke.make_pe_corpus(fqs, args.pairs, 150, seed=97)
+    rfq = os.path.join(work, "out.rfq")
+    pe = len(fqs) == 2
+    ins = ["-i", fqs[0]] + (["-I", fqs[1]] if pe else [])
+    outs = ["-o", fqs[0] + ".b"] + (["-O", fqs[1] + ".b"] if pe else [])
     eng = DeviceEngine("cuda:0")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     print("card: %s; corpus %d FASTQ bytes" % (chip_smoke.card_line(), size))
     for workers in args.workers.split(","):
         w = ["-w", workers, "--engine", "device"]
-        enc = ["-c", "-i", fqs[0], "-I", fqs[1], "-o", rfq, "-k", "12000", *w]
-        dec = ["-d", "-i", rfq, "-o", fqs[0] + ".b", "-O", fqs[1] + ".b", *w]
+        enc = ["-c", *ins, "-o", rfq, "-k", "12000", *w]
+        dec = ["-d", "-i", rfq, *outs, *w]
         for argv in (enc, dec):  # cold: torch's lazy setup, the build
             if cli.main(argv, engine=eng.config()):
                 raise SystemExit("the CLI failed: %s" % argv)
