@@ -17,7 +17,9 @@ Phases, each of which must pass:
      and the byte form; for the rANS kernels the CLI's largest order-1
      section, 2,285,523 bytes in 2048 lanes, and a 16 MB order-0 section
      in 4096 lanes, both with ragged lanes and held against the host
-     coder's section bytes too), exact equality, both timed with CUDA
+     coder's section bytes too; rans_encode also on an order-1 section of
+     uniform random bytes, where all 65,536 contexts are live, and on 27
+     staging edge cases, RANS_CASES), exact equality, both timed with CUDA
      events (median of 15 runs, L2 flushed before each; the rANS kernels'
      plain versions, a Python loop over the steps, median of 3), each
      beside its bound: the bytes it must move over 3.35 TB/s. The token
@@ -35,7 +37,13 @@ Phases, each of which must pass:
      tile + 1 and past 3,000 tiles, 1-D and as 2 rows, on random, run-start,
      run-end and monotone inputs; after phase 5 both are held and timed
      again at the shapes the two corpora handed them (the SE and PE
-     quality streams, coordinate rows and decode token counts);
+     quality streams, coordinate rows and decode token counts), and after
+     phase 6 rans_encode is held and timed on the largest order-1 section
+     the SE compress coded (real .rfq bytes), then tools/profile_rans.py's
+     sweep of its block size, window and batch is logged at these shapes
+     (every build exact against the package's), with the floor its state
+     chain sets: the longest lane's steps times the cycles of one step
+     (tools/rans_chain_probe.cu) at the card's maximum SM clock;
   3. goldens: `python -m repaq_tpu_torch.cli -c --engine device` on the
      single-end fixtures and, with -i/-I and -o/-O, the paired-end ones,
      byte-compared with the reference encoder's goldens, and `-d` back to
@@ -713,18 +721,12 @@ def fsm_at_size(dev, n: int) -> dict:
         "%d token bytes, uint8 lengths" % n, plain_runs=3)
 
 
-def rans_kernel_phase(dev) -> dict:
-    """The rANS kernels against their plain versions at RANS_SHAPES; the
-    section they make must also be the host coder's. Per kernel: the
-    largest error over the shapes and the times at the first shape."""
+def rans_shape_data():
+    """(order, data, lanes) of each of RANS_SHAPES: NovaSeq qualities for
+    order-1, a skewed alphabet for order-0, from seed 330."""
     import numpy as np
-    import torch
-
-    from repaq_tpu_torch.codec import rans_np
-    from repaq_tpu_torch.ops import rans_device as RD
 
     rng = np.random.default_rng(330)
-    results = {}
     for order, n, lanes in RANS_SHAPES:
         if order:
             data = rng.choice(np.frombuffer(NOVA_QUALS, np.uint8), size=n,
@@ -732,6 +734,129 @@ def rans_kernel_phase(dev) -> dict:
         else:
             data = rng.choice(np.frombuffer(b"ACGTACGTN\x00\xff", np.uint8),
                               size=n)
+        yield order, data, lanes
+
+
+def uniform_bytes(n: int, seed: int = 331):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, 256, size=n,
+                                                dtype=np.uint8)
+
+
+def rans_label(order: int, n: int, lanes: int, what: str) -> str:
+    return "order-%d %d B in %d lanes%s" % (order, n, lanes, what)
+
+
+def _rans_case_makers(window: int) -> dict:
+    """name -> (order, n, lanes, shift, kind) of rans_case; kind is
+    "quals", "uniform" or "one symbol"."""
+    cases = {}
+    for order in (0, 1):
+        for what, length in (("window - 1", window - 1), ("window", window),
+                             ("window + 1", window + 1),
+                             ("2 window + 1", 2 * window + 1)):
+            for extra in (0, 17):
+                cases["o%d lanes of %s%s" % (
+                    order, what, ", 17 one longer" if extra else "")] = (
+                    order, 37 * length + extra, 37, 0, "quals")
+        cases["o%d 1003 lanes" % order] = (order, 1003 * 9 + 501, 1003, 0,
+                                          "quals")
+        cases["o%d n < lanes" % order] = (order, 20, 64, 0, "quals")
+        cases["o%d one lane" % order] = (order, 2 * window + 3, 1, 0,
+                                        "quals")
+        cases["o%d data 5 B past a boundary" % order] = (
+            order, 70 * window + 11, 70, 5, "quals")
+        cases["o%d one symbol" % order] = (order, 64 * (window + 3), 64, 0,
+                                          "one symbol")
+    cases["o1 uniform random bytes"] = (1, 2048 * 700, 2048, 0, "uniform")
+    return cases
+
+
+# the names do not depend on the window
+RANS_CASES = sorted(_rans_case_makers(512))
+
+
+def rans_case(name: str, window: int):
+    """(order, data, lanes, shift) of one staging edge of rans_encode,
+    whose lanes stage `window` steps at once: lanes not a multiple of any
+    block size, n < lanes (empty lanes) and one lane, lane lengths of
+    window - 1, window, window + 1 and 2 window + 1 (equal and ragged
+    splits, so lanes start at odd offsets), a data pointer `shift` bytes
+    past a 16-byte boundary, a one-symbol section (freq 4096), and order-1
+    on uniform random bytes with all 65,536 contexts live."""
+    import zlib
+
+    import numpy as np
+
+    order, n, lanes, shift, kind = _rans_case_makers(window)[name]
+    seed = zlib.crc32(name.encode())
+    if kind == "uniform":
+        data = uniform_bytes(n, seed)
+    elif kind == "one symbol":
+        data = np.full(n, 0x42, np.uint8)
+    else:
+        data = np.random.default_rng(seed).choice(
+            np.frombuffer(NOVA_QUALS, np.uint8), size=n, p=NOVA_P)
+    return order, data, lanes, shift
+
+
+def rans_case_inputs(dev, order, data, lanes, shift):
+    """The tensors rans_encode takes for a case: data on `dev` starting
+    `shift` bytes into its allocation, and the section's tables."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    _head, freqs, cum = RD.section_prologue(data, order, min(lanes,
+                                                             len(data)))
+    base = torch.zeros(shift + len(data), dtype=torch.uint8, device=dev)
+    base[shift:] = torch.from_numpy(data).to(dev)
+    f, c = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (freqs,
+                                                                   cum))
+    return base[shift:], f, c
+
+
+def rans_edge_cases(dev) -> int:
+    """rans_encode exact against its plain version on every case of
+    RANS_CASES, and its section bytes equal to the host coder's; the
+    count."""
+    import torch
+
+    from repaq_tpu_torch.codec import rans_np
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    for label in RANS_CASES:
+        order, data, lanes, shift = rans_case(label, RD.encode_window())
+        d, f, c = rans_case_inputs(dev, order, data, lanes, shift)
+        got = RD.rans_encode_device(d, f, c, lanes, order)
+        want = RD.rans_encode_plain(d, f, c, lanes, order)
+        torch.cuda.synchronize()
+        check(max_abs_err(got, want) == 0, "rans_encode differs from its "
+              "plain version on %s" % label)
+        check(RD.encode_section_device(data, order, lanes, device=dev)
+              == rans_np.encode_section(data, order=order, lanes=lanes),
+              "rANS section bytes differ from the host coder's on %s"
+              % label)
+    return len(RANS_CASES)
+
+
+def rans_kernel_phase(dev) -> dict:
+    """The rANS kernels against their plain versions at RANS_SHAPES; the
+    section they make must also be the host coder's. rans_encode also on
+    an order-1 section of uniform random bytes and on its staging edges.
+    Per kernel: the largest error over the shapes and the times at the
+    first shape."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.codec import rans_np
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    results = {}
+    for order, data, lanes in rans_shape_data():
+        n = data.shape[0]
         check(RD.encode_section_device(data, order, lanes, device=dev)
               == rans_np.encode_section(data, order=order, lanes=lanes),
               "rANS order-%d section of %d bytes differs from the host "
@@ -766,14 +891,88 @@ def rans_kernel_phase(dev) -> dict:
                 lambda: RD.rans_decode_plain(*dec, offsets=off),
                 nbytes(*dec[:5]) + n),
         }
-        shape = "order-%d %d B in %d lanes" % (order, n, lanes)
+        shape = rans_label(order, n, lanes, "")
         for name, (kern, plain, moved) in cases.items():
             res = held_and_timed(name, kern, plain, (), shape, plain_runs=3,
                                  moved=moved)
             r = results.setdefault(name, dict(res, by_shape={}))
             r["max_abs_err"] = max(r["max_abs_err"], res["max_abs_err"])
             r["by_shape"][shape] = res
+    order, n, lanes = RANS_SHAPES[0]
+    rans_encode_at(dev, results["rans_encode"], uniform_bytes(n), lanes,
+                   ", uniform random bytes")
+    log("kernel rans_encode exact on %d staging edge cases (window %d: lane "
+        "lengths window - 1 .. 2 window + 1, equal and ragged; 1003 lanes; "
+        "n < lanes; one lane; data 5 B past a 16-byte boundary; one symbol; "
+        "order-1 with all 65,536 contexts live), section bytes equal to the "
+        "host coder's" % (rans_edge_cases(dev), RD.encode_window()))
     return results
+
+
+def rans_encode_at(dev, res: dict, data, lanes: int, what: str) -> None:
+    """rans_encode on an order-1 section, held against its plain version
+    and timed, added to its by-shape readings."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    d, f, c = rans_case_inputs(dev, 1, np.asarray(data), lanes, 0)
+    enc = RD.rans_encode_device(d, f, c, lanes, 1)
+    shape = rans_label(1, d.shape[0], lanes, what)
+    r = held_and_timed("rans_encode",
+                       lambda: RD.rans_encode_device(d, f, c, lanes, 1),
+                       lambda: RD.rans_encode_plain(d, f, c, lanes, 1), (),
+                       shape, plain_runs=3, moved=nbytes(d, f, c) +
+                       nbytes(enc))
+    torch.cuda.synchronize()
+    res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
+    res["by_shape"][shape] = r
+
+
+def rans_sweep_phase(dev, res: dict, real=None) -> None:
+    """tools/profile_rans.py's sweep of rans_encode's block size, window
+    and batch at RANS_SHAPES and the uniform order-1 section (and the
+    real one when given), each build exact against the package's; then the
+    chain floor of every shape in res's by-shape readings."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import profile_rans as PR
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = PR.shape_cases(dev, real)
+        t0 = time.perf_counter()
+        swept = PR.sweep(dev, cases, tmp)
+        for name, times in swept.items():
+            log("rans_encode sweep, %s: %s" % (name, "; ".join(
+                "%s %s" % (label, "refused" if ms is None else "%.4f ms" % ms)
+                for label, ms in times.items())))
+        best = {label: min((ms, name) for name, t in swept.items()
+                           for lab, ms in t.items()
+                           if lab == label and ms is not None)
+                for label in cases}
+        log("rans_encode sweep: %d builds in %.1f s; fastest %s"
+            % (len(swept), time.perf_counter() - t0, "; ".join(
+                "%s %s (%.4f ms)" % (label, name, ms)
+                for label, (ms, name) in best.items())))
+        cycles = PR.chain_cycles(dev, tmp)
+    mhz = PR.max_sm_clock_mhz()
+    for label, inp in cases.items():
+        floor = PR.chain_floor_ms(inp["steps"], cycles, mhz)
+        r = res["by_shape"].get(label)
+        if r is not None:
+            r["chain_floor_ms"] = floor
+        log("rans_encode chain floor at %s: %d steps x %.2f cycles at %.0f "
+            "MHz = %.4f ms%s" % (label, inp["steps"], cycles, mhz, floor,
+                                 "" if r is None else "; the kernel %.4f ms "
+                                 "(%.0f%% of the floor's rate)"
+                                 % (r["ms"], 100 * floor / r["ms"])))
+    res["chain_cycles"] = cycles
+    res["max_sm_mhz"] = mhz
+    order, n, lanes = RANS_SHAPES[0]
+    res["chain_floor_ms"] = res["by_shape"][rans_label(order, n, lanes,
+                                                       "")]["chain_floor_ms"]
 
 
 def scans_at_main_path_sizes(kres: dict, cres: dict) -> None:
@@ -1288,9 +1487,13 @@ def rfqz_phase(tag: str, fqs: list, fastq_bytes: int) -> dict:
         time inside it."""
         eng = DeviceEngine("cuda:0")
         census, coder_s = [], [0.0]
+        largest_o1 = [None, 0]
 
         def counted(data, order=0, lanes=rans_np.DEFAULT_LANES, *, device):
             census.append((order, len(data), max(1, min(lanes, len(data)))))
+            if order == 1 and (largest_o1[0] is None
+                               or len(data) > len(largest_o1[0])):
+                largest_o1[:] = [bytes(data), census[-1][2]]
             t0 = time.perf_counter()
             try:
                 return coder(data, order, lanes, device=device)
@@ -1311,7 +1514,7 @@ def rfqz_phase(tag: str, fqs: list, fastq_bytes: int) -> dict:
               % (tag, len(census), launches["rans_encode"]))
         return {"wall": wall, "prof": prof, "census": census,
                 "coder_s": coder_s[0], "launches": launches,
-                "stats": dict(eng.stats)}
+                "stats": dict(eng.stats), "largest_o1": largest_o1}
 
     runs = {}
     for label, extra in (("default", ()), ("k12000", ("-k", "12000"))):
@@ -1383,7 +1586,8 @@ def rfqz_phase(tag: str, fqs: list, fastq_bytes: int) -> dict:
     return {"launches": main["launches"], "bytes": fastq_bytes,
             "size": os.path.getsize(main["out"]), "enc_s": main["wall"],
             "host_s": main["host_s"], "rfq_bytes": rfq_bytes,
-            "sections": len(census), "coder_s": main["coder_s"]}
+            "sections": len(census), "coder_s": main["coder_s"],
+            "largest_o1": main["largest_o1"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1624,6 +1828,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch sees no CUDA device")
         return 2
+    import numpy as np
+
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log("python %s, torch %s, CUDA %s, %s"
@@ -1650,6 +1856,13 @@ def main() -> int:
         for tag in ("se", "pe"):
             cres["rfqz_" + tag] = rfqz_phase(tag, cres[tag]["fqs"],
                                              cres[tag]["bytes"])
+        # rans_encode on the SE compress's largest order-1 section, then
+        # its shape sweep and chain floor
+        data, lanes = cres["rfqz_se"]["largest_o1"]
+        real = (np.frombuffer(data, np.uint8).copy(), lanes)
+        rans_encode_at(torch.device("cuda:0"), kres["rans_encode"], *real,
+                       ", real .rfq bytes")
+        rans_sweep_phase(torch.device("cuda:0"), kres["rans_encode"], real)
         log("mesh: torch sees %d CUDA device(s)%s"
             % (torch.cuda.device_count(),
                "; two engines share cuda:0, so this is a byte check, not a "

@@ -119,8 +119,11 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_scan_status_words.restype = ll
     lib.repaq_scan_tile.argtypes = []
     lib.repaq_scan_tile.restype = ll
-    lib.repaq_rans_encode.argtypes = [vp, vp, ci, vp, ci, ll, vp, vp, vp, vp]
+    lib.repaq_rans_encode.argtypes = [vp, ll, ci, vp, vp, ci, ll, vp, vp, vp,
+                                      vp]
     lib.repaq_rans_encode.restype = ci
+    lib.repaq_rans_encode_window.argtypes = []
+    lib.repaq_rans_encode_window.restype = ll
     lib.repaq_rans_layout.argtypes = [vp, vp, vp, vp, ci, ll, vp, ll, vp]
     lib.repaq_rans_layout.restype = ci
     lib.repaq_rans_decode.argtypes = [vp, ll, vp, vp, ci, vp, vp, ci, vp, vp]

@@ -15,7 +15,9 @@ Three CUDA kernels (``csrc/rans.cu``) replace the JAX module's two
 
 - ``rans_encode``: one thread per lane walks its slice backwards and
   writes, per step, the word and whether it was emitted, in JAX's
-  (steps, lanes) layout, and the lane's final state;
+  (steps, lanes) layout, and the lane's final state; its bytes are staged
+  in shared memory a window ahead, and ``rcp_table`` takes the division
+  off its state step;
 - ``rans_layout``: writes each lane's final state and emitted words in
   decode order to the lane's start in the payload (every destination once,
   no sort);
@@ -146,6 +148,34 @@ def _fc_table(freq_lut: torch.Tensor, cum_lut: torch.Tensor, order: int):
             | (cum_lut.to(torch.int32) << 16)).reshape(-1).contiguous()
 
 
+def rcp_table() -> np.ndarray:
+    """The reciprocals that take the division off ``rans_encode``'s state
+    chain: (SCALE + 1, 2) uint32, row f (1 <= f <= SCALE) holds (m, l) with
+    l = ceil(log2 f) and m = floor(2^32 (2^l - f) / f) + 1 (Granlund and
+    Montgomery's multiplier less its 2^32 bit), so that for every x < 2^32
+    x // f = (x + umulhi(x, m)) >> l, the sum taken in 33 bits. Row 0 is
+    unused. The kernel's state stays below f << 20, where the sum fits in
+    32 bits (tests/test_torch_rans.py proves both)."""
+    f = np.arange(SCALE + 1, dtype=np.int64)
+    f[0] = 1
+    l = np.array([int(v - 1).bit_length() for v in f], dtype=np.int64)
+    m = (((1 << 32) * ((1 << l) - f)) // f + 1)
+    table = np.stack([m, l], axis=1).astype(np.uint32)
+    table[0] = 0
+    return table
+
+
+_rcp_tables: dict = {}
+
+
+def _rcp_on(device: torch.device) -> torch.Tensor:
+    """rcp_table() on `device`, built once per process and device."""
+    t = _rcp_tables.get(device)
+    if t is None:
+        t = _rcp_tables[device] = torch.from_numpy(rcp_table()).to(device)
+    return t
+
+
 def _check_order(order: int) -> None:
     if order not in (0, 1):
         raise ValueError("order must be 0 or 1, got %r" % (order,))
@@ -202,23 +232,29 @@ def rans_encode_device(data: torch.Tensor, freq_lut: torch.Tensor,
     ``rans_encode``."""
     _check_u8("data", data)
     _check_order(order)
-    off_np, steps = _lane_offsets(data.shape[0], lanes, None)
+    steps = _lane_offsets(data.shape[0], lanes, None)[1]
     fc = _fc_table(freq_lut, cum_lut, order)
     if not _on_cuda(data, fc):
         return rans_encode_plain(data, freq_lut, cum_lut, lanes, order)
     lib = _build.library()
     dev = data.device
     data = data.contiguous()
-    off = torch.from_numpy(off_np).to(dev)
     words = torch.empty((steps, lanes), dtype=torch.uint16, device=dev)
     emits = torch.empty((steps, lanes), dtype=torch.bool, device=dev)
     final = torch.empty(lanes, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
+        # the kernel splits the lanes as rans_np.lane_slices does
         _launch("rans_encode", lib.repaq_rans_encode, data.data_ptr(),
-                off.data_ptr(), lanes, fc.data_ptr(), order, steps,
-                words.data_ptr(), emits.data_ptr(), final.data_ptr(),
-                _stream(dev))
+                data.shape[0], lanes, fc.data_ptr(),
+                _rcp_on(dev).data_ptr(), order, steps, words.data_ptr(),
+                emits.data_ptr(), final.data_ptr(), _stream(dev))
     return words, emits, final
+
+
+def encode_window() -> int:
+    """Steps of a lane that the built ``rans_encode`` stages at once in
+    shared memory (card-side tests place lane lengths by it)."""
+    return int(_build.library().repaq_rans_encode_window())
 
 
 def rans_layout_plain(words: torch.Tensor, emits: torch.Tensor,

@@ -21,7 +21,9 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
-from chip_smoke import FSM_KINDS, SCAN_KINDS, fsm_case, scan_case
+from chip_smoke import (FSM_KINDS, RANS_CASES, RANS_SHAPES, SCAN_KINDS,
+                        fsm_case, rans_case, rans_case_inputs,
+                        rans_shape_data, scan_case)
 from test_device_engine import _mk_block
 
 
@@ -454,6 +456,38 @@ def test_rans_kernels_match_plain(cuda, order, n, lanes):
     for name, k in (("rans_encode", 2), ("rans_layout", 1),
                     ("rans_decode", 1)):
         assert TK.launches[name] == before[name] + k
+
+
+def _encode_held(cuda, order, data, lanes, shift=0):
+    """rans_encode on the card against its plain version (words, emits,
+    final), one launch, and the section's bytes against the host
+    coder's."""
+    d, f, c = rans_case_inputs(cuda, order, data, lanes, shift)
+    before = TK.launches["rans_encode"]
+    got = RD.rans_encode_device(d, f, c, lanes, order)
+    want = RD.rans_encode_plain(d, f, c, lanes, order)
+    torch.cuda.synchronize()
+    assert TK.launches["rans_encode"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert (RD.encode_section_device(data, order, lanes, device=cuda)
+            == R.encode_section(data, order=order, lanes=lanes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RANS_CASES)
+def test_rans_encode_staging_edges(cuda, name):
+    """The edges of the encode kernel's staged windows (chip_smoke's
+    RANS_CASES, placed by the built kernel's window)."""
+    order, data, lanes, shift = rans_case(name, RD.encode_window())
+    _encode_held(cuda, order, data, lanes, shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(len(RANS_SHAPES)))
+def test_rans_encode_at_rans_shapes(cuda, index):
+    order, data, lanes = list(rans_shape_data())[index]
+    _encode_held(cuda, order, data, lanes)
 
 
 @pytest.mark.cuda

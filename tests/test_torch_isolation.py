@@ -27,7 +27,8 @@ from repaq_tpu_torch.format import header as TH
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     str(p.relative_to(ROOT)) for p in (ROOT / "repaq_tpu_torch").rglob("*.py")
-    if "_build" not in p.parts) + ["chip_smoke.py"]
+    if "_build" not in p.parts) + ["chip_smoke.py",
+                                   "tools/profile_rans.py"]  # chip_smoke's
 
 # (inputs, golden, compress flags): every SE and PE fixture with a golden
 FIXTURES = [

@@ -204,6 +204,158 @@ def test_lane_offsets_form():
 
 
 # ---------------------------------------------------------------------------
+# the reciprocal that takes the division off rans_encode's state chain
+# ---------------------------------------------------------------------------
+
+F_ALL = np.arange(1, R.SCALE + 1, dtype=np.uint64)
+
+
+def _rcp(f):
+    m, l = T.rcp_table()[f.astype(np.int64)].T.astype(np.uint64)
+    return m, l
+
+
+def _rcp_div(x, f):
+    """x // f by rcp_table, the sum in 33 bits (uint64)."""
+    m, l = _rcp(f)
+    return (x + ((x * m) >> np.uint64(32))) >> l
+
+
+def test_rcp_table_meets_the_exactness_condition():
+    """Granlund and Montgomery's condition, for every f in 1..4096: with
+    M = 2^32 + m, e = M f - 2^(32+l) lies in [1, 2^l], so x e < 2^(32+l)
+    for every x < 2^32, and then floor(x M / 2^(32+l)) = x // f."""
+    table = T.rcp_table()
+    assert table.shape == (R.SCALE + 1, 2) and table.dtype == np.uint32
+    assert not table[0].any()
+    f = F_ALL.astype(object)
+    m, l = (table[1:, 0].astype(object), table[1:, 1].astype(object))
+    for fi, mi, li in zip(f, m, l):
+        assert (1 << li) >= fi and (li == 0 or (1 << (li - 1)) < fi)
+        err = ((1 << 32) + mi) * fi - (1 << (32 + li))
+        assert 1 <= err <= (1 << li)
+        assert ((1 << 32) - 1) * err < (1 << (32 + li))
+
+
+def test_rcp_quotient_exact_at_the_edges():
+    """q = (x + umulhi(x, m)) >> l and x - q f against x // f and x % f
+    for every f: at x = 2^32 - 1 and at q f - 1, q f, q f + 1 for the
+    three largest quotients q that keep x below 2^32."""
+    f = np.repeat(F_ALL, 10)
+    top = np.uint64((1 << 32) - 1) // F_ALL
+    x = np.stack([np.full_like(top, (1 << 32) - 1)]
+                 + [q * F_ALL + np.uint64(d) - np.uint64(1)
+                    for q in (top, top - 1, top - 2) for d in (0, 1, 2)],
+                 axis=1).reshape(-1)
+    keep = x < np.uint64(1 << 32)
+    x, f = x[keep], f[keep]
+    assert x.shape[0] > 9 * R.SCALE
+    q = _rcp_div(x, f)
+    assert np.array_equal(q, x // f)
+    assert np.array_equal(x - q * f, x % f)
+
+
+def test_rcp_quotient_exact_on_random_states():
+    """2^16 random x < 2^32, each against 64 values of f, so that every f
+    in 1..4096 meets 1,024 of them."""
+    x = np.random.default_rng(16).integers(0, 1 << 32, size=1 << 16,
+                                           dtype=np.uint64)
+    xx = np.repeat(x, 64)
+    ff = np.tile(F_ALL, xx.shape[0] // R.SCALE)
+    q = _rcp_div(xx, ff)
+    assert np.array_equal(q, xx // ff)
+    assert np.array_equal(xx - q * ff, xx % ff)
+
+
+def test_rcp_sum_fits_32_bits_below_the_renormalised_bound():
+    """The kernel adds x + umulhi(x, m) in 32 bits. After renormalisation
+    x < f << 20, and at the largest such x the sum stays below 2^32 for
+    every f (it grows with x), so the 32-bit quotient is exact there."""
+    x = (F_ALL << np.uint64(20)) - np.uint64(1)
+    m, l = _rcp(F_ALL)
+    total = x + ((x * m) >> np.uint64(32))
+    assert (total < np.uint64(1 << 32)).all()
+    assert np.array_equal(total >> l, x // F_ALL)
+
+
+def _encode_division_free(data, freqs, cum, lanes, order):
+    """rans_encode's arithmetic in numpy uint32, lanes in lockstep: the
+    state step with the reciprocal, the sum in 32 bits, as the kernel
+    codes it. Returns (words, emits, final) as rans_encode_plain does."""
+    n = data.shape[0]
+    off = R.lane_slices(n, lanes)
+    lens = np.diff(off)
+    steps = int(lens.max())
+    u32 = np.uint32
+    fc = (freqs.astype(np.uint32) | (cum.astype(np.uint32) << u32(16))
+          ).reshape(-1)
+    rcp = T.rcp_table()
+    x = np.full(lanes, R.RANS_L, dtype=u32)
+    words = np.zeros((steps, lanes), np.uint16)
+    emits = np.zeros((steps, lanes), bool)
+    for k in range(steps):
+        act = lens > k
+        p = np.maximum(off[1:] - 1 - k, 0)
+        s = data[p].astype(u32)
+        if order:
+            prev = np.where(p > off[:-1], data[np.maximum(p - 1, 0)], 0)
+            e = fc[(prev.astype(np.int64) << 8) | s]
+        else:
+            e = fc[s]
+        f = e & u32(0xFFFF)
+        m, l = rcp[f].T
+        emit = act & (x > (f << u32(20)) - u32(1))
+        words[k] = np.where(act, x & u32(0xFFFF), 0)
+        emits[k] = emit
+        xr = np.where(emit, x >> u32(16), x)
+        t = ((xr.astype(np.uint64) * m) >> np.uint64(32)).astype(u32)
+        q = (xr + t) >> l
+        xn = xr + (e >> u32(16)) + q * (u32(R.SCALE) - f)
+        x = np.where(act, xn, x)
+    return words, emits, x.astype(np.int64)
+
+
+def _one_rare(n, seed):
+    """A symbol seen once among n: quantised to freq 1."""
+    data = _skewed(n, seed)
+    data[n // 3] = 0x99
+    return data
+
+
+DIVISION_FREE_CASES = {
+    "one_symbol_o0": (lambda: np.full(4000, 0x42, np.uint8), 0, 16),
+    "one_symbol_o1": (lambda: np.full(4000, 0x42, np.uint8), 1, 16),
+    "freq_1_o0": (lambda: _one_rare(50_000, 17), 0, 32),
+    "freq_1_o1": (lambda: _one_rare(50_000, 18), 1, 32),
+    "skewed_ragged_o0": (lambda: _skewed(3001, 19), 0, 64),
+    "markov_ragged_o1": (lambda: _markov(5003, 16, 0, 20), 1, 48),
+    "uniform_o0": (lambda: np.random.default_rng(21).integers(
+        0, 256, size=16 * 500, dtype=np.uint8), 0, 16),
+    "uniform_o1": (lambda: np.random.default_rng(22).integers(
+        0, 256, size=20_000, dtype=np.uint8), 1, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DIVISION_FREE_CASES))
+def test_division_free_step_matches_plain(case):
+    """The kernel's step, division-free, codes whole sections as
+    rans_encode_plain's // and % do: words, emits and final states."""
+    make, order, lanes = DIVISION_FREE_CASES[case]
+    data = make()
+    _h, freqs, cum = T.section_prologue(data, order, lanes)
+    if case.startswith("one_symbol"):
+        assert freqs.max() == R.SCALE
+    if case.startswith("freq_1"):
+        assert (freqs == 1).any()
+    got = _encode_division_free(data, freqs, cum, lanes, order)
+    want = T.rans_encode_plain(torch.from_numpy(data),
+                               torch.from_numpy(freqs),
+                               torch.from_numpy(cum), lanes, order)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
+
+
+# ---------------------------------------------------------------------------
 # section drivers: bytes of the host oracle and of JAX on every branch
 # ---------------------------------------------------------------------------
 

@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""The rANS encode kernel (repaq_tpu_torch/csrc/rans.cu, rans_encode) on
+one NVIDIA GPU: its shape sweep, the floor its state chain sets, and an
+earlier source of it timed in turns beside the current one.
+
+    python3 tools/profile_rans.py [--parent OLD_rans.cu] [--real]
+                                  [--sass OUT.txt] [--ablate]
+
+Builds csrc/rans.cu with the package's nvcc flags once as the package
+builds it and once for each point of SWEEP (-DREPAQ_RANS_THREADS, _WINDOW,
+_BATCH: lanes a block, steps staged a window, steps a batch), one nvcc
+each, in parallel, into a temporary directory, and times every build at
+chip_smoke.py's RANS_SHAPES (a NovaSeq-quality order-1 section and an
+order-0 one) and on an order-1 section of uniform random bytes, where all
+65,536 contexts are live. With --real also on the largest order-1 section
+of chip_smoke.py's SE corpus (640k reads) written to .rfqz at the default
+chunks: real `.rfq` bytes with a real context spread.
+
+OLD_rans.cu, when given, is an earlier source with the entry point
+repaq_rans_encode(data, off, lanes, fc, order, steps, words, emits, final,
+stream): lane offsets in device memory and no reciprocal table (``git show <commit>:repaq_tpu_torch/csrc/
+rans.cu``); it and the package's build are timed in turns, old, new, new,
+old. Every build is held exact against the package's, which is held exact
+against rans_encode_plain. Each time is a CUDA-event median of 15 runs
+with the L2 flushed (chip_smoke.cuda_ms).
+
+The chain floor: tools/rans_chain_probe.cu runs encode_step alone on
+register-held symbols and reads clock64() around it; the longest lane's
+steps times those cycles at the card's maximum SM clock (nvidia-smi) is
+the least time any design of this step can take. --sass writes the
+package build's SASS of rans_encode_kernel for reading the chain by hand.
+--ablate times the package build with its two stores a step, its symbol
+loads (bytes, entries, reciprocals hoisted out of the loop on a constant
+byte), or both cut out: what each costs above the chain. The last line of
+output is one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "repaq_tpu_torch", "csrc", "rans.cu")
+PROBE = os.path.join(ROOT, "tools", "rans_chain_probe.cu")
+AS_BUILT = "as built"
+OLD = "parent"
+# (lanes a block, window, batch); a point whose shared memory exceeds the
+# card's 227 KB is refused at launch and reported so
+SWEEP = [(t, w, b) for t in (32, 64, 128) for w in (512, 1024)
+         for b in (8, 16)]
+PROBE_STEPS = 1 << 16
+# --ablate: the package build with parts of its work cut out (outputs
+# wrong on purpose), as (old text, new text) edits of csrc/rans.cu
+_STORES = ("  *w = static_cast<uint16_t>(x & 0xFFFFu);\n  *em = emit;\n", "")
+_SYMBOLS = ("for (int u = 0; u < kBatch + kOrder; ++u) b[u] = at[-u];",
+            "for (int u = 0; u < kBatch + kOrder; ++u) b[u] = 0x46u;")
+ABLATIONS = {"no stores": [_STORES],
+             "symbols hoisted out of the loop": [_SYMBOLS],
+             "no stores, symbols hoisted": [_STORES, _SYMBOLS]}
+
+
+def sweep_name(point) -> str:
+    return "threads %d window %d batch %d" % point
+
+
+def _nvcc_jobs(tmp: str, jobs: dict) -> dict:
+    """name -> path of the library each (source, flags) job built; all
+    nvcc processes run at once."""
+    sys.path.insert(0, ROOT)
+    from repaq_tpu_torch.ops import _build
+
+    out_dir = tempfile.mkdtemp(dir=tmp)  # never over a loaded library
+    procs = {}
+    for i, (name, (src, flags)) in enumerate(jobs.items()):
+        so = os.path.join(out_dir, "rans%d.so" % i)
+        procs[name] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-o", so,
+             src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    built = {}
+    for name, (so, p) in procs.items():
+        out = p.communicate()[0].decode(errors="replace")
+        if p.returncode:
+            raise RuntimeError("nvcc failed on %r:\n%s" % (name, out))
+        built[name] = so
+    return built
+
+
+def build(tmp: str, parent: str | None = None, sweep=SWEEP) -> dict:
+    """name -> (loaded library, takes the reciprocal table) of the package
+    build, each sweep point and the parent source."""
+    jobs = {AS_BUILT: (SRC, [])}
+    for point in sweep:
+        jobs[sweep_name(point)] = (SRC, [
+            "-DREPAQ_RANS_THREADS=%d" % point[0],
+            "-DREPAQ_RANS_WINDOW=%d" % point[1],
+            "-DREPAQ_RANS_BATCH=%d" % point[2]])
+    if parent:
+        jobs[OLD] = (parent, [])
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    libs = {}
+    for name, so in _nvcc_jobs(tmp, jobs).items():
+        lib = ctypes.CDLL(so)
+        with_rcp = name != OLD
+        lib.repaq_rans_encode.argtypes = (
+            [vp, ll, ci, vp, vp, ci, ll, vp, vp, vp, vp] if with_rcp
+            else [vp, vp, ci, vp, ci, ll, vp, vp, vp, vp])
+        lib.repaq_rans_encode.restype = ci
+        libs[name] = (lib, with_rcp)
+    return libs
+
+
+def section_inputs(dev, data, order: int, lanes: int) -> dict:
+    """What one rans_encode launch takes for a section, on `dev`."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.codec import rans_np
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    _head, freqs, cum = RD.section_prologue(data, order, lanes)
+    f, c = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (freqs,
+                                                                   cum))
+    off = rans_np.lane_slices(data.shape[0], lanes)
+    return {"d": torch.from_numpy(data).to(dev), "f": f, "c": c,
+            "fc": RD._fc_table(f, c, order), "order": order, "lanes": lanes,
+            "off": torch.from_numpy(off).to(dev),
+            "steps": int(np.diff(off).max()), "rcp": RD._rcp_on(dev)}
+
+
+def launcher(lib, with_rcp: bool, inp: dict):
+    """A function that launches `lib`'s rans_encode on `inp` and returns
+    (words, emits, final); raises if the launch is refused."""
+    import torch
+
+    dev = inp["d"].device
+    lanes, steps = inp["lanes"], inp["steps"]
+
+    def run():
+        words = torch.empty((steps, lanes), dtype=torch.uint16, device=dev)
+        emits = torch.empty((steps, lanes), dtype=torch.bool, device=dev)
+        final = torch.empty(lanes, dtype=torch.int64, device=dev)
+        if with_rcp:
+            head = [inp["d"].data_ptr(), inp["d"].shape[0], lanes,
+                    inp["fc"].data_ptr(), inp["rcp"].data_ptr()]
+        else:
+            head = [inp["d"].data_ptr(), inp["off"].data_ptr(), lanes,
+                    inp["fc"].data_ptr()]
+        rc = lib.repaq_rans_encode(
+            *head, inp["order"], steps, words.data_ptr(), emits.data_ptr(),
+            final.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError("rans_encode launch refused: error %d" % rc)
+        return words, emits, final
+
+    return run
+
+
+def same(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def shape_cases(dev, real=None) -> dict:
+    """label -> inputs: chip_smoke's RANS_SHAPES, an order-1 section of
+    uniform random bytes as large as the first, and `real` ((data, lanes)
+    of an order-1 section) when given."""
+    import numpy as np
+
+    import chip_smoke as cs
+
+    cases = {}
+    for order, data, lanes in cs.rans_shape_data():
+        cases[cs.rans_label(order, data.shape[0], lanes, "")] = \
+            section_inputs(dev, data, order, lanes)
+    order, n, lanes = cs.RANS_SHAPES[0]
+    data = cs.uniform_bytes(n)
+    cases[cs.rans_label(order, n, lanes, ", uniform random bytes")] = \
+        section_inputs(dev, data, order, lanes)
+    if real is not None:
+        data, lanes = real
+        cases[cs.rans_label(1, data.shape[0], lanes, ", real .rfq bytes")] = \
+            section_inputs(dev, np.asarray(data), 1, lanes)
+    return cases
+
+
+def sweep(dev, cases: dict, tmp: str) -> dict:
+    """The package build and every SWEEP point timed at every case: name
+    -> {case: ms, or None where the launch was refused}, each build held
+    exact against the package's."""
+    import chip_smoke as cs
+
+    libs = build(tmp)
+    ref = {label: launcher(*libs[AS_BUILT], inp)() for label, inp in
+           cases.items()}
+    res = {}
+    for name, (lib, with_rcp) in libs.items():
+        res[name] = {}
+        for label, inp in cases.items():
+            run = launcher(lib, with_rcp, inp)
+            try:
+                out = run()
+            except RuntimeError:
+                res[name][label] = None
+                continue
+            cs.check(same(out, ref[label]), "rans_encode built with %s "
+                     "differs from the package build at %s" % (name, label))
+            res[name][label] = cs.cuda_ms(run)
+    return res
+
+
+def ablate(dev, cases: dict, tmp: str) -> dict:
+    """Each of ABLATIONS, and the package build, timed at every case:
+    name -> {case: ms}."""
+    import chip_smoke as cs
+
+    with open(SRC) as f:
+        text = f.read()
+    jobs = {AS_BUILT: (SRC, [])}
+    for name, edits in ABLATIONS.items():
+        cut = text
+        for old, new in edits:
+            if old not in cut:
+                raise RuntimeError("ablation %r: %r is not in %s"
+                                   % (name, old, SRC))
+            cut = cut.replace(old, new)
+        path = os.path.join(tmp, "ablation%d.cu" % len(jobs))
+        with open(path, "w") as f:
+            f.write(cut)
+        jobs[name] = (path, [])
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    res = {}
+    for name, so in _nvcc_jobs(tmp, jobs).items():
+        lib = ctypes.CDLL(so)
+        lib.repaq_rans_encode.argtypes = [vp, ll, ci, vp, vp, ci, ll, vp, vp,
+                                          vp, vp]
+        lib.repaq_rans_encode.restype = ci
+        res[name] = {label: cs.cuda_ms(launcher(lib, True, inp))
+                     for label, inp in cases.items()}
+    return res
+
+
+def max_sm_clock_mhz() -> float:
+    r = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    if r.returncode:
+        raise RuntimeError("nvidia-smi failed: %s" % r.stderr.strip())
+    return float(r.stdout.split()[0])
+
+
+def chain_cycles(dev, tmp: str) -> float:
+    """Cycles of one encode_step on the state chain alone (the median of 5
+    probe runs of PROBE_STEPS steps on NovaSeq-like order-0 symbols)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.codec import rans_np
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    so = _nvcc_jobs(tmp, {"probe": (PROBE, [])})["probe"]
+    lib = ctypes.CDLL(so)
+    vp = ctypes.c_void_p
+    lib.repaq_rans_chain_probe.argtypes = [vp, ctypes.c_int, vp, vp, vp]
+    lib.repaq_rans_chain_probe.restype = ctypes.c_int
+    freqs = rans_np.quantize_freqs(np.bincount(
+        np.frombuffer(b"F" * 86 + b":" * 9 + b"," * 4 + b"#", np.uint8),
+        minlength=256))
+    cum = np.cumsum(freqs) - freqs
+    rcp = RD.rcp_table()
+    syms = []
+    for s in b"FF:F,FF#":
+        e = int(freqs[s]) | int(cum[s]) << 16
+        syms.append([e, *rcp[freqs[s]], 0])
+    syms = torch.tensor(np.array(syms, dtype=np.uint32).view(np.int32),
+                        device=dev)
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    runs = []
+    for _ in range(6):
+        rc = lib.repaq_rans_chain_probe(
+            syms.data_ptr(), PROBE_STEPS, cycles.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError("chain probe launch refused: error %d" % rc)
+        torch.cuda.synchronize()
+        runs.append(int(cycles.item()) / PROBE_STEPS)
+    return statistics.median(runs[1:])
+
+
+def chain_floor_ms(steps: int, cycles: float, mhz: float) -> float:
+    return steps * cycles / (mhz * 1e3)
+
+
+def real_section(tmp: str):
+    """(data, lanes) of the largest order-1 section of chip_smoke's SE
+    corpus written to .rfqz at the default chunks (host coder)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from repaq_tpu_torch import cli
+    from repaq_tpu_torch.codec import rans_np
+
+    fq = os.path.join(tmp, "se1.fq")
+    cs.make_corpus([fq], 640_000, 150, seed=96)
+    best = [np.zeros(0, np.uint8), 0]
+    encode = rans_np.encode_section
+
+    def recording(arr, order=0, lanes=rans_np.DEFAULT_LANES, **kw):
+        if order == 1 and len(arr) > best[0].shape[0]:
+            best[:] = [np.array(arr, dtype=np.uint8),
+                       max(1, min(lanes, len(arr)))]
+        return encode(arr, order=order, lanes=lanes, **kw)
+
+    rans_np.encode_section = recording
+    try:
+        rc = cli.main(["-c", "-i", fq, "-o", os.path.join(tmp, "se.rfqz"),
+                       "--engine", "vectorized"])
+    finally:
+        rans_np.encode_section = encode
+    if rc:
+        raise RuntimeError("the .rfqz compress exited %d" % rc)
+    return best[0], best[1]
+
+
+def write_sass(tmp: str, path: str) -> None:
+    from repaq_tpu_torch.ops import _build
+
+    so = _nvcc_jobs(tmp, {"sass": (SRC, [])})["sass"]
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    r = subprocess.run([cuobjdump, "-sass", so], capture_output=True,
+                       text=True)
+    if r.returncode:
+        raise RuntimeError("cuobjdump failed: %s" % r.stderr)
+    lines, keep = [], False
+    for line in r.stdout.splitlines():
+        if "Function : " in line:
+            keep = "rans_encode_kernel" in line
+        if keep:
+            lines.append(line)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="an earlier csrc/rans.cu to time")
+    ap.add_argument("--real", action="store_true",
+                    help="also time the SE corpus's largest order-1 section")
+    ap.add_argument("--sass", help="write rans_encode_kernel's SASS here")
+    ap.add_argument("--ablate", action="store_true",
+                    help="also time the build with its stores, its symbol "
+                         "loads, or both cut out (ABLATIONS)")
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import chip_smoke as cs
+
+    if not torch.cuda.is_available():
+        print("profile_rans: torch sees no CUDA device")
+        return 2
+    dev = torch.device("cuda:0")
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    card = cs.card_line()
+    result = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        real = real_section(tmp) if args.real else None
+        cases = shape_cases(dev, real)
+        for label, inp in cases.items():
+            want = RD.rans_encode_plain(inp["d"], inp["f"], inp["c"],
+                                        inp["lanes"], inp["order"])
+            got = RD.rans_encode_device(inp["d"], inp["f"], inp["c"],
+                                        inp["lanes"], inp["order"])
+            cs.check(same(got, want), "rans_encode differs from its plain "
+                     "version at %s" % label)
+        libs = build(tmp, args.parent, sweep=())
+        if args.parent:
+            turns = {}
+            for label, inp in cases.items():
+                runs = {name: launcher(*libs[name], inp)
+                        for name in (OLD, AS_BUILT)}
+                cs.check(same(runs[OLD](), runs[AS_BUILT]()), "the parent "
+                         "kernel differs from this one at %s" % label)
+                order = [OLD, AS_BUILT, AS_BUILT, OLD]
+                times = [(name, cs.cuda_ms(runs[name])) for name in order]
+                turns[label] = times
+                print("turns at %s: %s" % (label, ", ".join(
+                    "%s %.4f ms" % t for t in times)), flush=True)
+            result["turns"] = turns
+        swept = sweep(dev, cases, tmp)
+        for name, times in swept.items():
+            print("sweep %-32s %s" % (name, "; ".join(
+                "%s %s" % (label, "refused" if ms is None else "%.4f ms" % ms)
+                for label, ms in times.items())), flush=True)
+        result["sweep"] = swept
+        if args.ablate:
+            cut = ablate(dev, cases, tmp)
+            for name, times in cut.items():
+                print("ablation %-32s %s" % (name, "; ".join(
+                    "%s %.4f ms, %.1f ns a step" % (
+                        label, ms, 1e6 * ms / cases[label]["steps"])
+                    for label, ms in times.items())), flush=True)
+            result["ablations"] = cut
+        cyc = chain_cycles(dev, tmp)
+        mhz = max_sm_clock_mhz()
+        floors = {label: chain_floor_ms(inp["steps"], cyc, mhz)
+                  for label, inp in cases.items()}
+        print("chain: %.2f cycles a step at up to %.0f MHz; floor %s"
+              % (cyc, mhz, "; ".join("%s %.4f ms (%d steps)"
+                                     % (label, ms, cases[label]["steps"])
+                                     for label, ms in floors.items())),
+              flush=True)
+        result.update({"chain_cycles": cyc, "max_sm_mhz": mhz,
+                       "chain_floor_ms": floors})
+        if args.sass:
+            write_sass(tmp, args.sass)
+    print(card)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
