@@ -19,7 +19,10 @@ Phases, each of which must pass:
      in 4096 lanes, both with ragged lanes and held against the host
      coder's section bytes too; rans_encode also on an order-1 section of
      uniform random bytes, where all 65,536 contexts are live, and on 27
-     staging edge cases, RANS_CASES), exact equality, both timed with CUDA
+     staging edge cases, RANS_CASES; rans_layout also on the edges of its
+     tiles, LAYOUT_CASES, placed by the built tile, one launch each, and
+     the payload's zero fill timed alone at both sections), exact
+     equality, both timed with CUDA
      events (median of 15 runs, L2 flushed before each; the rANS kernels'
      plain versions, a Python loop over the steps, median of 3), each
      beside its bound: the bytes it must move over 3.35 TB/s. The token
@@ -256,18 +259,23 @@ def build_native() -> None:
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, runs: int = 15) -> float:
+def cuda_ms(fn, runs: int = 15, clean: bool = False) -> float:
     """Median device time of fn() in ms: CUDA events around each call, the
     L2 flushed and the stream kept busy before each so that neither a warm
-    cache nor the host's enqueue time is measured."""
+    cache nor the host's enqueue time is measured. The flush writes 64 MB,
+    whose dirty lines fn()'s reads then write back; clean=True flushes by
+    reading them instead."""
     import torch
 
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    flush = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
     fn()
     times = []
     for _ in range(runs):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -842,6 +850,104 @@ def rans_edge_cases(dev) -> int:
     return len(RANS_CASES)
 
 
+def _layout_case_makers(tile_steps: int, tile_lanes: int) -> dict:
+    """name -> (steps, lanes, emits, starts, cap) of layout_case: emits is
+    "mixed" (each lane its own emit rate in [0, 1)), "some lanes none",
+    "none" or "all"; starts "back to back", "odd" or "gapped"; cap "full",
+    "words" (through a lane's words) or "final" (through a final
+    state)."""
+    t, w = tile_steps, tile_lanes
+    cases = {}
+    for what, lanes in (("W - 1", w - 1), ("W", w), ("W + 1", w + 1),
+                        ("W + 16", w + 16), ("1003", 1003), ("one", 1)):
+        cases["lanes %s" % what] = (2 * t + 1, lanes, "mixed",
+                                    "back to back", "full")
+    for what, steps in (("T - 1", t - 1), ("T", t), ("T + 1", t + 1),
+                        ("2 T + 1", 2 * t + 1)):
+        cases["steps %s" % what] = (steps, 2 * w, "mixed", "back to back",
+                                    "full")
+    cases["no steps"] = (0, w + 1, "mixed", "back to back", "full")
+    cases["lanes with no emits"] = (t + 1, w + 1, "some lanes none",
+                                    "back to back", "full")
+    cases["a one-symbol section (no emits)"] = (t + 1, 2 * w, "none",
+                                                "back to back", "full")
+    cases["every step emits"] = (2 * t + 1, 2 * w, "all", "back to back",
+                                 "full")
+    for lanes, what in ((2 * w, ""), (w + 1, ", lanes W + 1")):
+        cases["odd starts" + what] = (t + 1, lanes, "mixed", "odd", "full")
+        cases["gapped starts" + what] = (2 * t + 1, lanes, "mixed",
+                                         "gapped", "full")
+    for starts in ("back to back", "odd", "gapped"):
+        cases["%s starts, cap through a lane's words" % starts] = (
+            t + 1, 2 * w, "mixed", starts, "words")
+        cases["%s starts, cap through a final state" % starts] = (
+            t + 1, 2 * w, "mixed", starts, "final")
+    return cases
+
+
+# the names do not depend on the tile
+LAYOUT_CASES = sorted(_layout_case_makers(256, 64))
+
+
+def layout_case(name: str, tile):
+    """(words, emits, final, start, out_cap) numpy inputs of rans_layout
+    for one edge of its tiles ((steps, lanes) of the built kernel): lanes
+    W - 1 .. W + 16 (whole and partial lane groups, with and without
+    16-byte rows), 1003 and 1; steps T - 1 .. 2 T + 1 and none; lanes that
+    never emit, no lane that emits, every step emitting; starts back to
+    back (even, as the section coder makes them), odd, or gapped and not
+    ascending; and an out_cap that cuts through a lane's words or through
+    a final state."""
+    import zlib
+
+    import numpy as np
+
+    steps, lanes, kind, starts, cap = _layout_case_makers(*tile)[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    words = rng.integers(0, 1 << 16, size=(steps, lanes), dtype=np.uint16)
+    rate = {"mixed": rng.random(lanes), "none": np.zeros(lanes),
+            "all": np.ones(lanes),
+            "some lanes none": rng.random(lanes) * (np.arange(lanes) % 3 > 0),
+            }[kind]
+    emits = rng.random((steps, lanes)) < rate
+    final = rng.integers(1 << 16, 1 << 32, size=lanes, dtype=np.int64)
+    size = 4 + 2 * emits.sum(0)
+    start = np.cumsum(size) - size
+    if starts == "odd":
+        start += 1
+    elif starts == "gapped":
+        gaps = rng.integers(0, 6, size=lanes)
+        order = rng.permutation(lanes)
+        placed = np.cumsum(size[order] + gaps) - size[order] + 3
+        start[order] = placed
+    cut = start[lanes // 2]
+    out_cap = {"full": int((start + size).max()) + 5, "words": int(cut) + 7,
+               "final": int(cut) + 2}[cap]
+    return words, emits, final, start, out_cap
+
+
+def layout_edge_cases(dev) -> int:
+    """rans_layout exact against its plain version on every case of
+    LAYOUT_CASES, placed by the built tile, one launch each; the count."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    for label in LAYOUT_CASES:
+        *arrays, cap = layout_case(label, RD.layout_tile())
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        before = TK.launches["rans_layout"]
+        got = RD.rans_layout(*args, cap)
+        torch.cuda.synchronize()
+        check(TK.launches["rans_layout"] == before + 1,
+              "rans_layout launched %d times on %s"
+              % (TK.launches["rans_layout"] - before, label))
+        check(torch.equal(got, RD.rans_layout_plain(*args, cap)),
+              "rans_layout differs from its plain version on %s" % label)
+    return len(LAYOUT_CASES)
+
+
 def rans_kernel_phase(dev) -> dict:
     """The rANS kernels against their plain versions at RANS_SHAPES; the
     section they make must also be the host coder's. rans_encode also on
@@ -898,6 +1004,11 @@ def rans_kernel_phase(dev) -> dict:
             r = results.setdefault(name, dict(res, by_shape={}))
             r["max_abs_err"] = max(r["max_abs_err"], res["max_abs_err"])
             r["by_shape"][shape] = res
+        # the layout's time includes the wrapper's zero fill of out_cap
+        fill = results["rans_layout"]["by_shape"][shape]["fill_ms"] = cuda_ms(
+            lambda: torch.zeros(cap, dtype=torch.uint8, device=dev))
+        log("rans_layout at %s: the zero fill of out_cap = %d B alone %.4f "
+            "ms" % (shape, cap, fill))
     order, n, lanes = RANS_SHAPES[0]
     rans_encode_at(dev, results["rans_encode"], uniform_bytes(n), lanes,
                    ", uniform random bytes")
@@ -906,6 +1017,12 @@ def rans_kernel_phase(dev) -> dict:
         "n < lanes; one lane; data 5 B past a 16-byte boundary; one symbol; "
         "order-1 with all 65,536 contexts live), section bytes equal to the "
         "host coder's" % (rans_edge_cases(dev), RD.encode_window()))
+    results["rans_layout"]["tile"] = list(RD.layout_tile())
+    log("kernel rans_layout exact on %d tile edge cases (tile %d steps x %d "
+        "lanes: lanes W - 1 .. W + 16, 1003, 1; steps T - 1 .. 2 T + 1, 0; "
+        "lanes with no emits; no emits; every step emitting; odd and gapped "
+        "starts; out_cap through a lane's words and through a final state), "
+        "one launch each" % ((layout_edge_cases(dev),) + RD.layout_tile()))
     return results
 
 

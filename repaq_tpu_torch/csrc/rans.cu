@@ -31,14 +31,22 @@
 // 32-64 SMs. What is left above the floor are the two stores of each step
 // and its loads' instructions (tools/profile_rans.py).
 //
-// rans_layout and rans_decode are bound by latency too: at most 4096
-// threads (32 blocks of 128) run one serial chain each. Layout loads a
-// batch of kUnroll steps at once; decode reads a symbol and its table
-// entry from one slot index and loads the next payload word before it
-// knows it needs it. Decode's order-0 tables sit in shared memory, its
-// order-1 ones (1 Mi slots of symbol and entry) in global memory, read
-// through L1/L2. Batching sections, so that more than 32 SMs work, is
-// later work.
+// rans_decode is bound by latency too: at most 4096 threads (32 blocks of
+// 128) run one serial chain each. It reads a symbol and its table entry
+// from one slot index and loads the next payload word before it knows it
+// needs it. Its order-0 tables sit in shared memory, its order-1 ones (1
+// Mi slots of symbol and entry) in global memory, read through L1/L2.
+// Batching sections, so that more than 32 SMs work, is later work.
+//
+// rans_layout, in place of the payload sort, is a transpose and a
+// per-lane compaction, with no chain: what bounds it is memory, 3 bytes
+// read a (step, lane) and 2 written an emitted word. It works in
+// tiles of kTileSteps steps x kTileLanes lanes, one block a tile, so that
+// an order-1 section of 2048 lanes makes 320 blocks and an order-0 one of
+// 4096 lanes 2048 (rans_layout_kernel). On an NVIDIA H100 most of its time
+// is the staging of words and emits from device memory; the compaction,
+// the copy-out and the wait for the counts of the tiles above take the
+// rest (tools/profile_rans.py --layout --ablate).
 //
 // rans_encode writes, per step k of lane i (k = 0 codes the lane's last
 // byte), the word x & 0xFFFF and whether it was emitted, at k * lanes + i:
@@ -57,7 +65,6 @@ constexpr uint32_t kScaleBits = 12;
 constexpr uint32_t kScaleMask = (1u << kScaleBits) - 1;
 constexpr uint32_t kRansL = 1u << 16;
 constexpr int kThreads = 128;
-constexpr int kUnroll = 8;  // steps whose loads are issued together
 
 // rans_encode's shape: kEncThreads lanes a block, each lane's next
 // kWindow steps staged in shared memory while the current ones are coded,
@@ -328,37 +335,263 @@ __global__ void __launch_bounds__(kEncThreads)
   if (active) final_state[i] = x;
 }
 
-// Walks the lane's steps backwards, kUnroll at a time with the loads of a
-// batch issued together, since only the write position depends on the
-// previous step.
-__global__ void rans_layout_kernel(const uint16_t* __restrict__ words,
-                                   const uint8_t* __restrict__ emits,
-                                   const long long* __restrict__ final_state,
-                                   const long long* __restrict__ start,
-                                   int lanes, long long steps,
-                                   uint8_t* __restrict__ payload,
-                                   long long cap) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  long long pos = start[i];
-  const uint32_t x = static_cast<uint32_t>(final_state[i]);
-  for (int b = 0; b < 4; ++b, ++pos) {
-    if (pos < cap) payload[pos] = static_cast<uint8_t>(x >> (8 * b));
-  }
-  for (long long k = steps - 1; k >= 0; k -= kUnroll) {
-    uint32_t em[kUnroll], w[kUnroll];
-#pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-      const long long slot = (k - j) * lanes + i;
-      em[j] = k - j >= 0 ? emits[slot] : 0u;
-      w[j] = k - j >= 0 ? words[slot] : 0u;
+// rans_layout's tile: kTileSteps steps x kTileLanes lanes a block. The -D
+// switches exist for tools/profile_rans.py's layout sweep; the defaults are
+// its fastest on the card.
+#ifndef REPAQ_LAYOUT_STEPS
+#define REPAQ_LAYOUT_STEPS 256
+#endif
+#ifndef REPAQ_LAYOUT_LANES
+#define REPAQ_LAYOUT_LANES 32
+#endif
+constexpr int kTileSteps = REPAQ_LAYOUT_STEPS;
+constexpr int kTileLanes = REPAQ_LAYOUT_LANES;
+constexpr int kLayoutThreads = 256;
+constexpr int kLayoutWarps = kLayoutThreads / 32;
+constexpr int kParts = kLayoutThreads / kTileLanes;  // threads a lane
+constexpr int kGroups = kTileSteps / 32;  // 32-step groups a tile
+constexpr int kWordVecs = kTileLanes / 8;   // 16-byte vectors a words row
+constexpr int kEmitVecs = kTileLanes / 16;  // and an emits row
+// a lane's slot of the tile's output: at most kTileSteps words, then 2
+// more, so that the slots of consecutive lanes start in other banks
+constexpr int kSlot = kTileSteps + 2;
+constexpr int kLook = 8;  // status words a thread loads at once
+constexpr uint32_t kReady = 1u << 31;
+static_assert(kTileSteps % 32 == 0 && kTileLanes % 32 == 0 &&
+                  kLayoutThreads % kTileLanes == 0,
+              "whole groups, whole warps of lanes, whole lanes a block");
+// Vector q of words row r sits at q ^ swizzle(r), so that the vectors q of
+// any 8 consecutive rows fall in 8 distinct 16-byte bank groups.
+constexpr int kSwizzleShift = kWordVecs >= 8 ? 0 : kWordVecs == 4 ? 1 : 2;
+constexpr int kSwizzleMask = (kWordVecs >= 8 ? 8 : kWordVecs) - 1;
+
+// [words rows][masks][words before each group][emits rows, later the
+// lanes' output slots]
+constexpr int kMaskOffset = kTileSteps * kTileLanes * 2;
+constexpr int kRowsOffset = kMaskOffset + 2 * kGroups * kTileLanes * 4;
+size_t layout_smem_bytes() {
+  return kRowsOffset + kTileLanes * kSlot * 2;
+}
+
+__device__ __forceinline__ int word_at(int r, int l) {
+  const int q = l / 8;
+  return 8 * (r * kWordVecs + (q ^ ((r >> kSwizzleShift) & kSwizzleMask))) +
+         l % 8;
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A status word carries its own value (kReady | count), so relaxed
+// accesses at gpu scope are enough: nothing else is published with it.
+__device__ __forceinline__ void store_relaxed(uint32_t* p, uint32_t v) {
+  asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t load_relaxed(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ bool inside(long long pos, long long cap) {
+  return pos >= 0 && pos < cap;
+}
+
+// One block a tile: steps [k0, k0 + rows) of lanes [l0, l0 + width), taken
+// from the top tile down by an atomic ticket, so that a block waits only on
+// blocks that have started. Per tile:
+//   1. The tile's emits, then its words, are staged in shared memory by
+//      16-byte cp.async copies (lanes % 16 == 0 and aligned inputs; else a
+//      copy an element). Rows of words are swizzled (word_at).
+//   2. Each lane's flags become one 32-bit mask a group of 32 steps, bit j
+//      for the j-th step from the group's top (decode order).
+//   3. A lane's words before each group of the tile are prefix sums of the
+//      masks' counts; the tile's count goes at once to its status word, so
+//      no block ever waits to publish.
+//   4. The lane's words in the tiles above are the sum of their status
+//      words: kParts threads a lane, each loading kLook words at once.
+//      Then lane i's bytes of this tile start at start[i] + 4 + 2 x that.
+//   5. A thread a lane and group walks the set bits of its mask and puts
+//      each emitted word, high byte first, at its rank in the lane's slot
+//      of shared memory, where the emits were: the tile's words are read
+//      once, and only the emitted ones.
+//   6. A warp a lane copies the slot to the payload, 64 contiguous bytes a
+//      store instruction (byte stores where the lane's run starts odd).
+// The top tile also writes each lane's final state. The wrapper zeroes the
+// payload, the status words and the ticket counter in one fill.
+__global__ void __launch_bounds__(kLayoutThreads)
+    rans_layout_kernel(const uint16_t* __restrict__ words,
+                       const uint8_t* __restrict__ emits,
+                       const long long* __restrict__ final_state,
+                       const long long* __restrict__ start, int lanes,
+                       long long steps, int tiles, int lane_groups, bool vec,
+                       uint8_t* __restrict__ payload, long long cap,
+                       uint32_t* __restrict__ status,
+                       unsigned* __restrict__ counter) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* const wrows = reinterpret_cast<uint16_t*>(smem);
+  uint32_t* const mask =  // [group][lane], and the words before it
+      reinterpret_cast<uint32_t*>(smem + kMaskOffset);
+  uint32_t* const before = mask + kGroups * kTileLanes;
+  uint8_t* const erows = smem + kRowsOffset;
+  uint16_t* const slots = reinterpret_cast<uint16_t*>(erows);
+  __shared__ long long base[kTileLanes];
+  __shared__ uint32_t count[kTileLanes];
+  __shared__ uint32_t part_sum[kParts][kTileLanes];
+  __shared__ unsigned shared_ticket;
+  const int tid = threadIdx.x;
+  if (tid == 0) shared_ticket = atomicAdd(counter, 1u);
+  __syncthreads();
+  const int tile = tiles - 1 - static_cast<int>(shared_ticket / lane_groups);
+  const int l0 = static_cast<int>(shared_ticket % lane_groups) * kTileLanes;
+  const long long k0 = static_cast<long long>(tile) * kTileSteps;
+  const int rows = static_cast<int>(
+      steps - k0 < kTileSteps ? steps - k0 : kTileSteps);
+  const int width = lanes - l0 < kTileLanes ? lanes - l0 : kTileLanes;
+  const long long at0 = k0 * lanes + l0;  // row 0, lane 0 of the tile
+
+  // 1. staging
+  if (vec) {
+    for (int i = tid; i < rows * kEmitVecs; i += kLayoutThreads) {
+      const int r = i / kEmitVecs, q = i % kEmitVecs;
+      if (16 * q < width) {
+        cp_async16(erows + r * kTileLanes + 16 * q,
+                   emits + at0 + static_cast<long long>(r) * lanes + 16 * q);
+      }
     }
+    cp_async_commit();
+    for (int i = tid; i < rows * kWordVecs; i += kLayoutThreads) {
+      const int r = i / kWordVecs, q = i % kWordVecs;
+      if (8 * q < width) {
+        cp_async16(wrows + word_at(r, 8 * q),
+                   words + at0 + static_cast<long long>(r) * lanes + 8 * q);
+      }
+    }
+    cp_async_commit();
+  } else {
+    for (int i = tid; i < rows * kTileLanes; i += kLayoutThreads) {
+      const int r = i / kTileLanes, l = i % kTileLanes;
+      if (l < width) {
+        const long long at = at0 + static_cast<long long>(r) * lanes + l;
+        erows[r * kTileLanes + l] = emits[at];
+        wrows[word_at(r, l)] = words[at];
+      }
+    }
+  }
+  cp_async_wait_but_one();  // the emits have landed
+  __syncthreads();
+
+  // 2. masks
+  const int lane = tid % kTileLanes, part = tid / kTileLanes;
+  const int groups = (rows + 31) / 32;
+  if (lane < width) {
+    for (int g = part; g < groups; g += kParts) {
+      const int top = rows - 1 - 32 * g;
+      uint32_t m = 0;
 #pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-      if (!em[j]) continue;
-      if (pos < cap) payload[pos] = static_cast<uint8_t>(w[j] >> 8);
-      if (pos + 1 < cap) payload[pos + 1] = static_cast<uint8_t>(w[j]);
-      pos += 2;
+      for (int j = 0; j < 32; ++j) {
+        if (top - j >= 0) {
+          m |= static_cast<uint32_t>(erows[(top - j) * kTileLanes + lane] != 0)
+               << j;
+        }
+      }
+      mask[g * kTileLanes + lane] = m;
+    }
+  }
+  __syncthreads();
+
+  // 3. the words before each group, and the tile's count published
+  if (part == 0 && lane < width) {
+    uint32_t n = 0;
+    for (int g = 0; g < groups; ++g) {
+      before[g * kTileLanes + lane] = n;
+      n += __popc(mask[g * kTileLanes + lane]);
+    }
+    count[lane] = n;
+    store_relaxed(status + static_cast<long long>(tile) * lanes + l0 + lane,
+                  kReady | n);
+  }
+
+  // 4. the words of the tiles above
+  uint32_t above = 0;
+  if (lane < width) {
+    const uint32_t* const col = status + l0 + lane;
+    for (int t0 = tile + 1 + part; t0 < tiles; t0 += kParts * kLook) {
+      uint32_t v[kLook];
+#pragma unroll
+      for (int u = 0; u < kLook; ++u) {
+        const int t = t0 + u * kParts;
+        v[u] = t < tiles
+                   ? load_relaxed(col + static_cast<long long>(t) * lanes)
+                   : kReady;
+      }
+#pragma unroll
+      for (int u = 0; u < kLook; ++u) {
+        while (!(v[u] & kReady)) {
+          v[u] = load_relaxed(col +
+                              static_cast<long long>(t0 + u * kParts) * lanes);
+        }
+        above += v[u] & ~kReady;
+      }
+    }
+  }
+  part_sum[part][lane] = above;
+  cp_async_wait_all();  // the words have landed
+  __syncthreads();
+  if (part == 0 && lane < width) {
+    long long sum = 0;
+    for (int p = 0; p < kParts; ++p) sum += part_sum[p][lane];
+    const long long s = start[l0 + lane];
+    base[lane] = s + 4 + 2 * sum;
+    if (tile == tiles - 1) {  // the final state leads the lane's bytes
+      const uint32_t x = static_cast<uint32_t>(final_state[l0 + lane]);
+      for (int b = 0; b < 4; ++b) {
+        if (inside(s + b, cap)) {
+          payload[s + b] = static_cast<uint8_t>(x >> 8 * b);
+        }
+      }
+    }
+  }
+
+  // 5. the emitted words into the lanes' slots, a thread a lane and group
+  for (int i = tid; i < groups * kTileLanes; i += kLayoutThreads) {
+    const int l = i % kTileLanes, g = i / kTileLanes;
+    if (l >= width) continue;
+    uint32_t m = mask[g * kTileLanes + l];
+    uint16_t* out = slots + l * kSlot + before[g * kTileLanes + l];
+    const int top = rows - 1 - 32 * g;
+    while (m) {
+      const int r = top - (__ffs(m) - 1);
+      m &= m - 1;
+      *out++ = static_cast<uint16_t>(  // high byte first
+          __byte_perm(wrows[word_at(r, l)], 0, 0x0001));
+    }
+  }
+  __syncthreads();
+
+  // 6. each lane's slot to the payload, a warp a lane
+  const int warp = tid / 32, j = tid % 32;
+  for (int l = warp; l < width; l += kLayoutWarps) {
+    const long long at = base[l];
+    const int n = 2 * static_cast<int>(count[l]);
+    const uint16_t* const slot = slots + l * kSlot;
+    if (!(at & 1)) {
+      for (int k = 2 * j; k < n; k += 64) {
+        if (at + k >= 0 && at + k + 1 < cap) {
+          *reinterpret_cast<uint16_t*>(payload + at + k) = slot[k / 2];
+        } else if (inside(at + k, cap)) {
+          payload[at + k] = static_cast<uint8_t>(slot[k / 2]);
+        }
+      }
+    } else {
+      const uint8_t* const bytes = reinterpret_cast<const uint8_t*>(slot);
+      for (int k = j; k < n; k += 32) {
+        if (inside(at + k, cap)) payload[at + k] = bytes[k];
+      }
     }
   }
 }
@@ -427,6 +660,10 @@ unsigned blocks_for(int lanes) {
   return static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
 }
 
+long long layout_tiles(long long steps) {
+  return steps > 0 ? (steps + kTileSteps - 1) / kTileSteps : 1;
+}
+
 }  // namespace
 
 extern "C" int repaq_rans_encode(const void* data, long long n, int lanes,
@@ -460,16 +697,54 @@ extern "C" int repaq_rans_encode(const void* data, long long n, int lanes,
 
 extern "C" long long repaq_rans_encode_window() { return kWindow; }
 
+// The built layout tile, steps and lanes (the card tests place their edge
+// cases by it).
+extern "C" long long repaq_rans_layout_tile_steps() { return kTileSteps; }
+extern "C" long long repaq_rans_layout_tile_lanes() { return kTileLanes; }
+
+// 32-bit words of zeroed scratch repaq_rans_layout needs for a (steps,
+// lanes) input: a status word a tile and lane, then the ticket counter.
+extern "C" long long repaq_rans_layout_status_words(int lanes,
+                                                    long long steps) {
+  return layout_tiles(steps) * lanes + 1;
+}
+
 extern "C" int repaq_rans_layout(const void* words, const void* emits,
                                  const void* final_state, const void* start,
                                  int lanes, long long steps, void* payload,
-                                 long long cap, void* stream) {
-  rans_layout_kernel<<<blocks_for(lanes), kThreads, 0,
+                                 long long cap, void* status, void* stream) {
+  if (lanes <= 0) return 0;
+  const long long tiles = layout_tiles(steps);
+  const long long lane_groups = (lanes + kTileLanes - 1) / kTileLanes;
+  if (tiles * lane_groups > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = layout_smem_bytes();
+  // raised once per device, as for rans_encode
+  static bool raised[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !raised[dev]) {
+    err = cudaFuncSetAttribute(rans_layout_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) raised[dev] = true;
+  }
+  const bool vec =
+      lanes % 16 == 0 && ((reinterpret_cast<uintptr_t>(words) |
+                           reinterpret_cast<uintptr_t>(emits)) & 15) == 0;
+  uint32_t* const words32 = static_cast<uint32_t*>(status);
+  rans_layout_kernel<<<static_cast<unsigned>(tiles * lane_groups),
+                       kLayoutThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(words), static_cast<const uint8_t*>(emits),
       static_cast<const long long*>(final_state),
       static_cast<const long long*>(start), lanes, steps,
-      static_cast<uint8_t*>(payload), cap);
+      static_cast<int>(tiles), static_cast<int>(lane_groups), vec,
+      static_cast<uint8_t*>(payload), cap, words32,
+      reinterpret_cast<unsigned*>(words32 + tiles * lanes));
   return static_cast<int>(cudaGetLastError());
 }
 

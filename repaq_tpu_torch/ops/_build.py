@@ -124,8 +124,15 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_rans_encode.restype = ci
     lib.repaq_rans_encode_window.argtypes = []
     lib.repaq_rans_encode_window.restype = ll
-    lib.repaq_rans_layout.argtypes = [vp, vp, vp, vp, ci, ll, vp, ll, vp]
+    lib.repaq_rans_layout.argtypes = [vp, vp, vp, vp, ci, ll, vp, ll, vp,
+                                      vp]
     lib.repaq_rans_layout.restype = ci
+    lib.repaq_rans_layout_status_words.argtypes = [ci, ll]
+    lib.repaq_rans_layout_status_words.restype = ll
+    lib.repaq_rans_layout_tile_steps.argtypes = []
+    lib.repaq_rans_layout_tile_steps.restype = ll
+    lib.repaq_rans_layout_tile_lanes.argtypes = []
+    lib.repaq_rans_layout_tile_lanes.restype = ll
     lib.repaq_rans_decode.argtypes = [vp, ll, vp, vp, ci, vp, vp, ci, vp, vp]
     lib.repaq_rans_decode.restype = ci
     return lib

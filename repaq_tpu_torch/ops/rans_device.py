@@ -20,7 +20,9 @@ Three CUDA kernels (``csrc/rans.cu``) replace the JAX module's two
   off its state step;
 - ``rans_layout``: writes each lane's final state and emitted words in
   decode order to the lane's start in the payload (every destination once,
-  no sort);
+  no sort), one block a tile of steps x lanes staged in shared memory (the
+  built shape is ``layout_tile()``), each lane's base from the counts the
+  tiles above it publish, a warp writing a lane's words as one run;
 - ``rans_decode``: one thread per lane runs the decoder forward over its
   payload bytes into its slice of the output.
 
@@ -257,6 +259,15 @@ def encode_window() -> int:
     return int(_build.library().repaq_rans_encode_window())
 
 
+def layout_tile() -> tuple[int, int]:
+    """(steps, lanes) of the built ``rans_layout``'s tile: one block lays
+    out that many steps of that many lanes (card-side tests place their
+    edge cases by it)."""
+    lib = _build.library()
+    return (int(lib.repaq_rans_layout_tile_steps()),
+            int(lib.repaq_rans_layout_tile_lanes()))
+
+
 def rans_layout_plain(words: torch.Tensor, emits: torch.Tensor,
                       final: torch.Tensor, start: torch.Tensor,
                       out_cap: int) -> torch.Tensor:
@@ -298,11 +309,17 @@ def rans_layout(words: torch.Tensor, emits: torch.Tensor,
     words, emits = words.contiguous(), emits.contiguous()
     final = final.to(torch.int64).contiguous()
     start = start.to(torch.int64).contiguous()
-    payload = torch.zeros(out_cap, dtype=torch.uint8, device=dev)
+    # one fill zeroes the payload and, 16-byte aligned past it, the kernel's
+    # status words (a count per tile and lane) and its ticket counter
+    head = -(-out_cap // 16) * 16
+    buf = torch.zeros(head + 4 * lib.repaq_rans_layout_status_words(
+        lanes, steps), dtype=torch.uint8, device=dev)
+    payload = buf[:out_cap]
     with torch.cuda.device(dev):
         _launch("rans_layout", lib.repaq_rans_layout, words.data_ptr(),
                 emits.data_ptr(), final.data_ptr(), start.data_ptr(), lanes,
-                steps, payload.data_ptr(), out_cap, _stream(dev))
+                steps, payload.data_ptr(), out_cap, buf[head:].data_ptr(),
+                _stream(dev))
     return payload
 
 

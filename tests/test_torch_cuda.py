@@ -21,9 +21,9 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
-from chip_smoke import (FSM_KINDS, RANS_CASES, RANS_SHAPES, SCAN_KINDS,
-                        fsm_case, rans_case, rans_case_inputs,
-                        rans_shape_data, scan_case)
+from chip_smoke import (FSM_KINDS, LAYOUT_CASES, RANS_CASES, RANS_SHAPES,
+                        SCAN_KINDS, fsm_case, layout_case, rans_case,
+                        rans_case_inputs, rans_shape_data, scan_case)
 from test_device_engine import _mk_block
 
 
@@ -488,6 +488,54 @@ def test_rans_encode_staging_edges(cuda, name):
 def test_rans_encode_at_rans_shapes(cuda, index):
     order, data, lanes = list(rans_shape_data())[index]
     _encode_held(cuda, order, data, lanes)
+
+
+def _layout_held(args, cap):
+    """rans_layout on the card against its plain version, one launch."""
+    before = TK.launches["rans_layout"]
+    got = RD.rans_layout(*args, cap)
+    torch.cuda.synchronize()
+    assert TK.launches["rans_layout"] == before + 1
+    assert got.shape == (cap,) and torch.equal(
+        got, RD.rans_layout_plain(*args, cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LAYOUT_CASES)
+def test_rans_layout_tile_edges(cuda, name):
+    """The edges of the layout kernel's tiles (chip_smoke's LAYOUT_CASES,
+    placed by the built tile, rans_device.layout_tile())."""
+    *arrays, cap = layout_case(name, RD.layout_tile())
+    _layout_held([torch.from_numpy(a).to(cuda) for a in arrays], cap)
+
+
+@pytest.mark.cuda
+def test_rans_layout_unaligned_inputs(cuda):
+    """Words and emits that start 2 and 1 bytes past an aligned address,
+    with lanes % 16 == 0, take the element-wise staging."""
+    steps, lanes = RD.layout_tile()
+    words, emits, final, start, cap = layout_case("steps 2 T + 1",
+                                                  (steps, lanes))
+    w = torch.zeros(words.size + 1, dtype=torch.uint16, device=cuda)
+    e = torch.zeros(emits.size + 1, dtype=torch.bool, device=cuda)
+    w[1:] = torch.from_numpy(words.reshape(-1)).to(cuda)
+    e[1:] = torch.from_numpy(emits.reshape(-1)).to(cuda)
+    _layout_held([w[1:].view(words.shape), e[1:].view(emits.shape),
+                  torch.from_numpy(final).to(cuda),
+                  torch.from_numpy(start).to(cuda)], cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(len(RANS_SHAPES)))
+def test_rans_layout_at_rans_shapes(cuda, index):
+    """The layout of the encoder's outputs at RANS_SHAPES, with the
+    section coder's starts and cap."""
+    order, data, lanes = list(rans_shape_data())[index]
+    d, f, c = rans_case_inputs(cuda, order, data, lanes, 0)
+    words, emits, final = RD.rans_encode_device(d, f, c, lanes, order)
+    size = 4 + 2 * emits.sum(0)
+    _layout_held([words, emits, final, torch.cumsum(size, 0) - size],
+                 2 * data.shape[0] + 4 * lanes + 8)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,7 @@ tolerance is exact equality."""
 
 import functools
 import io
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -29,6 +30,7 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as T
 
+from chip_smoke import LAYOUT_CASES, _layout_case_makers, layout_case
 from test_device_engine import _mk_block
 
 REPO = Path(__file__).resolve().parent.parent
@@ -201,6 +203,113 @@ def test_lane_offsets_form():
     with pytest.raises(ValueError, match="offsets"):
         T.rans_decode_device(payload, lane_bytes, torch.from_numpy(sym), f, c,
                              64, 0, 1, offsets=off[:-1])
+
+
+# ---------------------------------------------------------------------------
+# the payload layout (rans_layout) on the edges of the kernel's tiles
+# ---------------------------------------------------------------------------
+
+
+def _layout_tile_default():
+    """(steps, lanes) of rans_layout's tile in the package build, read from
+    the defaults in csrc/rans.cu: the CPU has no build to ask, and the
+    card tests place the same cases by the built tile."""
+    src = (REPO / "repaq_tpu_torch" / "csrc" / "rans.cu").read_text()
+    return tuple(int(re.search(r"#define REPAQ_LAYOUT_%s (\d+)" % k,
+                               src).group(1)) for k in ("STEPS", "LANES"))
+
+
+TILE_T, TILE_W = _layout_tile_default()
+
+
+def _never_emitting(n, lanes, seed):
+    """Order-1 data in an equal split whose lanes i % 3 == 0 hold only 'A'
+    and the rest only B, C, D: A's context row is A alone (freq 4096), so
+    those lanes never emit."""
+    grid = np.random.default_rng(seed).choice(
+        np.frombuffer(b"BCD", np.uint8), size=(lanes, n // lanes))
+    grid[::3] = ord("A")
+    return grid.reshape(-1)
+
+
+# (steps, lanes, order, data) of the equal splits JAX's payload encoder
+# takes: lanes W - 1 .. W + 16, 1003 and 1; steps T - 1 .. 2 T + 1; lanes
+# that never emit; a one-symbol section
+LAYOUT_JAX_SHAPES = {
+    **{"lanes %s" % what: (TILE_T + 1, lanes, lanes % 2, "skewed")
+       for what, lanes in (("W - 1", TILE_W - 1), ("W", TILE_W),
+                           ("W + 1", TILE_W + 1), ("W + 16", TILE_W + 16),
+                           ("1003", 1003), ("one", 1))},
+    **{"steps %s" % what: (steps, TILE_W + 1, steps % 2, "skewed")
+       for what, steps in (("T - 1", TILE_T - 1), ("T", TILE_T),
+                           ("T + 1", TILE_T + 1),
+                           ("2 T + 1", 2 * TILE_T + 1))},
+    "lanes with no emits": (TILE_T + 1, TILE_W + 1, 1, "never emitting"),
+    "a one-symbol section": (TILE_T + 1, TILE_W, 0, "one symbol"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUT_JAX_SHAPES))
+def test_layout_plain_matches_jax_payload(name):
+    """rans_layout_plain (through rans_encode_payload_device) gives JAX's
+    payload image on equal splits at the edges of the kernel's tile."""
+    steps, lanes, order, kind = LAYOUT_JAX_SHAPES[name]
+    n = steps * lanes
+    data = {"skewed": lambda: _skewed(n, n),
+            "never emitting": lambda: _never_emitting(n, lanes, n),
+            "one symbol": lambda: np.full(n, 0x42, np.uint8)}[kind]()
+    _h, freqs, cum, _s = _tables(data, order, lanes)
+    out_cap = 2 * n + 4 * lanes + 8
+    words, emits, final = T.rans_encode_device(
+        torch.from_numpy(data), torch.from_numpy(freqs),
+        torch.from_numpy(cum), lanes, order)
+    assert words.shape == (steps, lanes)
+    lane_bytes = 4 + 2 * emits.sum(0)
+    start = torch.cumsum(lane_bytes, 0) - lane_bytes
+    payload = T.rans_layout_plain(words, emits, final, start, out_cap)
+    jp, jl, jt = jax.jit(D.rans_encode_payload_device,
+                         static_argnums=(3, 4, 5))(
+        jnp.asarray(data), jnp.asarray(freqs), jnp.asarray(cum), lanes,
+        order, out_cap)
+    assert np.array_equal(payload.numpy(), np.asarray(jp))
+    assert np.array_equal(lane_bytes.numpy(), np.asarray(jl))
+    if kind == "never emitting":
+        assert not emits[:, ::3].any() and emits[:, 1::3].any(0).all()
+    if kind == "one symbol":
+        assert not emits.any()
+
+
+def _layout_numpy(words, emits, final, start, cap):
+    """rans_layout's contract, a lane at a time: from start[i] the final
+    state (4 bytes LE), then the words emitted from the last step down,
+    high byte first; bytes at or past cap dropped, every other byte 0."""
+    out = np.zeros(cap, np.uint8)
+    for i in range(words.shape[1]):
+        w = words[emits[:, i], i][::-1].astype(np.int64)
+        lane = np.concatenate([(int(final[i]) >> 8 * np.arange(4)) & 0xFF,
+                               np.stack([w >> 8, w & 0xFF], 1).reshape(-1)])
+        pos = start[i] + np.arange(lane.size)
+        keep = pos < cap
+        out[pos[keep]] = lane[keep]
+    return out
+
+
+@pytest.mark.parametrize("name", LAYOUT_CASES)
+def test_layout_plain_matches_the_contract(name):
+    """rans_layout_plain against a numpy statement of the contract on the
+    card tests' tile edges: odd and gapped starts, caps through a lane's
+    words and through a final state, lanes that never emit."""
+    *arrays, cap = layout_case(name, (TILE_T, TILE_W))
+    got = T.rans_layout_plain(*(torch.from_numpy(a) for a in arrays), cap)
+    assert got.dtype == torch.uint8 and got.shape == (cap,)
+    assert np.array_equal(got.numpy(), _layout_numpy(*arrays, cap))
+
+
+def test_layout_case_names_do_not_depend_on_the_tile():
+    """The card tests collect LAYOUT_CASES by name and build each at the
+    built tile, so every tile must give the same names."""
+    for tile in ((32, 16), (128, 32), (TILE_T, TILE_W), (512, 128)):
+        assert sorted(_layout_case_makers(*tile)) == LAYOUT_CASES
 
 
 # ---------------------------------------------------------------------------

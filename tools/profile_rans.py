@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""The rANS encode kernel (repaq_tpu_torch/csrc/rans.cu, rans_encode) on
-one NVIDIA GPU: its shape sweep, the floor its state chain sets, and an
-earlier source of it timed in turns beside the current one.
+"""The rANS encode and layout kernels (repaq_tpu_torch/csrc/rans.cu,
+rans_encode and rans_layout) on one NVIDIA GPU: their shape sweeps, the
+floor the encode's state chain sets, and an earlier source of either timed
+in turns beside the current one.
 
     python3 tools/profile_rans.py [--parent OLD_rans.cu] [--real]
                                   [--sass OUT.txt] [--ablate]
+    python3 tools/profile_rans.py --layout [--parent OLD_rans.cu]
 
 Builds csrc/rans.cu with the package's nvcc flags once as the package
 builds it and once for each point of SWEEP (-DREPAQ_RANS_THREADS, _WINDOW,
@@ -31,8 +33,19 @@ the least time any design of this step can take. --sass writes the
 package build's SASS of rans_encode_kernel for reading the chain by hand.
 --ablate times the package build with its two stores a step, its symbol
 loads (bytes, entries, reciprocals hoisted out of the loop on a constant
-byte), or both cut out: what each costs above the chain. The last line of
-output is one JSON object.
+byte), or both cut out: what each costs above the chain.
+
+--layout profiles rans_layout instead, on the encoder's outputs for
+RANS_SHAPES: the package build and each point of LAYOUT_SWEEP
+(-DREPAQ_LAYOUT_STEPS, _LANES: the tile's steps and lanes), each held
+exact against the package's, which is held exact against
+rans_layout_plain. Every time covers what the wrapper runs: the zero fill
+of the payload (and of the status words) and the launch; the fill alone is
+timed beside them. OLD_rans.cu is then an earlier source whose
+repaq_rans_layout(words, emits, final, start, lanes, steps, payload, cap,
+stream) takes no status words (PR 10's: ``git show
+019f466:repaq_tpu_torch/csrc/rans.cu``), timed in turns, old, new, new,
+old. The last line of output is one JSON object.
 """
 
 from __future__ import annotations
@@ -55,6 +68,25 @@ OLD = "parent"
 SWEEP = [(t, w, b) for t in (32, 64, 128) for w in (512, 1024)
          for b in (8, 16)]
 PROBE_STEPS = 1 << 16
+# --layout: (tile steps, tile lanes)
+LAYOUT_SWEEP = [(t, w) for t in (64, 128, 256, 512) for w in (32, 64, 128)]
+# --layout --ablate: rans_layout with a phase cut out (outputs wrong on
+# purpose; cap >= 0 always holds, but the compiler cannot know it)
+_WORDS_LANDED = ("  cp_async_wait_all();  // the words have landed\n"
+                 "  __syncthreads();\n")
+_EMITS_LANDED = ("  cp_async_wait_but_one();  // the emits have landed\n"
+                 "  __syncthreads();\n")
+LAYOUT_ABLATIONS = {
+    "no copy-out": [("for (int l = warp; l < width; l += kLayoutWarps)",
+                     "for (int l = width; l < width; l += kLayoutWarps)")],
+    "no compaction": [("    while (m) {\n", "    while (m && cap < 0) {\n")],
+    "no look-back": [("for (int t0 = tile + 1 + part; t0 < tiles;",
+                      "for (int t0 = tiles; t0 < tiles;")],
+    "no writing phases": [(_WORDS_LANDED,
+                           _WORDS_LANDED + "  if (cap >= 0) return;\n")],
+    "staging only": [(_EMITS_LANDED, _WORDS_LANDED
+                      + "  if (cap >= 0) return;\n")],
+}
 # --ablate: the package build with parts of its work cut out (outputs
 # wrong on purpose), as (old text, new text) edits of csrc/rans.cu
 _STORES = ("  *w = static_cast<uint16_t>(x & 0xFFFFu);\n  *em = emit;\n", "")
@@ -215,25 +247,32 @@ def sweep(dev, cases: dict, tmp: str) -> dict:
     return res
 
 
-def ablate(dev, cases: dict, tmp: str) -> dict:
-    """Each of ABLATIONS, and the package build, timed at every case:
-    name -> {case: ms}."""
-    import chip_smoke as cs
-
+def ablation_jobs(tmp: str, ablations: dict) -> dict:
+    """name -> (source, flags) of csrc/rans.cu with each ablation's edits
+    made, written into tmp."""
     with open(SRC) as f:
         text = f.read()
-    jobs = {AS_BUILT: (SRC, [])}
-    for name, edits in ABLATIONS.items():
+    jobs = {}
+    for name, edits in ablations.items():
         cut = text
         for old, new in edits:
             if old not in cut:
                 raise RuntimeError("ablation %r: %r is not in %s"
                                    % (name, old, SRC))
             cut = cut.replace(old, new)
-        path = os.path.join(tmp, "ablation%d.cu" % len(jobs))
+        path = os.path.join(tmp, "ablation-%s.cu" % len(os.listdir(tmp)))
         with open(path, "w") as f:
             f.write(cut)
         jobs[name] = (path, [])
+    return jobs
+
+
+def ablate(dev, cases: dict, tmp: str) -> dict:
+    """Each of ABLATIONS, and the package build, timed at every case:
+    name -> {case: ms}."""
+    import chip_smoke as cs
+
+    jobs = {AS_BUILT: (SRC, []), **ablation_jobs(tmp, ABLATIONS)}
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     res = {}
     for name, so in _nvcc_jobs(tmp, jobs).items():
@@ -350,6 +389,178 @@ def write_sass(tmp: str, path: str) -> None:
         f.write("\n".join(lines) + "\n")
 
 
+def layout_name(point) -> str:
+    return "tile %d steps x %d lanes" % point
+
+
+def layout_build(tmp: str, parent: str | None = None,
+                 ablations: dict | None = None) -> dict:
+    """name -> (loaded library, takes status words) of the package build,
+    each LAYOUT_SWEEP point, each of `ablations` and the parent source."""
+    jobs = {AS_BUILT: (SRC, [])}
+    for point in LAYOUT_SWEEP:
+        jobs[layout_name(point)] = (SRC, [
+            "-DREPAQ_LAYOUT_STEPS=%d" % point[0],
+            "-DREPAQ_LAYOUT_LANES=%d" % point[1]])
+    jobs.update(ablation_jobs(tmp, ablations or {}))
+    if parent:
+        jobs[OLD] = (parent, [])
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    libs = {}
+    for name, so in _nvcc_jobs(tmp, jobs).items():
+        lib = ctypes.CDLL(so)
+        with_status = name != OLD
+        lib.repaq_rans_layout.argtypes = (
+            [vp, vp, vp, vp, ci, ll, vp, ll, vp, vp] if with_status
+            else [vp, vp, vp, vp, ci, ll, vp, ll, vp])
+        lib.repaq_rans_layout.restype = ci
+        if with_status:
+            lib.repaq_rans_layout_status_words.argtypes = [ci, ll]
+            lib.repaq_rans_layout_status_words.restype = ll
+        libs[name] = (lib, with_status)
+    return libs
+
+
+def layout_cases(dev) -> dict:
+    """label -> (words, emits, final, start, out_cap) of RANS_SHAPES: the
+    package encoder's outputs, the section coder's starts and cap."""
+    import torch
+
+    import chip_smoke as cs
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    cases = {}
+    for order, data, lanes in cs.rans_shape_data():
+        inp = section_inputs(dev, data, order, lanes)
+        words, emits, final = RD.rans_encode_device(inp["d"], inp["f"],
+                                                    inp["c"], lanes, order)
+        size = 4 + 2 * emits.sum(0)
+        start = torch.cumsum(size, 0) - size
+        cases[cs.rans_label(order, data.shape[0], lanes, "")] = (
+            words, emits, final, start, 2 * data.shape[0] + 4 * lanes + 8)
+    return cases
+
+
+def layout_launcher(lib, with_status: bool, inp, fill: bool = True):
+    """A function that runs what the wrapper runs with `lib`'s rans_layout
+    on `inp` (the zero fill, then the launch) and returns the payload;
+    raises if the launch is refused. fill=False zeroes only the status
+    words, and the kernel writes into a payload allocated once, left as
+    the last run wrote it: the kernel's time without the payload's fill."""
+    import torch
+
+    words, emits, final, start, cap = inp
+    steps, lanes = words.shape
+    head = -(-cap // 16) * 16
+    extra = (4 * lib.repaq_rans_layout_status_words(lanes, steps)
+             if with_status else 0)
+    kept = torch.zeros(head, dtype=torch.uint8, device=words.device)
+
+    def run():
+        if fill:
+            buf = torch.zeros(head + extra, dtype=torch.uint8,
+                              device=words.device)
+            payload, status = buf, buf[head:]
+        else:
+            payload = kept
+            status = torch.zeros(extra, dtype=torch.uint8,
+                                 device=words.device)
+        tail = [status.data_ptr()] if with_status else []
+        rc = lib.repaq_rans_layout(
+            words.data_ptr(), emits.data_ptr(), final.data_ptr(),
+            start.data_ptr(), lanes, steps, payload.data_ptr(), cap, *tail,
+            torch.cuda.current_stream(words.device).cuda_stream)
+        if rc:
+            raise RuntimeError("rans_layout launch refused: error %d" % rc)
+        return payload[:cap]
+
+    return run
+
+
+def layout_profile(dev, tmp: str, parent: str | None,
+                   ablate: bool = False) -> dict:
+    """The layout's fill alone, the parent in turns (when given), the
+    sweep and, with `ablate`, LAYOUT_ABLATIONS, printed; the readings."""
+    import torch
+
+    import chip_smoke as cs
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    cases = layout_cases(dev)
+    cut = LAYOUT_ABLATIONS if ablate else {}
+    libs = layout_build(tmp, parent, cut)
+    result = {"tile": list(RD.layout_tile()), "fill_ms": {}, "sweep": {}}
+    ref = {}
+    for label, inp in cases.items():
+        ref[label] = RD.rans_layout(*inp)
+        cs.check(torch.equal(ref[label], RD.rans_layout_plain(*inp)),
+                 "rans_layout differs from its plain version at %s" % label)
+        cap = inp[4]
+        result["fill_ms"][label] = ms = cs.cuda_ms(
+            lambda: torch.zeros(cap, dtype=torch.uint8, device=dev))
+        print("layout fill at %s: %d B alone %.4f ms" % (label, cap, ms),
+              flush=True)
+    if parent:
+        turns = {}
+        for label, inp in cases.items():
+            runs = {name: layout_launcher(*libs[name], inp)
+                    for name in (OLD, AS_BUILT)}
+            for name, run in runs.items():
+                cs.check(torch.equal(run(), ref[label]), "rans_layout of %s "
+                         "differs from the package's at %s" % (name, label))
+            times = [(name, cs.cuda_ms(runs[name]))
+                     for name in (OLD, AS_BUILT, AS_BUILT, OLD)]
+            turns[label] = times
+            print("layout turns at %s: %s" % (label, ", ".join(
+                "%s %.4f ms" % t for t in times)), flush=True)
+        result["turns"] = turns
+    if ablate:
+        result["ablations"] = {}
+        for name in (AS_BUILT, *cut):
+            lib, with_status = libs[name]
+            result["ablations"][name] = times = {}
+            for label, inp in cases.items():
+                small = layout_launcher(lib, with_status, inp, fill=False)
+                times[label] = [
+                    cs.cuda_ms(layout_launcher(lib, with_status, inp)),
+                    cs.cuda_ms(small), cs.cuda_ms(small, clean=True)]
+            print("layout ablation %-18s %s" % (name, "; ".join(
+                "%s %.4f ms, %.4f without the payload's fill, %.4f so after "
+                "a clean flush" % (label, *ms)
+                for label, ms in times.items())), flush=True)
+        result["status_fill_ms"] = {}
+        for label, inp in cases.items():
+            extra = 4 * libs[AS_BUILT][0].repaq_rans_layout_status_words(
+                inp[0].shape[1], inp[0].shape[0])
+
+            def zeros():
+                return torch.zeros(extra, dtype=torch.uint8, device=dev)
+
+            result["status_fill_ms"][label] = ms = [
+                cs.cuda_ms(zeros), cs.cuda_ms(zeros, clean=True)]
+            print("layout status fill alone at %s: %d B %.4f ms, %.4f after "
+                  "a clean flush" % (label, extra, *ms), flush=True)
+    for name, (lib, with_status) in libs.items():
+        if name == OLD or name in cut:
+            continue
+        result["sweep"][name] = times = {}
+        for label, inp in cases.items():
+            run = layout_launcher(lib, with_status, inp)
+            try:
+                out = run()
+            except RuntimeError:
+                times[label] = None
+                continue
+            cs.check(torch.equal(out, ref[label]), "rans_layout built with "
+                     "%s differs from the package build at %s"
+                     % (name, label))
+            times[label] = cs.cuda_ms(run)
+        print("layout sweep %-28s %s" % (name, "; ".join(
+            "%s %s" % (label, "refused" if ms is None else "%.4f ms" % ms)
+            for label, ms in times.items())), flush=True)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier csrc/rans.cu to time")
@@ -359,6 +570,9 @@ def main() -> int:
     ap.add_argument("--ablate", action="store_true",
                     help="also time the build with its stores, its symbol "
                          "loads, or both cut out (ABLATIONS)")
+    ap.add_argument("--layout", action="store_true",
+                    help="profile rans_layout instead (LAYOUT_SWEEP; "
+                         "--parent then takes PR 10's source)")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -373,6 +587,13 @@ def main() -> int:
 
     card = cs.card_line()
     result = {"card": card}
+    if args.layout:
+        with tempfile.TemporaryDirectory() as tmp:
+            result.update(layout_profile(dev, tmp, args.parent,
+                                         args.ablate))
+        print(card)
+        print(json.dumps(result))
+        return 0
     with tempfile.TemporaryDirectory() as tmp:
         real = real_section(tmp) if args.real else None
         cases = shape_cases(dev, real)
