@@ -34,13 +34,16 @@ Phases, each of which must pass:
      tail of its words and of a thread's four words) and into the
      decode's (4m + 1)-byte buffer, and timed at 16 bytes (the fixed cost
      of one event-timed launch), at 32 Mbyte and back to back over 8
-     buffer sets. The run-boundary scans (cummax, suffix_min) at a whole
-     chunk's 11,829,248 elements and at (2, 80000) coordinate rows, timed
-     also beside torch's library scan, and at n = 1, tile - 1, tile,
-     tile + 1 and past 3,000 tiles, 1-D and as 2 rows, on random, run-start,
-     run-end and monotone inputs; after phase 5 both are held and timed
-     again at the shapes the two corpora handed them (the SE and PE
-     quality streams, coordinate rows and decode token counts), and after
+     buffer sets. The run-boundary kernels (run_offsets on encode,
+     seg_positions on decode) at a whole chunk's 11,829,248 elements and
+     run_offsets at (2, 80000) coordinate rows, and both at n = 1,
+     tile - 1, tile, tile + 1, 3 tiles + 5 and past 3,000 tiles
+     (run_offsets 1-D and as 2 rows) on every RUN_KINDS and SEG_KINDS
+     input: runs of 31-33 at the edges of steps, warps and tiles, a run of
+     three tiles, segment starts at the first element only, everywhere
+     and nowhere; after phase 5 both are held and timed again at the
+     shapes the two corpora handed them (the SE and PE quality streams and
+     coordinate rows, and decode token counts), and after
      phase 6 rans_encode is held and timed on the largest order-1 section
      the SE compress coded (real .rfq bytes), then tools/profile_rans.py's
      sweep of its block size, window and batch is logged at these shapes
@@ -56,9 +59,11 @@ Phases, each of which must pass:
      compressed in 12-Mbase chunks through repaq_tpu_torch.cli.main,
      byte-compared with the host engine's output, decompressed and
      compared with the input; every chunk must have taken the device path
-     and every kernel of the SE path must have launched on it, the scans
-     at least once a chunk in each direction (suffix_min on encode only),
-     and the shapes they were handed are logged. The round
+     and every kernel of the SE path must have launched on it,
+     run_offsets 3 times a chunk on compress and never on decompress,
+     seg_positions once a chunk on decompress and never on compress (the
+     same in phases 7 and 8), and the shapes they were handed are logged.
+     The round
      trip runs twice: the first (cold) pays torch's lazy setup of each
      operator, the second (warm) is the steady rate. The token FSM is then
      timed at the median quality-buffer size of the corpus's chunks;
@@ -143,12 +148,12 @@ KERNELS = [
     ("token_start_mask", "repaq_tpu_torch/csrc/token_fsm.cu",
      "repaq_tpu/ops/pallas_tpu.py:175",
      ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
-    # the scans and the rANS kernels replace XLA code, not Pallas kernels
-    ("cummax", "repaq_tpu_torch/csrc/scan.cu",
-     "repaq_tpu/ops/device_streams.py:33",
+    # the run-boundary and rANS kernels replace XLA code, not Pallas kernels
+    ("run_offsets", "repaq_tpu_torch/csrc/scan.cu",
+     "repaq_tpu/ops/device_streams.py:33, :37, :275-278, :726-730",
      ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
-    ("suffix_min", "repaq_tpu_torch/csrc/scan.cu",
-     "repaq_tpu/ops/device_streams.py:37",
+    ("seg_positions", "repaq_tpu_torch/csrc/scan.cu",
+     "repaq_tpu/ops/device_streams.py:1001, :1138",
      ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
     ("rans_encode", "repaq_tpu_torch/csrc/rans.cu",
      "repaq_tpu/ops/rans_device.py:152", ("rfqz_se", "rfqz_pe")),
@@ -399,87 +404,133 @@ def fsm_edge_cases(dev) -> int:
     return cases
 
 
-SCAN_KINDS = ("random", "run_starts", "run_ends", "increasing",
-              "decreasing")
+RUN_KINDS = ("random", "sparse", "dense", "all", "none", "edges", "long")
+SEG_KINDS = ("random", "first", "every", "none", "edges")
 
 
-def scan_case(n: int, rows: int, kind: str, seed: int):
-    """An int32 input of the scans, (n,) when rows == 0, else (rows, n), of
-    a kind in SCAN_KINDS: the whole int32 range ("random"); as the callers
-    build them, a fifth of the positions marked with their index and the
-    rest -1 ("run_starts", cummax's) or n ("run_ends", suffix_min's); or
-    monotone, rising or falling by row."""
+def run_case(n: int, rows: int, kind: str, seed: int, tile: int = 8192):
+    """A bool mask for run_offsets, (n,) when rows == 0, else (rows, n), of
+    a kind in RUN_KINDS: set with probability 1/2 ("random"), 1/5
+    ("sparse") or 97/100 ("dense": runs past 32); all set (one run through
+    every tile) or none; runs of 31, 32 and 33 elements ending at, one past
+    and across every multiple of tile / 16 ("edges": the kernel's steps,
+    warps and tiles, given its tile); or one run three tiles long from half
+    a tile on, among sparse ones ("long")."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     shape = (n,) if rows == 0 else (rows, n)
-    i = np.broadcast_to(np.arange(n, dtype=np.int32), shape)
+    if kind in ("random", "sparse", "dense", "long"):
+        p = {"random": 0.5, "sparse": 0.2, "dense": 0.97, "long": 0.2}[kind]
+        mask = rng.random(shape) < p
+        if kind == "long":
+            mask[..., tile // 2: tile // 2 + 3 * tile] = True
+        return mask
+    mask = np.full(shape, kind == "all")
+    if kind == "edges":
+        step = max(1, tile // 16)
+        for t, b in enumerate(range(step, n + step, step)):
+            length = 31 + (t // 3) % 3
+            end = b + (0, 1, length // 2)[t % 3]
+            mask[..., max(0, end - length): end] = True
+    return mask
+
+
+def seg_case(n: int, kind: str, seed: int, tile: int = 8192):
+    """(adv int32, seg_start bool), both (n,), for seg_positions, of a kind
+    in SEG_KINDS: segment starts with probability 1/100 ("random"), at the
+    first element only, at every element, at none, or at, before and after
+    every multiple of tile / 8 ("edges": the kernel's warps and tiles,
+    given its tile). adv is 0-64 with a stretch of 100 zeros in every 1000
+    elements (every prefix sum below 2^30 up to 16M elements); "random"
+    draws it up to 2^24 where n allows (prefix sums below 2^30)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    top = min(1 << 24, (1 << 30) // max(n, 1)) if kind == "random" else 64
+    adv = rng.integers(0, top + 1, size=n, dtype=np.int64).astype(np.int32)
+    adv[(np.arange(n) // 100) % 10 == 3] = 0
     if kind == "random":
-        return rng.integers(-2**31, 2**31, size=shape, dtype=np.int64).astype(
-            np.int32)
-    if kind in ("run_starts", "run_ends"):
-        fill = -1 if kind == "run_starts" else n
-        return np.where(rng.random(shape) < 0.2, i, fill).astype(np.int32)
-    return (i if kind == "increasing" else n - i).astype(np.int32)
+        start = rng.random(n) < 0.01
+    else:
+        start = np.full(n, kind == "every")
+    if kind == "first" and n:
+        start[0] = True
+    if kind == "edges":
+        step = max(1, tile // 8)
+        for b in range(0, n + 1, step):
+            start[max(0, b - 1): b + 2] = True
+    return adv, start
 
 
-def scan_edge_cases(dev) -> int:
-    """Both scans exact against their plain versions, one launch a call
-    (none for an empty input), at n = 1, tile - 1, tile, tile + 1 and past
-    3,000 tiles, 1-D and as 2 rows (rows after the first start unaligned
-    at an odd n), for every scan_case kind, and on an input whose start is
-    not 16-byte aligned; returns the case count."""
+def boundary_edge_cases(dev) -> int:
+    """run_offsets and seg_positions exact against their plain versions,
+    one launch a call (none for an empty input), at n = 1, tile - 1, tile,
+    tile + 1, 3 tiles + 5 and past 3,000 tiles (run_offsets 1-D and as 2
+    rows, whose second row starts unaligned at these n), for every
+    run_case and seg_case kind, and on inputs whose start is not 16-byte
+    aligned; returns the case count."""
     import torch
 
     from repaq_tpu_torch.ops import kernels as TK
 
-    tile = TK.scan_tile()
-    cases = 0
-    inputs = [torch.from_numpy(scan_case(n, rows, kind, n + rows)).to(dev)
-              for n in (1, tile - 1, tile, tile + 1, 3000 * tile + 5)
-              for rows in (0, 2) for kind in SCAN_KINDS]
-    inputs += [torch.from_numpy(scan_case(tile + 9, 0, "random", 9)).to(
-        dev)[1:], torch.zeros((2, 0), dtype=torch.int32, device=dev)]
-    for x in inputs:
-        for name, kern, plain in (
-                ("cummax", TK.cummax_i32, TK.cummax_i32_plain),
-                ("suffix_min", TK.suffix_min_i32, TK.suffix_min_i32_plain)):
-            before = TK.launches[name]
-            got = kern(x)
-            torch.cuda.synchronize()
-            check(TK.launches[name] == before + (x.numel() > 0),
-                  "%s took other than one launch" % name)
-            check(torch.equal(got, plain(x)), "%s differs from its plain "
-                  "version at shape %s" % (name, tuple(x.shape)))
-            cases += 1
-    return cases
+    run_tile, seg_tile = TK.run_tiles()
+    cases = []
+    for n in (1, run_tile - 1, run_tile, run_tile + 1, 3 * run_tile + 5,
+              3000 * run_tile + 5):
+        for rows in (0, 2):
+            for kind in RUN_KINDS:
+                cases.append(("run_offsets", (torch.from_numpy(
+                    run_case(n, rows, kind, n + rows, run_tile)).to(dev),)))
+    for n in (1, seg_tile - 1, seg_tile, seg_tile + 1, 3 * seg_tile + 5,
+              3000 * seg_tile + 5):
+        for kind in SEG_KINDS:
+            cases.append(("seg_positions", tuple(
+                torch.from_numpy(a).to(dev)
+                for a in seg_case(n, kind, n, seg_tile))))
+    mask = torch.from_numpy(run_case(run_tile + 9, 0, "dense", 9)).to(dev)
+    adv, start = (torch.from_numpy(a).to(dev)
+                  for a in seg_case(seg_tile + 9, "random", 9))
+    cases += [("run_offsets", (mask[1:],)),
+              ("run_offsets", (torch.zeros((2, 0), dtype=torch.bool,
+                                           device=dev),)),
+              ("seg_positions", (adv[1:], start[1:]))]
+    for name, args in cases:
+        kern = getattr(TK, name)
+        plain = getattr(TK, name + "_plain")
+        before = TK.launches[name]
+        got = kern(*args)
+        torch.cuda.synchronize()
+        check(TK.launches[name] == before + (args[0].numel() > 0),
+              "%s took other than one launch" % name)
+        want = plain(*args)
+        if name == "seg_positions":
+            got, want = (got,), (want,)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), "%s differs "
+              "from its plain version at shape %s"
+              % (name, tuple(args[0].shape)))
+    return len(cases)
 
 
-def scans_at(dev, shape: tuple, label: str, seed: int) -> dict:
-    """Both scans exact against their plain versions on inputs of `shape`
-    built as their callers build them, timed beside their bound and
-    torch's library scan (torch.cummax; torch.cummin of the flipped input,
-    the flip made before the timing); {name: result}."""
+def boundary_kernels_at(dev, name: str, shape: tuple, label: str,
+                        seed: int) -> dict:
+    """run_offsets on a "random" mask, or seg_positions on "random" inputs,
+    of `shape`, exact against its plain version, timed beside its bound
+    (no single PyTorch call computes either)."""
     import torch
 
     from repaq_tpu_torch.ops import kernels as TK
 
-    rows = shape[0] if len(shape) == 2 else 0
-    xs = torch.from_numpy(scan_case(shape[-1], rows, "run_starts",
-                                    seed)).to(dev)
-    xe = torch.from_numpy(scan_case(shape[-1], rows, "run_ends",
-                                    seed)).to(dev)
-    xe_flipped = xe.flip(-1)
-    return {
-        "cummax": held_and_timed(
-            "cummax", lambda: TK.cummax_i32(xs),
-            lambda: TK.cummax_i32_plain(xs), (xs,), label,
-            library=lambda: torch.cummax(xs, -1)),
-        "suffix_min": held_and_timed(
-            "suffix_min", lambda: TK.suffix_min_i32(xe),
-            lambda: TK.suffix_min_i32_plain(xe), (xe,), label,
-            library=lambda: torch.cummin(xe_flipped, -1)),
-    }
+    if name == "run_offsets":
+        rows = shape[0] if len(shape) == 2 else 0
+        args = (torch.from_numpy(run_case(shape[-1], rows, "random",
+                                          seed)).to(dev),)
+    else:
+        args = tuple(torch.from_numpy(a).to(dev)
+                     for a in seg_case(shape[0], "random", seed))
+    return held_and_timed(name, lambda: getattr(TK, name)(*args),
+                          lambda: getattr(TK, name + "_plain")(*args), args,
+                          label)
 
 
 def frontend_ragged_cases(dev) -> list:
@@ -701,17 +752,25 @@ def kernel_phase(dev) -> dict:
         % fsm_edge_cases(dev))
     log("kernel encode_frontend exact at n = %s (n %% 4 = 1, 2, 3, 'N' and "
         "the major qual in the tail)" % frontend_ragged_cases(dev))
-    # the scans at a whole chunk's bases (the ceiling) and the coordinates'
-    # two rows of a 12-Mbase SE chunk's 80,000 reads
-    for shape, label in (((n,), "%d elements, a whole chunk's bases" % n),
-                         ((2, 80_000), "(2, 80000) coordinate rows")):
-        for name, res in scans_at(dev, shape, label, sum(shape)).items():
-            r = results.setdefault(name, dict(res, by_shape={}))
-            r["by_shape"][label] = res
-    log("kernels cummax and suffix_min exact on %d edge cases each (n = 1, "
-        "tile - 1, tile, tile + 1, 3000 tiles + 5, 1-D and 2 rows; random, "
-        "run starts, run ends, rising, falling; an unaligned start; an empty "
-        "input, no launch), one launch each" % (scan_edge_cases(dev) // 2))
+    # the run-boundary kernels at a whole chunk's bases (the ceiling) and
+    # run_offsets at the coordinates' two rows of a 12-Mbase SE chunk's
+    # 80,000 reads
+    for name, shape, label in (
+            ("run_offsets", (n,), "%d elements, a whole chunk's bases" % n),
+            ("run_offsets", (2, 80_000), "(2, 80000) coordinate rows"),
+            ("seg_positions", (n,), "%d elements, a whole chunk's bases"
+             % n)):
+        res = boundary_kernels_at(dev, name, shape, label, sum(shape))
+        results.setdefault(name, dict(res, by_shape={}))["by_shape"][
+            label] = res
+    log("kernels run_offsets and seg_positions exact on %d edge cases (n = "
+        "1, tile - 1, tile, tile + 1, 3 tiles + 5, 3000 tiles + 5; "
+        "run_offsets 1-D and 2 rows: random, sparse and dense masks, all "
+        "set, none, runs of 31-33 at step, warp and tile edges, a run of 3 "
+        "tiles; seg_positions: starts random, first only, everywhere, "
+        "nowhere, at warp and tile edges; unaligned starts; an empty input, "
+        "no launch), one launch each; tiles %s" % (boundary_edge_cases(dev),
+                                                   TK.run_tiles()))
     return results
 
 
@@ -1092,21 +1151,21 @@ def rans_sweep_phase(dev, res: dict, real=None) -> None:
                                                        "")]["chain_floor_ms"]
 
 
-def scans_at_main_path_sizes(kres: dict, cres: dict) -> None:
-    """Both scans at the shapes the SE and PE corpora handed them (phases
-    4 and 5), added to their by-shape readings; the SE quality stream's
-    reading becomes each scan's headline."""
+def boundary_kernels_at_main_path_sizes(kres: dict, cres: dict) -> None:
+    """run_offsets and seg_positions at the shapes the SE and PE corpora
+    handed them (phases 4 and 5), added to their by-shape readings; the SE
+    quality stream's reading becomes run_offsets' headline, the SE decode
+    tokens' seg_positions'."""
     import torch
 
     for tag in ("se", "pe"):
-        for what, shape in cres[tag]["scan_shapes"].items():
+        for (name, what), shape in cres[tag]["boundary_shapes"].items():
             label = "%s %s %s" % (tag.upper(), what, shape)
-            for name, res in scans_at(torch.device("cuda:0"), shape, label,
-                                      sum(shape)).items():
-                r = kres[name]
-                r["by_shape"][label] = res
-                if tag == "se" and what == "quality stream":
-                    r.update(res)
+            res = boundary_kernels_at(torch.device("cuda:0"), name, shape,
+                                      label, sum(shape))
+            kres[name]["by_shape"][label] = res
+            if tag == "se" and what in ("quality stream", "decode tokens"):
+                kres[name].update(res)
 
 
 # ---------------------------------------------------------------------------
@@ -1290,40 +1349,60 @@ def qual_buffer_sizes(header, chunks) -> list:
     return [DeviceEngine.decode_caps(header, c)[0] for c in chunks]
 
 
+BOUNDARY_KERNELS = ("run_offsets", "seg_positions")
+
+
 @contextlib.contextmanager
-def recorded_scan_shapes(shapes: list):
-    """Within the block, the scan wrappers append (name, shape) of each
-    call to `shapes` and then run as they are."""
+def recorded_boundary_shapes(shapes: list):
+    """Within the block, the run_offsets and seg_positions wrappers append
+    (name, shape) of each call to `shapes` and then run as they are."""
     from repaq_tpu_torch.ops import kernels as TK
 
-    saved = {"cummax": TK.cummax_i32, "suffix_min": TK.suffix_min_i32}
+    saved = {name: getattr(TK, name) for name in BOUNDARY_KERNELS}
 
     def recording(name):
-        def scan(x):
+        def kernel(x, *rest):
             shapes.append((name, tuple(x.shape)))
-            return saved[name](x)
-        return scan
+            return saved[name](x, *rest)
+        return kernel
 
-    TK.cummax_i32 = recording("cummax")
-    TK.suffix_min_i32 = recording("suffix_min")
+    for name in BOUNDARY_KERNELS:
+        setattr(TK, name, recording(name))
     try:
         yield
     finally:
-        TK.cummax_i32 = saved["cummax"]
-        TK.suffix_min_i32 = saved["suffix_min"]
+        for name, fn in saved.items():
+            setattr(TK, name, fn)
 
 
-def main_path_scan_shapes(shapes: list, cut: int) -> dict:
-    """The scan shapes of one round trip whose first `cut` calls were the
-    compress's: the quality stream's (the largest 1-D encode scan), the
-    coordinate rows' (the largest 2-D one) and the decode's token count
-    (the largest 1-D decode scan)."""
+def main_path_boundary_shapes(shapes: list, cut: int) -> dict:
+    """The run-boundary kernels' shapes in one round trip whose first `cut`
+    calls were the compress's, {(kernel, what): shape}: run_offsets' quality
+    stream (its largest 1-D call) and coordinate rows (its 2-D one), and
+    seg_positions' decode tokens (its largest call)."""
     enc, dec = shapes[:cut], shapes[cut:]
-    pick = {"quality stream": [s for _n, s in enc if len(s) == 1],
-            "coordinate rows": [s for _n, s in enc if len(s) == 2],
-            "decode tokens": [s for _n, s in dec if len(s) == 1]}
+    pick = {("run_offsets", "quality stream"):
+            [s for _n, s in enc if len(s) == 1],
+            ("run_offsets", "coordinate rows"):
+            [s for _n, s in enc if len(s) == 2],
+            ("seg_positions", "decode tokens"):
+            [s for n, s in dec if n == "seg_positions"]}
     return {k: max(v, key=lambda s: (s[-1], s)) for k, v in pick.items()
             if v}
+
+
+# launches of the run-boundary kernels a chunk, by direction: the smoke
+# corpora's chunks all code N positions, qualities and coordinates
+BOUNDARY_PER_CHUNK = {"compress": {"run_offsets": 3, "seg_positions": 0},
+                      "decompress": {"run_offsets": 0, "seg_positions": 1}}
+
+
+def check_boundary_launches(where: str, what: str, launches: dict,
+                            chunks: int) -> None:
+    for name, per in BOUNDARY_PER_CHUNK[what].items():
+        check(launches.get(name, 0) == per * chunks, "%s %s: %s launched %d "
+              "times for %d chunks, %d a chunk expected"
+              % (where, what, name, launches.get(name, 0), chunks, per))
 
 
 def corpus_phase(device: str, pe: bool, reads: int = 640_000,
@@ -1371,7 +1450,7 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
 
     seen = {"shapes": []}
     TK.reset_launches()
-    with recorded_scan_shapes(seen["shapes"]):
+    with recorded_boundary_shapes(seen["shapes"]):
         # the first run in this process: torch's lazy setup
         cold = roundtrip(seen)
     launches = dict(TK.launches)
@@ -1413,22 +1492,18 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
                   "path" % (name, tag))
     enc, cut = seen["compress"]
     dec = {k: launches[k] - enc[k] for k in launches}
-    for what, counts, names in (("compress", enc, ("cummax", "suffix_min")),
-                                ("decompress", dec, ("cummax",))):
-        for name in names:
-            check(counts[name] >= len(chunks), "%s %s: %s launched %d times "
-                  "for %d chunks" % (tag, what, name, counts[name],
-                                     len(chunks)))
-    log("corpus %s: scan launches, compress %s, decompress %s, for %d chunks"
-        % (tag, {k: enc[k] for k in ("cummax", "suffix_min")},
-           {k: dec[k] for k in ("cummax", "suffix_min")}, len(chunks)))
+    for what, counts in (("compress", enc), ("decompress", dec)):
+        check_boundary_launches(tag, what, counts, len(chunks))
+    log("corpus %s: run-boundary launches, compress %s, decompress %s, for "
+        "%d chunks" % (tag, {k: enc[k] for k in BOUNDARY_KERNELS},
+                       {k: dec[k] for k in BOUNDARY_KERNELS}, len(chunks)))
     res = {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
            "host_enc_s": host_s, "chunks": len(chunks), "fqs": fqs,
            "rfq": out, "chunk_kb": chunk_kb,
            "qual_bufs": qual_buffer_sizes(header, chunks),
-           "scan_shapes": main_path_scan_shapes(seen["shapes"], cut)}
-    log("corpus %s: scan shapes on the main path: %s"
-        % (tag, res["scan_shapes"]))
+           "boundary_shapes": main_path_boundary_shapes(seen["shapes"], cut)}
+    log("corpus %s: run-boundary kernels' shapes on the main path: %s"
+        % (tag, res["boundary_shapes"]))
     log("corpus %s: quality buffers of the token FSM on decode: %s bytes"
         % (tag, res["qual_bufs"]))
     if pe:
@@ -1496,6 +1571,8 @@ def mesh_phase(tag: str, corpus: dict) -> dict:
             enc = M.compress_se_mesh(fqs[0], out, chunk_size=12_000_000,
                                      devices=devices, workers=workers)
         enc_s = time.perf_counter() - t0
+        if i == 0:
+            enc_launches = dict(TK.launches)
         t0 = time.perf_counter()
         dec = M.decompress_se_mesh(out, backs[0], devices=devices,
                                    out2=backs[1] if pe else "",
@@ -1503,6 +1580,12 @@ def mesh_phase(tag: str, corpus: dict) -> dict:
         dec_s = time.perf_counter() - t0
         if i == 0:
             res["launches"] = dict(TK.launches)
+            check_boundary_launches("mesh " + tag, "compress", enc_launches,
+                                    corpus["chunks"])
+            check_boundary_launches(
+                "mesh " + tag, "decompress",
+                {k: v - enc_launches[k] for k, v in TK.launches.items()},
+                corpus["chunks"])
         with open(out, "rb") as f:
             check(f.read() == serial, "%s %s: mesh bytes differ from the "
                   "serial run's" % (tag, what))
@@ -1760,9 +1843,9 @@ print(json.dumps({"wall_s": time.perf_counter() - t0, "timings": timings,
 RANK_TIMEOUT_S = 300
 
 # the kernels each direction of a shard must launch in every rank
-SHARD_KERNELS = {"compress": ("encode_frontend", "cummax", "suffix_min"),
+SHARD_KERNELS = {"compress": ("encode_frontend", "run_offsets"),
                  "decompress": ("unpack_bases", "token_start_mask",
-                                "cummax")}
+                                "seg_positions")}
 
 
 def rank_env(rank: int, per_card: bool) -> dict:
@@ -1873,6 +1956,9 @@ def shard_phase(tag: str, corpus: dict, card: str) -> dict:
                     check(hi == lo or rank["launches"][name] > 0,
                           "%s --num_shards %d %s: kernel %s never launched "
                           "in rank %d" % (tag, n, what, name, r))
+                check_boundary_launches(
+                    "%s --num_shards %d rank %d" % (tag, n, r), what,
+                    rank["launches"], hi - lo)
                 for name, count in rank["launches"].items():
                     launches[name] = launches.get(name, 0) + count
             walls[what] = (wall, [rank["wall_s"] for rank in ranks])
@@ -1969,7 +2055,7 @@ def main() -> int:
         kres["token_start_mask"]["by_shape"][
             "median SE quality buffer, %d token bytes, uint8 lengths"
             % median] = fsm_at_size(torch.device("cuda:0"), median)
-        scans_at_main_path_sizes(kres, cres)
+        boundary_kernels_at_main_path_sizes(kres, cres)
         for tag in ("se", "pe"):
             cres["rfqz_" + tag] = rfqz_phase(tag, cres[tag]["fqs"],
                                              cres[tag]["bytes"])

@@ -113,12 +113,18 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_token_fsm_status_words.restype = ll
     lib.repaq_token_fsm_tile.argtypes = []
     lib.repaq_token_fsm_tile.restype = ll
-    lib.repaq_scan_i32.argtypes = [vp, vp, ll, ll, ci, vp, vp]
-    lib.repaq_scan_i32.restype = ci
-    lib.repaq_scan_status_words.argtypes = [ll, ll]
-    lib.repaq_scan_status_words.restype = ll
-    lib.repaq_scan_tile.argtypes = []
-    lib.repaq_scan_tile.restype = ll
+    lib.repaq_run_offsets.argtypes = [vp, vp, vp, ll, ll, vp, vp]
+    lib.repaq_run_offsets.restype = ci
+    lib.repaq_run_offsets_status_words.argtypes = [ll, ll]
+    lib.repaq_run_offsets_status_words.restype = ll
+    lib.repaq_run_offsets_tile.argtypes = []
+    lib.repaq_run_offsets_tile.restype = ll
+    lib.repaq_seg_positions.argtypes = [vp, vp, vp, ll, vp, vp]
+    lib.repaq_seg_positions.restype = ci
+    lib.repaq_seg_positions_status_words.argtypes = [ll]
+    lib.repaq_seg_positions_status_words.restype = ll
+    lib.repaq_seg_positions_tile.argtypes = []
+    lib.repaq_seg_positions_tile.restype = ll
     lib.repaq_rans_encode.argtypes = [vp, ll, ci, vp, vp, ci, ll, vp, vp, vp,
                                       vp]
     lib.repaq_rans_encode.restype = ci

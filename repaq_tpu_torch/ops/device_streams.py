@@ -18,8 +18,11 @@ it and with repaq_tpu.codec.kernels_np. What differs from JAX:
 - The token FSM is ``kernels.token_start_mask``: the CUDA kernel for CUDA
   tensors at every size, its plain version for CPU tensors.
 - The run-boundary scans (JAX's ``lax.cummax`` and flipped ``lax.cummin``)
-  are ``kernels.cummax_i32`` and ``kernels.suffix_min_i32``, the same
-  dispatch, over the last dimension (the coordinates' two rows at once).
+  and the arithmetic around them are two kernels, the same dispatch:
+  ``kernels.run_offsets`` on encode (each element's offset in its run and
+  the elements left of it, up to 32; the coordinates' two rows at once)
+  and ``kernels.seg_positions`` on decode (the segmented prefix sum of the
+  position advances).
 """
 
 from __future__ import annotations
@@ -53,14 +56,6 @@ def _cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 def _exclusive_cumsum(x: torch.Tensor):
     c = _cumsum(x)
     return c, (c[-1] if x.shape[0] else _scalar(0, x.device))
-
-
-def _cummax(x: torch.Tensor) -> torch.Tensor:
-    return kernels.cummax_i32(x)
-
-
-def _suffix_min(x: torch.Tensor) -> torch.Tensor:
-    return kernels.suffix_min_i32(x)
 
 
 def _shift1(x: torch.Tensor, first) -> torch.Tensor:
@@ -230,17 +225,12 @@ def _classify_stream_positions(g_pos: torch.Tensor, seg_start: torch.Tensor,
     grouped match positions, increasing within each segment; seg_start
     marks each segment's first element (`last` restarts at -1 there).
     Returns (delta, emits_run, covered, g1, g2, g4)."""
-    m = g_pos.shape[0]
-    i = _arange(m, g_pos.device)
     delta = torch.where(seg_start, g_pos + 1, g_pos - _shift1(g_pos, -1))
     adj = is_stream & (delta == 1) & (g_pos > 1)
-    run_start = adj & ~_shift1(adj, False)
-    rs_idx = _cummax(torch.where(run_start, i, -1))
-    off_in_run = torch.where(adj, i - rs_idx, 0)
-    end_idx = _suffix_min(torch.where(~adj, i, m))
-    run_len = torch.where(adj, end_idx - rs_idx, 0)
+    # JAX's covered, min(32, run_len - off_in_run), is the elements left of
+    # the run from each one on, up to 32: run_offsets' to_end
+    off_in_run, covered = kernels.run_offsets(adj)
     emits_run = adj & (off_in_run % 32 == 0)
-    covered = torch.clamp(run_len - off_in_run, max=32)
     gap = is_stream & ~adj
     g1 = gap & (delta <= 128)
     g2 = gap & (delta > 128) & (delta <= (1 << 14))
@@ -457,7 +447,6 @@ def coords_encode2_device(values2: torch.Tensor, out_cap: int,
     R, n = values2.shape
     dev = values2.device
     v = values2.to(_I32)
-    i = _arange(n, dev)[None, :]
     prev = torch.cat([torch.full((R, 1), 1000, dtype=_I32, device=dev),
                       v[:, :-1]], dim=1)
     diff = v - prev
@@ -466,26 +455,21 @@ def coords_encode2_device(values2: torch.Tensor, out_cap: int,
     is_abs2 = ~is_rep & ~is_delta & (v <= 32767)
     is_abs3 = ~is_rep & ~is_delta & (v > 32767)
     if n_valid is not None:
-        valid = i < n_valid
+        valid = _arange(n, dev)[None, :] < n_valid
         is_rep = is_rep & valid
         is_delta = is_delta & valid
         is_abs2 = is_abs2 & valid
         is_abs3 = is_abs3 & valid
 
-    rep_prev = torch.cat([torch.zeros((R, 1), dtype=torch.bool, device=dev),
-                          is_rep[:, :-1]], dim=1)
-    rep_start = is_rep & ~rep_prev
-    rs_idx = _cummax(torch.where(rep_start, i, -1))
-    off_in_rep = torch.where(is_rep, i - rs_idx, 0)
-    end_idx = _suffix_min(torch.where(~is_rep, i, n))
-    rep_len = torch.where(is_rep, end_idx - rs_idx, 0)
-
+    off_in_rep, to_end = kernels.run_offsets(is_rep)
     kk = off_in_rep + 1
     full32 = is_rep & (kk % 32 == 0)
-    is_last = is_rep & (kk == rep_len) & (rep_len % 32 != 0)
+    # JAX's kk == rep_len: the repeat's last element, whose kk is rep_len;
+    # rem (JAX: rep_len % 32) is read only there
+    is_last = is_rep & (to_end == 1) & (kk % 32 != 0)
     counts = (is_delta.to(_I32) + 2 * is_abs2.to(_I32)
               + 3 * is_abs3.to(_I32) + full32.to(_I32) + is_last.to(_I32))
-    rem = rep_len % 32
+    rem = kk % 32
     first_b = torch.where(
         full32, 0xC0 | 31,
         torch.where(
@@ -606,10 +590,7 @@ def decode_positions_device(buf: torch.Tensor, valid_len, max_positions: int,
         seg_mark = torch.zeros(max_positions + 1, dtype=torch.bool,
                                device=dev)
         seg_mark[seg_slot.long()] = seg_first
-        seg_mark = seg_mark[:max_positions]
-        raw = _cumsum(deltas)
-        seg_base = _cummax(torch.where(seg_mark, raw - deltas, 0))
-        positions = raw - seg_base - 1
+        positions = kernels.seg_positions(deltas, seg_mark[:max_positions])
     else:
         positions = _cumsum(deltas) - 1
     k = _arange(max_positions, dev)
@@ -703,9 +684,7 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
         0, max(nbins - 1, 0)).to(_I32)
     seg_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                            tok_bin[1:] != tok_bin[:-1]])
-    raw = _cumsum(adv)
-    seg_base = _cummax(torch.where(seg_start, raw - adv, 0))
-    pos_end = raw - seg_base - 1
+    pos_end = kernels.seg_positions(adv, seg_start)
     pos_first = pos_end - npos + 1
     # bin chars with the major appended: out-of-range bin ids gather it
     bin_chars = torch.cat([bins.to(torch.uint8),

@@ -22,7 +22,8 @@ _G, _A, _T, _C, _N = 71, 65, 84, 67, 78
 
 launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
             "pack_bases": 0, "unpack_bases": 0, "token_start_mask": 0,
-            "cummax": 0, "suffix_min": 0, "rans_encode": 0, "rans_layout": 0, "rans_decode": 0}
+            "run_offsets": 0, "seg_positions": 0, "rans_encode": 0,
+            "rans_layout": 0, "rans_decode": 0}
 _launch_lock = threading.Lock()
 
 
@@ -335,68 +336,121 @@ def token_start_mask(lens: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# run-boundary scans (JAX: XLA's lax.cummax and flipped lax.cummin, in
-# repaq_tpu/ops/device_streams.py `_cummax` / `_suffix_min`)
+# run boundaries (JAX: XLA's lax.cummax and flipped lax.cummin with the
+# arithmetic around them, repaq_tpu/ops/device_streams.py:33, :37,
+# :275-278, :726-730 on encode and :1001, :1138 on decode)
 # ---------------------------------------------------------------------------
 
 
-def scan_tile() -> int:
-    """Elements per tile of the scan kernel, as the built library reports
-    it; the card tests and chip_smoke.py place edge cases by it."""
-    return int(_build.library().repaq_scan_tile())
-
-
-def cummax_i32_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of ``cummax_i32``."""
-    return torch.cummax(x, -1).values
-
-
-def suffix_min_i32_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of ``suffix_min_i32``."""
-    return torch.cummin(x.flip(-1), -1).values.flip(-1)
-
-
-def _check_scan(x: torch.Tensor) -> None:
-    if x.dtype != torch.int32 or x.dim() not in (1, 2):
-        raise ValueError("the scans take a 1-D or 2-D int32 tensor, got %s "
-                         "%s" % (x.dtype, tuple(x.shape)))
-
-
-def _scan(name: str, x: torch.Tensor, suffix_min: bool) -> torch.Tensor:
-    """Launch the scan kernel over the last dimension of x, counted under
-    `name`."""
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    if x.numel() == 0:
-        return out
+def run_tiles() -> tuple:
+    """Elements per tile of the run_offsets and seg_positions kernels, as
+    the built library reports them; the card tests and chip_smoke.py place
+    edge cases by them."""
     lib = _build.library()
-    dev = x.device
-    x = _aligned(x)
-    rows = 1 if x.dim() == 1 else x.shape[0]
-    n = x.shape[-1]
-    # the tiles' status words and the tile counter start at zero
-    status = torch.zeros(lib.repaq_scan_status_words(rows, n),
-                         dtype=torch.int64, device=dev)
+    return (int(lib.repaq_run_offsets_tile()),
+            int(lib.repaq_seg_positions_tile()))
+
+
+# one buffer of status words for the run-boundary kernels per (device,
+# CUDA stream): zeroed once, and left zeroed by every launch, whose last
+# tile clears what the launch used; launches on one stream run in order
+_run_status: dict = {}
+
+
+def _status_words(dev: torch.device, stream: int, words: int) -> torch.Tensor:
+    """Zeroed int64 status words, at least `words`, for a launch on
+    `stream`; a larger need replaces the buffer with a larger one."""
+    with _launch_lock:
+        buf = _run_status.get((dev, stream))
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros(max(words, 1 << 12), dtype=torch.int64,
+                              device=dev)
+            _run_status[(dev, stream)] = buf
+        return buf
+
+
+def run_offsets_plain(mask: torch.Tensor):
+    """Plain torch version of ``run_offsets``: the JAX expression."""
+    n = mask.shape[-1]
+    i = torch.arange(n, dtype=torch.int32, device=mask.device).expand(
+        mask.shape)
+    prev = torch.cat([torch.zeros_like(mask[..., :1]), mask[..., :-1]], -1)
+    rs_idx = torch.cummax(torch.where(mask & ~prev, i, -1), -1).values
+    end_idx = torch.cummin(torch.where(mask, n, i).flip(-1), -1).values.flip(-1)
+    return (torch.where(mask, i - rs_idx, 0),
+            torch.where(mask, (end_idx - i).clamp(max=32), 0))
+
+
+def run_offsets(mask: torch.Tensor):
+    """Run offsets of a (n,) or (rows, n) bool mask along its last
+    dimension: (off, to_end), int32 of the mask's shape, with
+
+        off[i]    = i - (the last j <= i with mask[j] & ~mask[j - 1]),
+        to_end[i] = min(32, (the first j >= i with ~mask[j], or n) - i)
+
+    where mask[i], else 0 (mask[-1] counts as False at each row's start),
+    exactly as ``run_offsets_plain``. One launch for every row."""
+    if mask.dtype != torch.bool or mask.dim() not in (1, 2):
+        raise ValueError("run_offsets takes a 1-D or 2-D bool tensor, got "
+                         "%s %s" % (mask.dtype, tuple(mask.shape)))
+    if not _on_cuda(mask):
+        return run_offsets_plain(mask)
+    dev = mask.device
+    off = torch.empty(mask.shape, dtype=torch.int32, device=dev)
+    to_end = torch.empty(mask.shape, dtype=torch.int32, device=dev)
+    if mask.numel() == 0:
+        return off, to_end
+    lib = _build.library()
+    mask = _aligned(mask)
+    rows = 1 if mask.dim() == 1 else mask.shape[0]
+    n = mask.shape[-1]
     with torch.cuda.device(dev):
-        _launch(name, lib.repaq_scan_i32, x.data_ptr(), out.data_ptr(), rows,
-                n, int(suffix_min), status.data_ptr(), _stream(dev))
-    return out
+        stream = _stream(dev)
+        status = _status_words(dev, stream,
+                               lib.repaq_run_offsets_status_words(rows, n))
+        _launch("run_offsets", lib.repaq_run_offsets, mask.data_ptr(),
+                off.data_ptr(), to_end.data_ptr(), rows, n,
+                status.data_ptr(), stream)
+    return off, to_end
 
 
-def cummax_i32(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive running maximum of a (n,) or (rows, n) int32 tensor along
-    its last dimension, exactly as ``cummax_i32_plain``."""
-    _check_scan(x)
-    if not _on_cuda(x):
-        return cummax_i32_plain(x)
-    return _scan("cummax", x, False)
+def seg_positions_plain(adv: torch.Tensor,
+                        seg_start: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of ``seg_positions``: the JAX expression."""
+    raw = torch.cumsum(adv, 0, dtype=torch.int32)
+    base = torch.cummax(torch.where(seg_start, raw - adv, 0), 0).values
+    return raw - base.clamp(min=0) - 1
 
 
-def suffix_min_i32(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive running minimum from the end of a (n,) or (rows, n) int32
-    tensor along its last dimension (out[..., i] = x[..., i:].min()),
-    exactly as ``suffix_min_i32_plain``; the kernel reads backwards and
-    copies nothing."""
-    _check_scan(x)
-    if not _on_cuda(x):
-        return suffix_min_i32_plain(x)
-    return _scan("suffix_min", x, True)
+def seg_positions(adv: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
+    """Positions of a segmented stream: raw - max(0, base) - 1 with raw the
+    inclusive int32 prefix sum of the (m,) int32 adv and base, at each
+    element, the largest raw[j] - adv[j] over the j <= i where the (m,)
+    bool seg_start is set; exactly as ``seg_positions_plain`` while no
+    prefix sum of adv leaves int32 (the decode's stay below 2^30: length <
+    2^24 positions a bin and fewer than 64 bins). One launch."""
+    if adv.dtype != torch.int32 or adv.dim() != 1:
+        raise ValueError("seg_positions takes a 1-D int32 adv, got %s %s"
+                         % (adv.dtype, tuple(adv.shape)))
+    if seg_start.dtype != torch.bool or seg_start.shape != adv.shape:
+        raise ValueError("seg_start must be a bool tensor of adv's shape, "
+                         "got %s %s" % (seg_start.dtype,
+                                         tuple(seg_start.shape)))
+    if not _on_cuda(adv, seg_start):
+        return seg_positions_plain(adv, seg_start)
+    dev = adv.device
+    n = adv.shape[0]
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return pos
+    lib = _build.library()
+    adv = _aligned(adv)
+    seg_start = _aligned(seg_start)
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        status = _status_words(dev, stream,
+                               lib.repaq_seg_positions_status_words(n))
+        _launch("seg_positions", lib.repaq_seg_positions, adv.data_ptr(),
+                seg_start.data_ptr(), pos.data_ptr(), n, status.data_ptr(),
+                stream)
+    return pos

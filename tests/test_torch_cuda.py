@@ -22,8 +22,9 @@ from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
 from chip_smoke import (FSM_KINDS, LAYOUT_CASES, RANS_CASES, RANS_SHAPES,
-                        SCAN_KINDS, fsm_case, layout_case, rans_case,
-                        rans_case_inputs, rans_shape_data, scan_case)
+                        RUN_KINDS, SEG_KINDS, fsm_case, layout_case,
+                        rans_case, rans_case_inputs, rans_shape_data,
+                        run_case, seg_case)
 from test_device_engine import _mk_block
 
 
@@ -148,46 +149,94 @@ def test_token_fsm_kernel_matches_plain(cuda, tiles, extra, kind, dtype):
     assert torch.equal(got, TK.token_start_mask_plain(lens, force))
 
 
+# n at the tiles' edges: 1, tile - 1, tile, tile + 1, 3 tiles + 5 (a
+# run of the "long" kind spans three tiles), past one look-back window (33
+# tiles) and 700 tiles + 3; every n but the tile multiples has n % 16 != 0
+TILE_EDGES = [(0, 1), (1, -1), (1, 0), (1, 1), (3, 5), (33, 0), (700, 3)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [0, 2])
-@pytest.mark.parametrize("kind", SCAN_KINDS)
-@pytest.mark.parametrize("tiles,extra", [(0, 1), (1, -1), (1, 0), (1, 1),
-                                         (33, 0), (700, 3)])
-def test_scan_kernels_match_plain(cuda, tiles, extra, kind, rows):
-    """One launch per call, both scans exact against their plain versions
-    at n = 1, tile - 1, tile, tile + 1, past one look-back window (33
-    tiles) and at 700 tiles + 3, 1-D and as 2 rows (the second row starts
-    unaligned at an odd n), on random, run-start, run-end and monotone
-    inputs."""
-    n = tiles * TK.scan_tile() + extra
-    x = torch.from_numpy(scan_case(n, rows, kind, n + rows)).to(cuda)
-    for name, kern, plain in (
-            ("cummax", TK.cummax_i32, TK.cummax_i32_plain),
-            ("suffix_min", TK.suffix_min_i32, TK.suffix_min_i32_plain)):
-        before = TK.launches[name]
-        got = kern(x)
-        torch.cuda.synchronize()
-        assert TK.launches[name] == before + 1
-        assert torch.equal(got, plain(x))
+@pytest.mark.parametrize("kind", RUN_KINDS)
+@pytest.mark.parametrize("tiles,extra", TILE_EDGES)
+def test_run_offsets_tile_edges(cuda, tiles, extra, kind, rows):
+    """One launch per call, exact against the plain version: runs of
+    31/32/33 ending at, across and one past the steps', warps' and tiles'
+    ends, a run over three tiles, all set and none, 1-D and as 2 rows (the
+    second row starts unaligned where n % 16 != 0)."""
+    tile = TK.run_tiles()[0]
+    n = tiles * tile + extra
+    x = torch.from_numpy(run_case(n, rows, kind, n + rows, tile)).to(cuda)
+    before = TK.launches["run_offsets"]
+    got = TK.run_offsets(x)
+    torch.cuda.synchronize()
+    assert TK.launches["run_offsets"] == before + 1
+    for g, w in zip(got, TK.run_offsets_plain(x)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
-def test_scan_kernels_on_views_and_empty_inputs(cuda):
-    """An input whose start is not 16-byte aligned and a strided one scan
-    as their values; an empty one launches nothing."""
-    x = torch.from_numpy(scan_case(3 * TK.scan_tile() + 9, 2, "random",
-                                   5)).to(cuda)
+@pytest.mark.parametrize("kind", SEG_KINDS)
+@pytest.mark.parametrize("tiles,extra", TILE_EDGES)
+def test_seg_positions_tile_edges(cuda, tiles, extra, kind):
+    """One launch per call, exact against the plain version: segment starts
+    at none but the first, at every element, at none, around every warp's
+    and tile's edge, and at random, with stretches of adv == 0."""
+    tile = TK.run_tiles()[1]
+    n = tiles * tile + extra
+    adv, start = (torch.from_numpy(a).to(cuda)
+                  for a in seg_case(n, kind, n, tile))
+    before = TK.launches["seg_positions"]
+    got = TK.seg_positions(adv, start)
+    torch.cuda.synchronize()
+    assert TK.launches["seg_positions"] == before + 1
+    assert torch.equal(got, TK.seg_positions_plain(adv, start))
+
+
+@pytest.mark.cuda
+def test_run_kernels_on_views_and_empty_inputs(cuda):
+    """Inputs whose start is not 16-byte aligned and strided ones give what
+    their values give; empty ones launch nothing."""
+    run_tile, seg_tile = TK.run_tiles()
+    x = torch.from_numpy(run_case(3 * run_tile + 9, 2, "dense", 5)).to(cuda)
     for v in (x[0, 1:], x[:, ::3], x[:, 1:]):
-        assert torch.equal(TK.cummax_i32(v), TK.cummax_i32_plain(v))
-        assert torch.equal(TK.suffix_min_i32(v), TK.suffix_min_i32_plain(v))
+        for g, w in zip(TK.run_offsets(v), TK.run_offsets_plain(v)):
+            assert torch.equal(g, w)
+    adv, start = (torch.from_numpy(a).to(cuda)
+                  for a in seg_case(3 * seg_tile + 9, "random", 5))
+    for sl in (slice(1, None), slice(None, None, 3)):
+        assert torch.equal(TK.seg_positions(adv[sl], start[sl]),
+                           TK.seg_positions_plain(adv[sl], start[sl]))
     before = dict(TK.launches)
     for shape in ((0,), (2, 0)):
-        e = torch.zeros(shape, dtype=torch.int32, device=cuda)
-        assert TK.cummax_i32(e).shape == shape
-        assert TK.suffix_min_i32(e).shape == shape
+        off, to_end = TK.run_offsets(torch.zeros(shape, dtype=torch.bool,
+                                                 device=cuda))
+        assert off.shape == to_end.shape == shape
+    assert TK.seg_positions(adv[:0], start[:0]).shape == (0,)
     assert TK.launches == before
     with pytest.raises(ValueError):
-        TK.cummax_i32(x.long())
+        TK.run_offsets(x.to(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_run_kernels_leave_their_status_words_zeroed(cuda):
+    """Calls in a row on one stream share its status buffer with no fill
+    between them: each is exact, a larger call takes a larger buffer, and
+    every buffer is all zero once the launches have ended."""
+    run_tile, seg_tile = TK.run_tiles()
+    for tiles in (1, 700, 3, 1400, 2):
+        x = torch.from_numpy(run_case(tiles * run_tile + 7, 2, "dense",
+                                      tiles)).to(cuda)
+        for g, w in zip(TK.run_offsets(x), TK.run_offsets_plain(x)):
+            assert torch.equal(g, w)
+        adv, start = (torch.from_numpy(a).to(cuda) for a in seg_case(
+            tiles * seg_tile + 7, "random", tiles))
+        assert torch.equal(TK.seg_positions(adv, start),
+                           TK.seg_positions_plain(adv, start))
+    torch.cuda.synchronize()
+    assert TK._run_status
+    for buf in TK._run_status.values():
+        assert not bool(buf.any())
 
 
 @pytest.mark.cuda
@@ -209,7 +258,8 @@ def test_engine_on_cuda_matches_host(cuda):
     assert np.array_equal(back.seq_flat, block.seq_flat)
     assert np.array_equal(back.qual_flat, block.qual_flat)
     assert eng.stats["device_chunks"] == eng.stats["device_decodes"] == 1
-    for name in ("encode_frontend", "unpack_bases", "token_start_mask"):
+    for name in ("encode_frontend", "unpack_bases", "token_start_mask",
+                 "run_offsets", "seg_positions"):
         assert TK.launches[name] > 0, TK.launches
 
 
@@ -229,7 +279,8 @@ def test_pe_engine_on_cuda_matches_host(cuda):
     assert np.array_equal(back.seq_flat, block.seq_flat)
     assert np.array_equal(back.qual_flat, block.qual_flat)
     assert eng.stats["device_chunks"] == eng.stats["device_decodes"] == 1
-    for name in ("encode_frontend", "unpack_bases", "token_start_mask"):
+    for name in ("encode_frontend", "unpack_bases", "token_start_mask",
+                 "run_offsets", "seg_positions"):
         assert TK.launches[name] > 0, TK.launches
     assert TK.launches["encode_frontend_bytes"] == 0  # the meta route
 

@@ -1,36 +1,54 @@
 #!/usr/bin/env python3
-"""Where the run-boundary scan kernel's time goes, on one NVIDIA GPU.
+"""Where the run-boundary kernels' time goes, on one NVIDIA GPU, beside the
+composition they replaced.
 
-    python3 tools/profile_scan.py
+    python3 tools/profile_scan.py [--parent OLD_scan.cu]
 
 Builds repaq_tpu_torch/csrc/scan.cu several ways with the package's nvcc
 flags (one nvcc each, in parallel, into a temporary directory):
-  as built                  the kernel the package builds, 256 threads of
-                            4 vectors (4,096 elements) a tile;
-  t128 v4, t256 v8, t512 v4, t512 v8
-                            -DREPAQ_SCAN_THREADS / -DREPAQ_SCAN_VECS: other
-                            tile shapes (2,048 to 16,384 elements);
+  as built                  the kernels the package builds: run_offsets
+                            with 2 steps of 16 mask bytes a lane (8,192
+                            elements a tile), seg_positions with 8 steps of
+                            4 elements (8,192 a tile);
+  run v1, run v4, seg v4, seg v16
+                            -DREPAQ_RUN_VECS / -DREPAQ_SEG_VECS: other tiles
+                            (4,096 to 16,384 elements);
   no look-back              -DREPAQ_SCAN_NO_LOOKBACK: every tile starts
-                            from the identity (output wrong on purpose).
-Every build but the last is held exact against torch's scans. Each is
-timed, both directions (running max, suffix min), at the main path's
-sizes (the SE and PE quality streams' 2,097,152 elements, the SE decode's
-2,359,296 tokens, a whole 11,829,248-base chunk, the SE coordinates'
-(2, 98304) rows) three ways:
-  one launch         the zeroing of the status words and the kernel, a
-                     CUDA-event median of 15 runs with the L2 flushed
-                     (chip_smoke.cuda_ms), as chip_smoke.py times it;
-  back to back       48 of those in a row over 8 input sets
-                     (chip_smoke.back_to_back_ms): a launch's time without
-                     the fixed cost of one event-timed launch;
-  kernel alone       48 kernels in a row over 8 input sets on status words
-                     zeroed before the timing: the zeroing taken out too.
-The builds are timed in turns (A B .. B A). The zeroing alone is printed
-too. The last line of output is one JSON object.
+                            from the identity (output wrong on purpose);
+  parent                    with --parent, an earlier scan.cu whose entry is
+                            repaq_scan_i32 (the running maximum and suffix
+                            minimum of an int32 row; the earlier design's
+                            source: git show
+                            162f10f:repaq_tpu_torch/csrc/scan.cu),
+                            run inside the torch code that the port ran
+                            around it for the same function: the shift,
+                            torch.where and arange that build the scans'
+                            inputs, both scans with their zero fills, and
+                            the arithmetic after them (run_offsets:
+                            off_in_run and covered as
+                            _classify_stream_positions computed them;
+                            seg_positions: cumsum, where, cummax, raw -
+                            base - 1 as qualcol_decode_device did).
+Every build but "no look-back" is held exact against the plain versions.
+Each is timed at the main path's shapes (run_offsets: the SE quality
+stream's 2,097,152 elements, a chunk's 11,829,248, the SE coordinates'
+(2, 98304) rows; seg_positions: the SE decode's 2,359,296 tokens) two ways:
+  one launch     the kernel on status words it leaves zeroed, as the
+                 package's wrapper launches it (the parent: its whole
+                 composition, zero fills included), a CUDA-event median of
+                 15 runs with the L2 flushed (chip_smoke.cuda_ms), as
+                 chip_smoke.py times a kernel;
+  back to back   48 of those in a row over 8 input sets
+                 (chip_smoke.back_to_back_ms): a call's time without the
+                 fixed cost of one event-timed launch.
+The builds are timed in turns (A B .. B A). A zero fill of status words
+alone, as the parent's wrapper made one before each scan, is printed too.
+The last line of output is one JSON object.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -40,31 +58,31 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "repaq_tpu_torch", "csrc", "scan.cu")
+PARENT = "parent"
 
-
-def _shape(t: int, v: int) -> list:
-    return ["-DREPAQ_SCAN_THREADS=%d" % t, "-DREPAQ_SCAN_VECS=%d" % v]
-
-
-VARIANTS = {"as built": [], "t128 v4": _shape(128, 4),
-            "t256 v8": _shape(256, 8), "t512 v4": _shape(512, 4),
-            "t512 v8": _shape(512, 8),
+VARIANTS = {"as built": [], "run v1": ["-DREPAQ_RUN_VECS=1"],
+            "run v4": ["-DREPAQ_RUN_VECS=4"], "seg v4": ["-DREPAQ_SEG_VECS=4"],
+            "seg v16": ["-DREPAQ_SEG_VECS=16"],
             "no look-back": ["-DREPAQ_SCAN_NO_LOOKBACK"]}
 INEXACT = ("no look-back",)
-SHAPES = [(2_097_152,), (2_359_296,), (11_829_248,), (2, 98_304)]
+SHAPES = [("run_offsets", (2_097_152,)), ("run_offsets", (11_829_248,)),
+          ("run_offsets", (2, 98_304)), ("seg_positions", (2_359_296,))]
 SETS, RUNS = 8, 48
 
 
-def build(tmp: str) -> dict:
-    """name -> loaded library of each variant."""
+def build(tmp: str, parent: str | None) -> dict:
+    """name -> loaded library of each variant and of the parent source."""
     from repaq_tpu_torch.ops import _build
 
+    jobs = {name: (SRC, flags) for name, flags in VARIANTS.items()}
+    if parent:
+        jobs[PARENT] = (parent, [])
     procs = {}
-    for i, (name, flags) in enumerate(VARIANTS.items()):
+    for i, (name, (src, flags)) in enumerate(jobs.items()):
         so = os.path.join(tmp, "v%d.so" % i)
         procs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-shared", "-o", so,
-             SRC], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+             src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     libs = {}
     for name, (so, p) in procs.items():
@@ -72,67 +90,115 @@ def build(tmp: str) -> dict:
         if p.returncode:
             raise RuntimeError("nvcc failed on %r:\n%s" % (name, out))
         lib = libs[name] = ctypes.CDLL(so)
-        lib.repaq_scan_i32.argtypes = [vp, vp, ll, ll, ci, vp, vp]
-        lib.repaq_scan_i32.restype = ci
-        lib.repaq_scan_status_words.argtypes = [ll, ll]
-        lib.repaq_scan_status_words.restype = ll
+        if name == PARENT:
+            lib.repaq_scan_i32.argtypes = [vp, vp, ll, ll, ci, vp, vp]
+            lib.repaq_scan_i32.restype = ci
+            lib.repaq_scan_status_words.argtypes = [ll, ll]
+            lib.repaq_scan_status_words.restype = ll
+            continue
+        lib.repaq_run_offsets.argtypes = [vp, vp, vp, ll, ll, vp, vp]
+        lib.repaq_run_offsets.restype = ci
+        lib.repaq_run_offsets_status_words.argtypes = [ll, ll]
+        lib.repaq_run_offsets_status_words.restype = ll
+        lib.repaq_seg_positions.argtypes = [vp, vp, vp, ll, vp, vp]
+        lib.repaq_seg_positions.restype = ci
+        lib.repaq_seg_positions_status_words.argtypes = [ll]
+        lib.repaq_seg_positions_status_words.restype = ll
     return libs
 
 
-def launcher(lib, x, suffix_min: bool, zero: bool):
-    """A function of a status buffer that launches `lib`'s kernel on x,
-    zeroing the status words first when `zero`, and returns its output."""
+def _ok(rc: int, what: str) -> None:
+    if rc:
+        raise RuntimeError("%s failed to launch: %d" % (what, rc))
+
+
+def launcher(lib, name: str, args: tuple):
+    """A function that launches `lib`'s kernel on args, as the package's
+    wrapper does (on status words zeroed once, which every launch leaves
+    zeroed), and returns its output."""
     import torch
 
-    rows = x.shape[0] if x.dim() == 2 else 1
-    out = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
+    x = args[0]
+    if name == "run_offsets":
+        rows = x.shape[0] if x.dim() == 2 else 1
+        status = torch.zeros(lib.repaq_run_offsets_status_words(
+            rows, x.shape[-1]), dtype=torch.int64, device=x.device)
 
-    def run(status):
-        if zero:
-            status.zero_()
-        rc = lib.repaq_scan_i32(x.data_ptr(), out.data_ptr(), rows,
-                                x.shape[-1], int(suffix_min),
-                                status.data_ptr(), stream)
-        if rc:
-            raise RuntimeError("the scan failed to launch: %d" % rc)
-        return out
+        def run():
+            off = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+            to_end = torch.empty_like(off)
+            _ok(lib.repaq_run_offsets(x.data_ptr(), off.data_ptr(),
+                                      to_end.data_ptr(), rows, x.shape[-1],
+                                      status.data_ptr(), stream), name)
+            return off, to_end
+    else:
+        start = args[1]
+        status = torch.zeros(lib.repaq_seg_positions_status_words(
+            x.shape[0]), dtype=torch.int64, device=x.device)
 
+        def run():
+            pos = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+            _ok(lib.repaq_seg_positions(x.data_ptr(), start.data_ptr(),
+                                        pos.data_ptr(), x.shape[0],
+                                        status.data_ptr(), stream), name)
+            return pos
     return run
 
 
-def timings(lib, xs: list, suffix_min: bool) -> dict:
-    """The three readings of one build and direction, in ms."""
+def parent_composition(lib, name: str, args: tuple):
+    """A function computing the same outputs as the parent tree's torch
+    code did around its two scans (see the module's docstring)."""
     import torch
 
-    import chip_smoke as cs
+    stream = torch.cuda.current_stream().cuda_stream
 
-    x = xs[0]
-    rows = x.shape[0] if x.dim() == 2 else 1
-    words = lib.repaq_scan_status_words(rows, x.shape[-1])
+    def scan(x, suffix_min: bool):
+        out = torch.empty_like(x)
+        rows = x.shape[0] if x.dim() == 2 else 1
+        status = torch.zeros(lib.repaq_scan_status_words(rows, x.shape[-1]),
+                             dtype=torch.int64, device=x.device)
+        _ok(lib.repaq_scan_i32(x.data_ptr(), out.data_ptr(), rows,
+                               x.shape[-1], int(suffix_min),
+                               status.data_ptr(), stream), "repaq_scan_i32")
+        return out
 
-    def statuses(k):
-        return [torch.zeros(words, dtype=torch.int64, device=x.device)
-                for _ in range(k)]
+    if name == "run_offsets":
+        (adj,) = args
 
-    one = launcher(lib, x, suffix_min, True)
-    status = statuses(1)[0]
-    runs = [launcher(lib, xi, suffix_min, True) for xi in xs]
-    sets = statuses(SETS)
-    b2b = cs.back_to_back_ms(lambda i: runs[i](sets[i]), SETS, RUNS)
-    # the kernel alone: a zeroed status buffer for every launch, the two
-    # warm-up rounds of back_to_back_ms included
-    bare = [launcher(lib, xi, suffix_min, False) for xi in xs]
-    fresh = iter(statuses(SETS + RUNS))
-    alone = cs.back_to_back_ms(lambda i: bare[i](next(fresh)), SETS, RUNS)
-    return {"one_launch": cs.cuda_ms(lambda: one(status)),
-            "back_to_back": b2b, "kernel_alone": alone}
+        def run():
+            n = adj.shape[-1]
+            i = torch.arange(n, dtype=torch.int32, device=adj.device)
+            prev = torch.cat([torch.zeros_like(adj[..., :1]), adj[..., :-1]],
+                             -1)
+            rs_idx = scan(torch.where(adj & ~prev, i, -1), False)
+            off_in_run = torch.where(adj, i - rs_idx, 0)
+            end_idx = scan(torch.where(~adj, i, n), True)
+            run_len = torch.where(adj, end_idx - rs_idx, 0)
+            return off_in_run, torch.clamp(run_len - off_in_run, max=32)
+    else:
+        adv, start = args
+
+        def run():
+            raw = torch.cumsum(adv, 0, dtype=torch.int32)
+            seg_base = scan(torch.where(start, raw - adv, 0), False)
+            return raw - seg_base - 1
+    return run
+
+
+def same(got, want) -> bool:
+    import torch
+
+    if isinstance(got, tuple):
+        return all(same(g, w) for g, w in zip(got, want))
+    return torch.equal(got, want)
 
 
 def main() -> int:
-    if len(sys.argv) > 1:
-        print(__doc__, file=sys.stderr)
-        return 2
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="an earlier csrc/scan.cu to time in "
+                    "the composition it ran in")
+    args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
 
@@ -145,40 +211,46 @@ def main() -> int:
     dev = torch.device("cuda:0")
     report = {}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(tmp)
-        for shape in SHAPES:
+        libs = build(tmp, args.parent)
+        for name, shape in SHAPES:
             rows = shape[0] if len(shape) == 2 else 0
-            for name, kind, plain in (
-                    ("cummax", "run_starts", TK.cummax_i32_plain),
-                    ("suffix_min", "run_ends", TK.suffix_min_i32_plain)):
-                xs = [torch.from_numpy(cs.scan_case(shape[-1], rows, kind,
-                                                    s)).to(dev)
-                      for s in range(SETS)]
-                want = plain(xs[0])
-                suffix = name == "suffix_min"
-                for v, lib in libs.items():
-                    got = launcher(lib, xs[0], suffix, True)(torch.zeros(
-                        lib.repaq_scan_status_words(max(rows, 1), shape[-1]),
-                        dtype=torch.int64, device=dev))
-                    if v not in INEXACT and not torch.equal(got, want):
-                        raise RuntimeError("%s %s is not exact at %s"
-                                           % (v, name, shape))
-                order = list(libs) + list(reversed(libs))
-                times = {v: [] for v in libs}
-                for v in order:
-                    times[v].append(timings(libs[v], xs, suffix))
-                bound = 1e3 * 8 * xs[0].numel() / cs.HBM_BYTES_PER_S
-                key = "%s %s" % (name, shape)
-                report[key] = {"bound_ms": bound, "times_ms": times}
-                for v, ts in times.items():
-                    print("%-24s %-13s %s (bound %.4f ms)" % (
-                        key, v, "; ".join(
-                            ", ".join("%s %.4f" % (k, t[k]) for k in t)
-                            for t in ts), bound), flush=True)
-                del xs
+            if name == "run_offsets":
+                sets = [(torch.from_numpy(cs.run_case(
+                    shape[-1], rows, "random", s)).to(dev),)
+                    for s in range(SETS)]
+            else:
+                sets = [tuple(torch.from_numpy(a).to(dev)
+                              for a in cs.seg_case(shape[0], "random", s))
+                        for s in range(SETS)]
+            want = getattr(TK, name + "_plain")(*sets[0])
+            runs = {}
+            for v, lib in libs.items():
+                make = parent_composition if v == PARENT else launcher
+                runs[v] = [make(lib, name, a) for a in sets]
+                got = runs[v][0]()
+                if v not in INEXACT and not same(got, want):
+                    raise RuntimeError("%s %s is not exact at %s"
+                                       % (v, name, shape))
+            times = {v: [] for v in libs}
+            for v in list(libs) + list(reversed(libs)):
+                times[v].append({
+                    "one_launch": cs.cuda_ms(runs[v][0]),
+                    "back_to_back": cs.back_to_back_ms(
+                        lambda i, r=runs[v]: r[i](), SETS, RUNS)})
+            moved = cs.nbytes(*sets[0]) + cs.nbytes(want)
+            bound = 1e3 * moved / cs.HBM_BYTES_PER_S
+            key = "%s %s" % (name, shape)
+            report[key] = {"bound_ms": bound, "times_ms": times}
+            for v, ts in times.items():
+                print("%-32s %-13s %s (bound %.4f ms)" % (
+                    key, v, "; ".join(
+                        ", ".join("%s %.4f" % (k, t[k]) for k in t)
+                        for t in ts), bound), flush=True)
+            del sets, runs, want
         words = torch.zeros(2, dtype=torch.int64, device=dev)
-        report["zeroing_ms"] = cs.cuda_ms(lambda: words.zero_())
-        print("one zeroing launch alone %.4f ms" % report["zeroing_ms"])
+        report["zero_fill_ms"] = cs.cuda_ms(lambda: words.zero_())
+        print("one zero fill of status words alone %.4f ms"
+              % report["zero_fill_ms"])
     print(cs.card_line())
     print(json.dumps(report))
     return 0

@@ -12,7 +12,8 @@ Run from the root of a checkout on a machine with a card:
 
 For each worker count and direction it prints the wall time, the device
 time (kernels and copies, summed), the device's idle share of the wall,
-the run-boundary scans' device time and share (the port's kernel of
+the launches on the device (kernels, then copies and fills), the
+run-boundary kernels' device time and share (the port's kernels of
 csrc/scan.cu, and torch's cummax/cummin kernels should any run), the
 host-device copies, the kernels with the most device time, and the time
 inside each of the engine's named stage ranges (``enc.*`` / ``dec.*``,
@@ -34,7 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def report(label: str, prof, wall: float) -> None:
     from torch.autograd import DeviceType
 
-    dev_spans, host_spans, kernels = {}, {}, {}
+    dev_spans, host_spans, kernels, counts = {}, {}, {}, {}
     busy = 0.0
     for e in prof.events():
         ranged = e.name.startswith(("enc.", "dec."))
@@ -49,13 +50,22 @@ def report(label: str, prof, wall: float) -> None:
         else:
             busy += us
             kernels[e.name] = kernels.get(e.name, 0.0) + us
-    print("%s: wall %.3f s, device %.3f s, device idle %.1f%% of the wall"
-          % (label, wall, busy / 1e6, 100 * (1 - busy / 1e6 / wall)))
-    for what, key in (("the port's scan kernel", "run_boundary_scan"),
-                      ("torch's cummax/cummin", "with_indices")):
-        us = sum(v for k, v in kernels.items() if key in k)
-        print("  scans (%s) %.3f ms, %.2f%% of the device time"
-              % (what, us / 1e3, 100 * us / max(busy, 1e-9)))
+            counts[e.name] = counts.get(e.name, 0) + 1
+    copies = sum(c for k, c in counts.items()
+                 if "Memcpy" in k or "Memset" in k)
+    print("%s: wall %.3f s, device %.3f s, device idle %.1f%% of the wall; "
+          "%d kernel launches, %d copies and fills"
+          % (label, wall, busy / 1e6, 100 * (1 - busy / 1e6 / wall),
+             sum(counts.values()) - copies, copies))
+    for what, keys in (("the port's", ("run_offsets_kernel",
+                                       "seg_positions_kernel",
+                                       "run_boundary_scan")),
+                       ("torch's cummax/cummin", ("with_indices",))):
+        hit = [k for k in kernels if any(key in k for key in keys)]
+        us = sum(kernels[k] for k in hit)
+        print("  run-boundary kernels (%s) %.3f ms, %.2f%% of the device "
+              "time, %d launches" % (what, us / 1e3, 100 * us / max(busy, 1e-9),
+                                     sum(counts[k] for k in hit)))
     for name in sorted(set(dev_spans) | set(host_spans)):
         t, c = host_spans.get(name, (0.0, 0))
         print("  range %-15s device extent %.1f ms, host %.1f ms, %d calls"
