@@ -41,7 +41,13 @@ Phases, each of which must pass:
      (run_offsets 1-D and as 2 rows) on every RUN_KINDS and SEG_KINDS
      input: runs of 31-33 at the edges of steps, warps and tiles, a run of
      three tiles, segment starts at the first element only, everywhere
-     and nowhere; after phase 5 both are held and timed again at the
+     and nowhere. The overlap search (overlap_pairs) on every
+     OVERLAP_CASES input (L1 != L2 both ways, minlen 11, 12 and 13, o = 12
+     and o = minlen, both directions in one pair, rows of one byte, bytes
+     0 and 255, periodic rows, near misses), as given and as strided
+     views, and at a PE chunk's grid, 49,152 pairs of 150 bytes, read as
+     the engine reads it (the odd and even rows of one buffer), timed;
+     after phase 5 both scans are held and timed again at the
      shapes the two corpora handed them (the SE and PE quality streams and
      coordinate rows, and decode token counts), and after
      phase 6 rans_encode is held and timed on the largest order-1 section
@@ -62,7 +68,9 @@ Phases, each of which must pass:
      and every kernel of the SE path must have launched on it,
      run_offsets 3 times a chunk on compress and never on decompress,
      seg_positions once a chunk on decompress and never on compress (the
-     same in phases 7 and 8), and the shapes they were handed are logged.
+     same in phases 7 and 8; overlap_pairs likewise once a PE compress
+     chunk and never elsewhere), and the shapes they were handed are
+     logged.
      The round
      trip runs twice: the first (cold) pays torch's lazy setup of each
      operator, the second (warm) is the steady rate. The token FSM is then
@@ -70,7 +78,8 @@ Phases, each of which must pass:
   5. real size, paired-end: the same for a seeded 2 x 320k-read corpus of
      150 bp pairs (96 Mbase, 8 chunks of 40k pairs) whose inserts give
      forward and backward mate overlaps, through -i/-I and -o/-O; the
-     kernels of the PE path must have launched on it, and the shares of
+     kernels of the PE path must have launched on it (overlap_pairs once
+     a chunk), no chunk may take the host route, and the shares of
      pairs stored with a forward and a backward overlap are printed and
      must each be at least 1%;
   6. `.rfqz`, both corpora: `-c -o x.rfqz --engine device` codes every
@@ -91,7 +100,8 @@ Phases, each of which must pass:
      when torch sees more cards, on every card; then the CLI with
      --mesh_devices -1 both ways. Bytes must equal the serial run's of
      phase 4 or 5, the decode must give the inputs back, and every engine
-     must have coded and decoded chunks on the device. The device count is
+     must have coded and decoded chunks on the device, none on the host
+     route. The device count is
      printed: one card gives a byte check, not a scaling figure;
   8. sharded (--num_shards and the torch.distributed transport), both
      corpora at -k 12000: (a) the CLI, `--num_shards 2` compress with
@@ -161,6 +171,8 @@ KERNELS = [
      "repaq_tpu/ops/rans_device.py:196", ("rfqz_se", "rfqz_pe")),
     ("rans_decode", "repaq_tpu_torch/csrc/rans.cu",
      "repaq_tpu/ops/rans_device.py:330", ()),
+    ("overlap_pairs", "repaq_tpu_torch/csrc/overlap.cu",
+     "repaq_tpu/ops/device_streams.py:1369", ("pe", "mesh_pe", "shard_pe")),
 ]
 
 # why a kernel is on no main path (its launches there are 0)
@@ -183,6 +195,7 @@ RANS_SHAPES = [(1, 2_285_523, 2048), (0, 16_000_000, 4096)]
 B_READS, READ_LEN = 77824, 152
 # the PE path's padded chunk at 40k pairs of 150 bp: b_cap 98304 rows
 PE_BASES = 98304 * 150
+PE_PAIRS, PE_PAIR_CAP = 40_000, 98304 // 2
 
 PE_GOLDENS = [
     ("pe_R1", "pe_R2", "pe.ref.rfq", []),
@@ -531,6 +544,208 @@ def boundary_kernels_at(dev, name: str, shape: tuple, label: str,
     return held_and_timed(name, lambda: getattr(TK, name)(*args),
                           lambda: getattr(TK, name + "_plain")(*args), args,
                           label)
+
+
+def _overlap_case_makers() -> dict:
+    """name -> a maker of (r1, r2) u8 pair rows from an rng, for the
+    overlap search's edge cases: the smallest and largest o, minlen 11 and
+    12, L1 != L2 both ways, both directions in one pair, rows of one
+    repeated byte, bytes 0 and 255, periods, and near misses (every
+    candidate failing at its last byte, the search's worst case)."""
+    import numpy as np
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+
+    def rows(rng, p, l1, l2, alphabet=acgt):
+        return (rng.choice(alphabet, size=(p, l1)).astype(np.uint8),
+                rng.choice(alphabet, size=(p, l2)).astype(np.uint8))
+
+    def plant(r1, r2, i, o, forward):
+        """r1's suffix of o bytes onto r2's prefix, or r2's onto r1's."""
+        if forward:
+            r2[i, :o] = r1[i, r1.shape[1] - o:]
+        else:
+            r1[i, :o] = r2[i, r2.shape[1] - o:]
+
+    def mixed(p, l1, l2, alphabet=acgt, lengths=None):
+        """A quarter each: forward, backward, none, and both (forward
+        planted last); o from `lengths` or 1..minlen."""
+        def make(rng):
+            r1, r2 = rows(rng, p, l1, l2, alphabet)
+            minlen = min(l1, l2)
+            for i in range(p):
+                o = int(rng.choice(lengths) if lengths is not None
+                        else rng.integers(1, minlen + 1))
+                if i % 4 in (1, 3):
+                    plant(r1, r2, i, int(rng.integers(1, minlen // 2 + 1))
+                          if i % 4 == 3 else o, False)
+                if i % 4 in (0, 3):
+                    plant(r1, r2, i, o if i % 4 == 0
+                          else int(rng.integers(1, minlen // 2 + 1)), True)
+            return r1, r2
+        return make
+
+    def one_byte(rng):
+        p, L = 64, 150
+        v = rng.integers(0, 256, size=p).astype(np.uint8)
+        w = np.where(np.arange(p) % 2 == 0, v, v ^ 0x5A).astype(np.uint8)
+        v[:4], w[:4] = (0, 255, 0, 255), (0, 255, 255, 0)
+        return (np.repeat(v[:, None], L, 1), np.repeat(w[:, None], L, 1))
+
+    def periodic(rng):
+        p, L = 128, 150
+        r1, r2 = rows(rng, p, L, L)
+        for i in range(p):
+            unit = rng.choice(acgt, size=2 + i % 5)
+            tile = np.resize(unit, L + 8)
+            r1[i] = tile[:L]
+            r2[i] = tile[i % 7: i % 7 + L]
+        return r1, r2
+
+    def near_miss(rng):
+        """Rows A..AC / A..AG (every candidate of both directions fails at
+        its last byte: ov 0), and planted overlaps with one byte changed."""
+        p, L = 64, 150
+        r1, r2 = rows(rng, p, L, L)
+        for i in range(p):
+            if i % 2 == 0:
+                r1[i], r2[i] = ord("A"), ord("A")
+                r1[i, -1], r2[i, -1] = ord("C"), ord("G")
+                if i % 4 == 2:  # the same from the other side
+                    r1[i, 0], r2[i, 0] = ord("C"), ord("G")
+                    r1[i, -1], r2[i, -1] = ord("A"), ord("A")
+            else:
+                o = int(rng.integers(12, L + 1))
+                plant(r1, r2, i, o, i % 4 == 1)
+                k = int(rng.integers(0, o))
+                if i % 4 == 1:
+                    r2[i, k] = ord("N")
+                else:
+                    r1[i, k] = ord("N")
+        return r1, r2
+
+    def o_limits(rng):
+        """o = 12 and 11 both ways, and o = minlen both ways (L1 != L2)."""
+        p, l1, l2 = 128, 150, 120
+        r1, r2 = rows(rng, p, l1, l2)
+        for i in range(p):
+            plant(r1, r2, i, (12, 11, 120, 12)[i % 4], i % 8 < 4)
+        return r1, r2
+
+    every = np.arange(256, dtype=np.uint8)
+    return {
+        "l1_above_l2": mixed(512, 150, 101),
+        "l1_below_l2": mixed(512, 77, 150),
+        "minlen_11": mixed(64, 11, 150, lengths=[11]),
+        "minlen_12": mixed(128, 12, 12, lengths=[12]),
+        "minlen_13": mixed(128, 13, 200, lengths=[12, 13]),
+        "o_12_and_minlen": o_limits,
+        "short_overlaps": mixed(256, 150, 150, lengths=[11, 12, 13, 14, 15]),
+        "bytes_0_255": mixed(512, 150, 150, alphabet=every),
+        "bytes_0_and_255_only": mixed(256, 150, 150,
+                                      alphabet=np.array([0, 255], np.uint8)),
+        "one_byte_rows": one_byte,
+        "periodic": periodic,
+        "near_miss": near_miss,
+        "one_pair": mixed(1, 150, 150, lengths=[150]),
+    }
+
+
+OVERLAP_CASES = sorted(_overlap_case_makers())
+
+
+def overlap_case(name: str):
+    """(r1, r2), u8 pair rows, of the overlap edge case `name` (in
+    OVERLAP_CASES), from a seed of its own."""
+    import numpy as np
+
+    seed = OVERLAP_CASES.index(name) + 1391
+    return _overlap_case_makers()[name](np.random.default_rng(seed))
+
+
+def pe_overlap_grid(seed: int = 1391):
+    """The (2 * PE_PAIR_CAP, 150) u8 grid the PE step searches in one
+    chunk: PE_PAIRS pairs of make_pe_corpus's reads, R2 reverse-
+    complemented, pairs of rows interleaved, and 'G' rows past them."""
+    import numpy as np
+
+    r1, r2 = pe_reads(np.random.default_rng(seed), PE_PAIRS, 150)
+    comp = np.arange(256, dtype=np.uint8)
+    comp[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
+    grid = np.full((2 * PE_PAIR_CAP, 150), ord("G"), dtype=np.uint8)
+    grid[0: 2 * PE_PAIRS: 2] = r1
+    grid[1: 2 * PE_PAIRS: 2] = comp[r2[:, ::-1]]
+    return grid
+
+
+def overlap_edge_cases(dev) -> int:
+    """overlap_pairs exact against its plain version on every
+    OVERLAP_CASES input, one launch a call, as given and as the strided
+    views of one interleaved grid (where L1 == L2) or of a wider buffer;
+    an empty input launches nothing. Returns the call count."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    calls = []
+    for name in OVERLAP_CASES:
+        r1, r2 = (torch.from_numpy(a).to(dev) for a in overlap_case(name))
+        calls.append((name, r1, r2))
+        p, l1 = r1.shape
+        l2 = r2.shape[1]
+        if l1 == l2:
+            grid = torch.stack([r1, r2], 1).reshape(2 * p, l1)
+            calls.append((name + ", interleaved views", grid[0::2],
+                          grid[1::2]))
+        wide = torch.zeros((p, l1 + l2 + 3), dtype=torch.uint8, device=dev)
+        wide[:, 1:1 + l1] = r1
+        wide[:, 3 + l1:] = r2
+        calls.append((name + ", views at odd offsets", wide[:, 1:1 + l1],
+                      wide[:, 3 + l1:]))
+    for what, r1, r2 in calls:
+        before = TK.launches["overlap_pairs"]
+        got = TK.overlap_pairs(r1, r2)
+        torch.cuda.synchronize()
+        check(TK.launches["overlap_pairs"] == before + 1,
+              "overlap_pairs took other than one launch")
+        want = TK.overlap_pairs_plain(r1, r2)
+        check(torch.equal(got, want), "overlap_pairs differs from its plain "
+              "version on %s (%d of %d pairs)"
+              % (what, int((got != want).sum()), r1.shape[0]))
+    empty = torch.zeros((0, 150), dtype=torch.uint8, device=dev)
+    before = TK.launches["overlap_pairs"]
+    check(TK.overlap_pairs(empty, empty).shape == (0,)
+          and TK.launches["overlap_pairs"] == before,
+          "overlap_pairs launched on no pairs")
+    return len(calls)
+
+
+def overlap_kernel_phase(dev) -> dict:
+    """overlap_pairs exact on the edge cases, then exact and timed on the
+    strided views of a PE chunk's grid (PE_PAIR_CAP pairs of 150 bytes)."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    log("kernel overlap_pairs exact on %d edge-case calls (%s; each as "
+        "given and as strided views), one launch each"
+        % (overlap_edge_cases(dev), ", ".join(OVERLAP_CASES)))
+    grid = torch.from_numpy(pe_overlap_grid()).to(dev)
+    r1, r2 = grid[0::2], grid[1::2]
+    shape = ("strided views of a PE chunk's grid: %d pairs of 150 bytes "
+             "(%d of reads, the rest 'G')" % (PE_PAIR_CAP, PE_PAIRS))
+    res = held_and_timed("overlap_pairs", lambda: TK.overlap_pairs(r1, r2),
+                         lambda: TK.overlap_pairs_plain(r1, r2), (r1, r2),
+                         shape, plain_runs=3)
+    ov = TK.overlap_pairs(r1, r2)[:PE_PAIRS]
+    res["forward_share"] = float((ov > 0).float().mean())
+    res["backward_share"] = float((ov < 0).float().mean())
+    log("kernel overlap_pairs at the PE chunk: %.2f%% of pairs forward, "
+        "%.2f%% backward" % (100 * res["forward_share"],
+                             100 * res["backward_share"]))
+    check(res["forward_share"] > 0.01 and res["backward_share"] > 0.01,
+          "overlap_pairs: the PE chunk takes one search branch only")
+    return res
 
 
 def frontend_ragged_cases(dev) -> list:
@@ -1299,6 +1514,21 @@ def make_pe_corpus(paths: list, pairs: int, read_len: int, seed: int) -> int:
     import numpy as np
 
     rng = np.random.default_rng(seed)
+    r1, r2 = pe_reads(rng, pairs, read_len)
+    size = 0
+    heads = illumina_heads(rng, pairs, 1)
+    for path, mate, seq in ((paths[0], 1, r1), (paths[1], 2, r2)):
+        qual = nova_quals(rng, seq)
+        size += write_fastq(path, [h.replace(b" 1:N:", b" %d:N:" % mate)
+                                   for h in heads], seq, qual)
+    return size
+
+
+def pe_reads(rng, pairs: int, read_len: int):
+    """The (pairs, read_len) u8 R1 and R2 reads of make_pe_corpus, drawn
+    from rng."""
+    import numpy as np
+
     acgt = np.frombuffer(b"ACGT", np.uint8)
     comp = np.zeros(256, dtype=np.uint8)
     comp[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"TGCA", np.uint8)
@@ -1316,14 +1546,7 @@ def make_pe_corpus(paths: list, pairs: int, read_len: int, seed: int) -> int:
     r1 = np.where(j < ins, frag[rows, np.minimum(j, 399)], ad[0][past])
     r2 = np.where(j < ins, comp[frag[rows, np.clip(ins - 1 - j, 0, 399)]],
                   ad[1][past])
-    size = 0
-    heads = illumina_heads(rng, pairs, 1)
-    for path, mate, seq in ((paths[0], 1, r1), (paths[1], 2, r2)):
-        seq = seq.astype(np.uint8)
-        qual = nova_quals(rng, seq)
-        size += write_fastq(path, [h.replace(b" 1:N:", b" %d:N:" % mate)
-                                   for h in heads], seq, qual)
-    return size
+    return r1.astype(np.uint8), r2.astype(np.uint8)
 
 
 def read_chunks(rfq: str):
@@ -1393,13 +1616,18 @@ def main_path_boundary_shapes(shapes: list, cut: int) -> dict:
 
 # launches of the run-boundary kernels a chunk, by direction: the smoke
 # corpora's chunks all code N positions, qualities and coordinates
-BOUNDARY_PER_CHUNK = {"compress": {"run_offsets": 3, "seg_positions": 0},
-                      "decompress": {"run_offsets": 0, "seg_positions": 1}}
+def per_chunk(what: str, pe: bool) -> dict:
+    """The launches a chunk of the kernels whose count a chunk fixes, on
+    compress or decompress: run_offsets 3 an encode, seg_positions 1 a
+    decode, overlap_pairs 1 a PE encode; none in the other direction."""
+    enc = what == "compress"
+    return {"run_offsets": 3 * enc, "seg_positions": int(not enc),
+            "overlap_pairs": int(enc and pe)}
 
 
-def check_boundary_launches(where: str, what: str, launches: dict,
-                            chunks: int) -> None:
-    for name, per in BOUNDARY_PER_CHUNK[what].items():
+def check_chunk_launches(where: str, what: str, launches: dict,
+                         chunks: int, pe: bool) -> None:
+    for name, per in per_chunk(what, pe).items():
         check(launches.get(name, 0) == per * chunks, "%s %s: %s launched %d "
               "times for %d chunks, %d a chunk expected"
               % (where, what, name, launches.get(name, 0), chunks, per))
@@ -1493,10 +1721,12 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
     enc, cut = seen["compress"]
     dec = {k: launches[k] - enc[k] for k in launches}
     for what, counts in (("compress", enc), ("decompress", dec)):
-        check_boundary_launches(tag, what, counts, len(chunks))
-    log("corpus %s: run-boundary launches, compress %s, decompress %s, for "
-        "%d chunks" % (tag, {k: enc[k] for k in BOUNDARY_KERNELS},
-                       {k: dec[k] for k in BOUNDARY_KERNELS}, len(chunks)))
+        check_chunk_launches(tag, what, counts, len(chunks), pe)
+    counted = per_chunk("compress", pe)
+    log("corpus %s: run-boundary and overlap launches, compress %s, "
+        "decompress %s, for %d chunks"
+        % (tag, {k: enc[k] for k in counted}, {k: dec[k] for k in counted},
+           len(chunks)))
     res = {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
            "host_enc_s": host_s, "chunks": len(chunks), "fqs": fqs,
            "rfq": out, "chunk_kb": chunk_kb,
@@ -1580,12 +1810,12 @@ def mesh_phase(tag: str, corpus: dict) -> dict:
         dec_s = time.perf_counter() - t0
         if i == 0:
             res["launches"] = dict(TK.launches)
-            check_boundary_launches("mesh " + tag, "compress", enc_launches,
-                                    corpus["chunks"])
-            check_boundary_launches(
+            check_chunk_launches("mesh " + tag, "compress", enc_launches,
+                                 corpus["chunks"], pe)
+            check_chunk_launches(
                 "mesh " + tag, "decompress",
                 {k: v - enc_launches[k] for k, v in TK.launches.items()},
-                corpus["chunks"])
+                corpus["chunks"], pe)
         with open(out, "rb") as f:
             check(f.read() == serial, "%s %s: mesh bytes differ from the "
                   "serial run's" % (tag, what))
@@ -1593,6 +1823,8 @@ def mesh_phase(tag: str, corpus: dict) -> dict:
         for stats, key in ((enc, "device_chunks"), (dec, "device_decodes")):
             check(all(s[key] > 0 for s in stats["engines"]), "%s %s: an "
                   "engine has no %s: %s" % (tag, what, key, stats))
+        check(all(s["host_chunks"] == 0 for s in enc["engines"]), "%s %s: "
+              "an engine took a chunk to the host: %s" % (tag, what, enc))
         res["runs"].append((devices, enc_s, dec_s))
         log("mesh %s %s: bytes equal to the serial run's, inputs back; "
             "encode %.3f s, decode %.3f s; engines %s, then %s"
@@ -1956,9 +2188,9 @@ def shard_phase(tag: str, corpus: dict, card: str) -> dict:
                     check(hi == lo or rank["launches"][name] > 0,
                           "%s --num_shards %d %s: kernel %s never launched "
                           "in rank %d" % (tag, n, what, name, r))
-                check_boundary_launches(
+                check_chunk_launches(
                     "%s --num_shards %d rank %d" % (tag, n, r), what,
-                    rank["launches"], hi - lo)
+                    rank["launches"], hi - lo, pe)
                 for name, count in rank["launches"].items():
                     launches[name] = launches.get(name, 0) + count
             walls[what] = (wall, [rank["wall_s"] for rank in ranks])
@@ -2047,6 +2279,7 @@ def main() -> int:
         log("kernels: built from repaq_tpu_torch/csrc and loaded in %.1f s"
             % (time.perf_counter() - t0))
         kres = kernel_phase(torch.device("cuda:0"))
+        kres["overlap_pairs"] = overlap_kernel_phase(torch.device("cuda:0"))
         kres.update(rans_kernel_phase(torch.device("cuda:0")))
         golden_phase()
         cres = {"se": corpus_phase("cuda:0", pe=False),

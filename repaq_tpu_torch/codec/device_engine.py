@@ -17,9 +17,8 @@ Routes to the host engine (codec/vectorized.py), byte-identical by
 construction and counted in ``stats``: PE-interleaved chunks of ragged
 read lengths, chunks outside the size window or past the int32 key
 packing, non-by-column quality modes, palettes of 64 bins (past the
-frontend's B <= 63), the optimistic quality-buffer overflow and a
-double-hash collision in the overlap search. Each route is decided from
-the chunk; none is a reaction to an exception.
+frontend's B <= 63) and the optimistic quality-buffer overflow. Each
+route is decided from the chunk; none is a reaction to an exception.
 
 Interleaved chunks whose header lacks the overlap flag take the PE step
 with the overlap search off (revcomp, no elision), as vectorized encodes
@@ -425,12 +424,8 @@ class DeviceEngine:
             **caps).cpu().numpy()
         xy_sz = (3 * p_cap + 8) if has_xy else 0
         parts, lens = _cut(raw, [n_cap // 4, caps["qfetch"], caps["npfetch"],
-                                 xy_sz, xy_sz, p_cap], 6)
-        total_stored, ncoll = lens[4:]
-        if ncoll > 0:
-            # double-hash collision in the overlap search (~2^-64 per
-            # pair): first-match semantics need the host search
-            return None
+                                 xy_sz, xy_sz, p_cap], 5)
+        total_stored = lens[4]
         ov = (parts[5][:pairs].view(np.int8).astype(np.int64)
               - header.overlap_shift)
         return self._assemble(header, block, a, ov,
@@ -444,8 +439,7 @@ class DeviceEngine:
         (b_cap, L) u8, rows past n_reads padded with 'G' and the major
         qual. overlap: search and elide overlaps (the header's flag), else
         every pair stores ov = 0. Returns the payload of _payload with the
-        (b_cap/2,) u8 overlap bytes, the stored base count and the number of
-        hash collisions at its end."""
+        (b_cap/2,) u8 overlap bytes and the stored base count at its end."""
         dev = seq_mat.device
         p_cap = seq_mat.shape[0] // 2
         with _span("enc.revcomp"):
@@ -456,18 +450,16 @@ class DeviceEngine:
         n_pairs = n_reads // 2
 
         ov = torch.zeros(p_cap, dtype=torch.int32, device=dev)
-        ncoll = torch.zeros((), dtype=torch.int32, device=dev)
         if overlap:
-            # the overlap search (reference rfqcodec.cpp:1391-1438) and the
-            # encode-side shift clamp (rfqcodec.cpp:379-382)
+            # the overlap search (reference rfqcodec.cpp:1391-1438; the
+            # overlap kernel) and the encode-side shift clamp
+            # (rfqcodec.cpp:379-382)
             with _span("enc.overlap"):
-                found, coll = ds.overlap_pairs_device(tseq[0::2],
-                                                      tseq[1::2])
+                found = ds.overlap_pairs_device(tseq[0::2], tseq[1::2])
                 pvalid = torch.arange(p_cap, device=dev) < n_pairs
                 shifted = found + shift
                 ov = torch.where(
                     pvalid & (shifted <= 127) & (shifted >= -127), found, 0)
-                ncoll = (coll & pvalid).sum(dtype=torch.int32)
 
         with _span("enc.compaction"):
             seq_concat, total_stored = _elide(tseq, ov, n_reads)
@@ -486,7 +478,7 @@ class DeviceEngine:
             ov_store = ((ov + shift) & 0xFF).to(torch.uint8)
             return self._payload(packed, qual_out[:qfetch], qual_len, npos,
                                  npfetch, xy, n_pairs,
-                                 (ov_store, [total_stored, ncoll]))
+                                 (ov_store, [total_stored]))
 
     # ------------------------------------------------------------------
     # decode

@@ -13,8 +13,9 @@ it and with repaq_tpu.codec.kernels_np. What differs from JAX:
   the keys and a gather of the payload by the returned order. Keys repeat
   only at the sentinel fill, whose payloads are masked afterwards.
 - ``torch.cumsum`` is asked for int32 explicitly (it defaults to int64).
-- The overlap search's uint32 hashes are int64 values masked to 32 bits
-  (torch's uint32 support is partial); see the section's note.
+- The overlap search is ``kernels.overlap_pairs``, exact where JAX
+  hashes: the CUDA kernel for CUDA tensors, its plain version for CPU
+  tensors; it returns no collision flags.
 - The token FSM is ``kernels.token_start_mask``: the CUDA kernel for CUDA
   tensors at every size, its plain version for CPU tensors.
 - The run-boundary scans (JAX's ``lax.cummax`` and flipped ``lax.cummin``)
@@ -751,105 +752,14 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
 # ---------------------------------------------------------------------------
 # PE overlap search (reference rfqcodec.cpp:1391-1438)
 # ---------------------------------------------------------------------------
-#
-# JAX hashes in uint32 with wrapping products and cumsums. Here the values
-# live in int64 in [0, 2^32) and are masked after every product and every
-# cumsum; a product of two such values could pass 2^63, so one factor is
-# split into 16-bit halves (_mul_u32). The power tables are built on the
-# host exactly as in JAX.
-
-_OV_MIN = 12
-_OV_BASE1 = 0x01000193  # odd bases, invertible mod 2^32 (JAX's two)
-_OV_BASE2 = 0x9E3779B1
-_M32 = 0xFFFFFFFF
 
 
-def _u32_inv(a: int) -> int:
-    """Multiplicative inverse of an odd a modulo 2^32 (Newton iteration)."""
-    x = a
-    for _ in range(5):
-        x = (x * (2 - a * x)) & _M32
-    return x
-
-
-def _u32_powers(base: int, count: int, device) -> torch.Tensor:
-    """(count,) int64: base^j mod 2^32 for j < count."""
-    out, y = [], 1
-    for _ in range(count):
-        out.append(y)
-        y = (y * base) & _M32
-    return torch.tensor(out, dtype=torch.int64, device=device)
-
-
-def _mul_u32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a * b) mod 2^32 for int64 values in [0, 2^32); no intermediate
-    passes 2^49."""
-    lo = a * (b & 0xFFFF)
-    hi = ((a * (b >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _poly_prefix_hash(b: torch.Tensor, base: int) -> torch.Tensor:
-    """(p, L) u8 -> (p, L) int64: h(o) = sum_{j<o} b[:, j] * base^(o-1-j)
-    mod 2^32 for o = 1..L, as base^(o-1) * cumsum(b[:, j] * inv^j)."""
-    L = b.shape[1]
-    invp = _u32_powers(_u32_inv(base), L, b.device)
-    powp = _u32_powers(base, L, b.device)
-    terms = (b.long() * invp[None, :]) & _M32  # < 2^40 before the mask
-    return _mul_u32(torch.cumsum(terms, 1) & _M32, powp[None, :])
-
-
-def _suffix_hash(a: torch.Tensor, base: int, minlen: int) -> torch.Tensor:
-    """(p, La) u8 -> (p, minlen) int64: h(o) = sum_{j=1..o} a[:, La-j] *
-    base^(j-1) mod 2^32, o = 1..minlen."""
-    powp = _u32_powers(base, minlen, a.device)
-    tail = a[:, a.shape[1] - minlen:].flip(1).long()
-    # terms < 2^40 and minlen < 2^16: the running sum stays below 2^56
-    return torch.cumsum(tail * powp[None, :], 1) & _M32
-
-
-def _first_candidate_device(a: torch.Tensor, b: torch.Tensor, minlen: int):
-    """Smallest o in [12, minlen] whose suffix of a and prefix of b match
-    under both hashes; 0 when none. (p,) int32."""
-    hs1 = _suffix_hash(a, _OV_BASE1, minlen)
-    hp1 = _poly_prefix_hash(b[:, :minlen], _OV_BASE1)
-    hs2 = _suffix_hash(a, _OV_BASE2, minlen)
-    hp2 = _poly_prefix_hash(b[:, :minlen], _OV_BASE2)
-    o = _arange(minlen + 1, a.device, 1)[None, :]
-    hit = (hs1 == hp1) & (hs2 == hp2) & (o >= _OV_MIN)
-    first = torch.where(hit, o, minlen + 1).amin(1)
-    return torch.where(first > minlen, 0, first)
-
-
-def _verify_overlap_device(a: torch.Tensor, b: torch.Tensor, o: torch.Tensor,
-                           minlen: int) -> torch.Tensor:
-    """Exact check a[:, La-o:] == b[:, :o] per row (o == 0 -> False)."""
-    La = a.shape[1]
-    cols = _arange(minlen, a.device)[None, :]
-    valid = cols < o[:, None]
-    idx = (La - o[:, None] + cols).clamp(0, La - 1)
-    eq = (torch.gather(a, 1, idx.long()) == b[:, :minlen]) | ~valid
-    return eq.all(1) & (o > 0)
-
-
-def overlap_pairs_device(r1: torch.Tensor, r2: torch.Tensor):
+def overlap_pairs_device(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     """First exact overlap per pair (reference semantics: +o forward, r1
     suffix == r2 prefix, then -o backward, first match from o = 12 up; 0
     none). r1: (p, L1) u8, r2: (p, L2) u8, already reverse-complemented.
 
-    Returns (ov (p,) int32, collision (p,) bool). A collision means the
-    first double-hash candidate failed the exact check; such rows need the
-    host search to keep first-match semantics."""
-    p, L1 = r1.shape
-    minlen = min(L1, r2.shape[1])
-    dev = r1.device
-    if minlen < _OV_MIN or p == 0:
-        return (torch.zeros(p, dtype=_I32, device=dev),
-                torch.zeros(p, dtype=torch.bool, device=dev))
-    fwd = _first_candidate_device(r1, r2, minlen)
-    okf = _verify_overlap_device(r1, r2, fwd, minlen)
-    bwd = _first_candidate_device(r2, r1, minlen)
-    okb = _verify_overlap_device(r2, r1, bwd, minlen)
-    ov = torch.where(okf, fwd, torch.where(okb, -bwd, 0))
-    collision = (~okf & (fwd > 0)) | (~okf & ~okb & (bwd > 0))
-    return ov.to(_I32), collision
+    Returns ov, (p,) int32, JAX's ov. The search is exact
+    (``kernels.overlap_pairs``: the CUDA kernel on the card, its plain
+    version on the CPU), so JAX's collision flags have no counterpart."""
+    return kernels.overlap_pairs(r1, r2)

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels of the port, each beside its plain torch
 version; the counterpart of repaq_tpu/ops/pallas_tpu.py, and of the
-run-boundary scans that the JAX package left to XLA.
+run-boundary scans and the PE overlap search that the JAX package left to
+XLA.
 
 Every wrapper decides by the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (built on
@@ -16,6 +17,7 @@ import threading
 
 import torch
 
+from ..constants import MIN_OVERLAP
 from . import _build
 
 _G, _A, _T, _C, _N = 71, 65, 84, 67, 78
@@ -23,7 +25,7 @@ _G, _A, _T, _C, _N = 71, 65, 84, 67, 78
 launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
             "pack_bases": 0, "unpack_bases": 0, "token_start_mask": 0,
             "run_offsets": 0, "seg_positions": 0, "rans_encode": 0,
-            "rans_layout": 0, "rans_decode": 0}
+            "rans_layout": 0, "rans_decode": 0, "overlap_pairs": 0}
 _launch_lock = threading.Lock()
 
 
@@ -454,3 +456,79 @@ def seg_positions(adv: torch.Tensor, seg_start: torch.Tensor) -> torch.Tensor:
                 seg_start.data_ptr(), pos.data_ptr(), n, status.data_ptr(),
                 stream)
     return pos
+
+
+# ---------------------------------------------------------------------------
+# PE overlap search (JAX: XLA's double polynomial hash search,
+# repaq_tpu/ops/device_streams.py:1303-1395)
+# ---------------------------------------------------------------------------
+
+_OV_ROWS = 1 << 16  # pairs a step of the plain version
+
+
+def _first_overlap_plain(a: torch.Tensor, b: torch.Tensor,
+                         minlen: int) -> torch.Tensor:
+    """The smallest o in [12, minlen] with a[:, La-o:] == b[:, :o] a row,
+    0 where none: (rows,) int32."""
+    la = a.shape[1]
+    found = torch.zeros(a.shape[0], dtype=torch.int32, device=a.device)
+    for o in range(MIN_OVERLAP, minlen + 1):
+        hit = (a[:, la - o:] == b[:, :o]).all(1)
+        found = torch.where((found == 0) & hit, o, found)
+    return found
+
+
+def overlap_pairs_plain(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of ``overlap_pairs``: every o compared exactly,
+    MIN_OVERLAP up, over steps of _OV_ROWS pairs."""
+    p, l1 = r1.shape
+    minlen = min(l1, r2.shape[1])
+    ov = torch.zeros(p, dtype=torch.int32, device=r1.device)
+    if minlen < MIN_OVERLAP:
+        return ov
+    for lo in range(0, p, _OV_ROWS):
+        a, b = r1[lo:lo + _OV_ROWS], r2[lo:lo + _OV_ROWS]
+        fwd = _first_overlap_plain(a, b, minlen)
+        bwd = _first_overlap_plain(b, a, minlen)
+        ov[lo:lo + _OV_ROWS] = torch.where(fwd > 0, fwd, -bwd)
+    return ov
+
+
+def _check_rows(name: str, t: torch.Tensor) -> None:
+    """A 2-D uint8 tensor whose rows are contiguous (they may lie any
+    stride apart)."""
+    if t.dtype != torch.uint8 or t.dim() != 2:
+        raise ValueError("%s must be a 2-D uint8 tensor, got %s %s"
+                         % (name, t.dtype, tuple(t.shape)))
+    if t.stride(1) != 1 and t.shape[1] > 1:
+        raise ValueError("%s's rows must be contiguous (stride(1) == 1), "
+                         "got strides %s" % (name, t.stride()))
+
+
+def overlap_pairs(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """First exact overlap of each pair of rows, the reference's search
+    (rfqcodec.cpp:1391-1438) and codec/oracle.py's ``overlap``: +o for the
+    smallest o in [12, minlen] with r1[p, L1-o:] == r2[p, :o], else -o for
+    the smallest with r2[p, L2-o:] == r1[p, :o], else 0; minlen = min(L1,
+    L2), raw bytes. r1: (p, L1) u8, r2: (p, L2) u8, r2's rows already
+    reverse-complemented; each row contiguous, rows any stride apart (the
+    engine passes the odd and even rows of one grid). Returns (p,) int32.
+    One launch."""
+    _check_rows("r1", r1)
+    _check_rows("r2", r2)
+    if r1.shape[0] != r2.shape[0]:
+        raise ValueError("r1 and r2 need one row count (got %d and %d)"
+                         % (r1.shape[0], r2.shape[0]))
+    if not _on_cuda(r1, r2):
+        return overlap_pairs_plain(r1, r2)
+    dev = r1.device
+    p = r1.shape[0]
+    out = torch.empty(p, dtype=torch.int32, device=dev)
+    if p == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        _launch("overlap_pairs", lib.repaq_overlap_pairs, r1.data_ptr(),
+                r1.stride(0), r1.shape[1], r2.data_ptr(), r2.stride(0),
+                r2.shape[1], p, out.data_ptr(), _stream(dev))
+    return out

@@ -21,10 +21,11 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
-from chip_smoke import (FSM_KINDS, LAYOUT_CASES, RANS_CASES, RANS_SHAPES,
-                        RUN_KINDS, SEG_KINDS, fsm_case, layout_case,
-                        rans_case, rans_case_inputs, rans_shape_data,
-                        run_case, seg_case)
+from chip_smoke import (FSM_KINDS, LAYOUT_CASES, OVERLAP_CASES, RANS_CASES,
+                        RANS_SHAPES, RUN_KINDS, SEG_KINDS, fsm_case,
+                        layout_case, overlap_case, rans_case,
+                        rans_case_inputs, rans_shape_data, run_case,
+                        seg_case)
 from test_device_engine import _mk_block
 
 
@@ -282,6 +283,7 @@ def test_pe_engine_on_cuda_matches_host(cuda):
     for name in ("encode_frontend", "unpack_bases", "token_start_mask",
                  "run_offsets", "seg_positions"):
         assert TK.launches[name] > 0, TK.launches
+    assert TK.launches["overlap_pairs"] == 1
     assert TK.launches["encode_frontend_bytes"] == 0  # the meta route
 
 
@@ -386,29 +388,49 @@ def test_torchdist_nccl_one_rank_matches_golden(cuda, fixtures_dir,
 
 
 @pytest.mark.cuda
-def test_overlap_search_on_cuda_matches_cpu(cuda):
-    """The int64-masked uint32 hashes and the overlap search give the same
-    values on the card as on the CPU."""
-    from repaq_tpu_torch.ops import device_streams as T
-
-    rng = np.random.default_rng(4)
-    r1 = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(3000, 150))
-    r2 = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(3000, 150))
+@pytest.mark.parametrize("L1,L2", [(150, 150), (150, 101), (77, 150)])
+def test_overlap_search_on_cuda_matches_cpu(cuda, L1, L2):
+    """The overlap kernel against its plain version on the card, one
+    launch: on strided views of one buffer (the engine's odd and even rows
+    of a grid, or rows at odd offsets), with L1 != L2, and the CPU's
+    answer."""
+    rng = np.random.default_rng(L1 + L2)
+    r1 = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(3000, L1))
+    r2 = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(3000, L2))
+    minlen = min(L1, L2)
     for i in range(0, 3000, 3):
-        o = int(rng.integers(12, 151))
-        r2[i, :o] = r1[i, 150 - o:]
+        o = int(rng.integers(12, minlen + 1))
+        r2[i, :o] = r1[i, L1 - o:]
     for i in range(1, 3000, 3):
-        o = int(rng.integers(12, 151))
-        r1[i, :o] = r2[i, 150 - o:]
-    a, b = torch.from_numpy(r1), torch.from_numpy(r2)
-    for base in (T._OV_BASE1, T._OV_BASE2):
-        assert torch.equal(T._poly_prefix_hash(a.to(cuda), base).cpu(),
-                           T._poly_prefix_hash(a, base))
-        assert torch.equal(T._suffix_hash(a.to(cuda), base, 150).cpu(),
-                           T._suffix_hash(a, base, 150))
-    got = T.overlap_pairs_device(a.to(cuda), b.to(cuda))
-    for g, w in zip(got, T.overlap_pairs_device(a, b)):
-        assert torch.equal(g.cpu(), w)
+        o = int(rng.integers(12, minlen + 1))
+        r1[i, :o] = r2[i, L2 - o:]
+    want = TK.overlap_pairs(torch.from_numpy(r1), torch.from_numpy(r2))
+    assert (want > 0).any() and (want < 0).any()
+    wide = torch.zeros((3000, L1 + L2 + 3), dtype=torch.uint8, device=cuda)
+    wide[:, 1:1 + L1] = torch.from_numpy(r1).to(cuda)
+    wide[:, 3 + L1:] = torch.from_numpy(r2).to(cuda)
+    views = [(wide[:, 1:1 + L1], wide[:, 3 + L1:])]
+    if L1 == L2:
+        grid = torch.stack([views[0][0], views[0][1]], 1).reshape(6000, L1)
+        views.append((grid[0::2], grid[1::2]))
+    for a, b in views:
+        before = TK.launches["overlap_pairs"]
+        got = TK.overlap_pairs(a, b)
+        assert TK.launches["overlap_pairs"] == before + 1
+        assert torch.equal(got, TK.overlap_pairs_plain(a, b))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OVERLAP_CASES)
+def test_overlap_edge_cases_on_cuda(cuda, name):
+    """chip_smoke's overlap edge cases: the kernel against its plain
+    version on the card, one launch."""
+    r1, r2 = (torch.from_numpy(a).to(cuda) for a in overlap_case(name))
+    before = TK.launches["overlap_pairs"]
+    got = TK.overlap_pairs(r1, r2)
+    assert TK.launches["overlap_pairs"] == before + 1
+    assert torch.equal(got, TK.overlap_pairs_plain(r1, r2))
 
 
 @pytest.mark.cuda

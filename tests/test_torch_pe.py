@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repaq_tpu.codec import kernels_np as K
+from repaq_tpu.codec import oracle
 from repaq_tpu.codec import vectorized
 from repaq_tpu.codec.device_engine import DeviceEngine as JaxEngine
 from repaq_tpu.constants import BIT_ENCODE_PE_BY_OVERLAP
@@ -28,6 +29,7 @@ from repaq_tpu_torch.codec import device_engine as TE
 from repaq_tpu_torch.ops import device_streams as T
 from repaq_tpu_torch.ops import kernels as TK
 
+from chip_smoke import OVERLAP_CASES, overlap_case, pe_overlap_grid
 from test_device_engine import _mk_block
 from test_torch_cuda import _frontend_case
 
@@ -71,23 +73,6 @@ def test_pack_bases_matches_pallas_and_host(n):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("base", [D._OV_BASE1, D._OV_BASE2])
-@pytest.mark.parametrize("L", [13, 150])
-def test_overlap_hashes_match_jax_uint32(base, L):
-    rng = np.random.default_rng(L)
-    a = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=(64, L))
-    a[0] = 255  # the largest byte value in every term
-    minlen = L - 1
-    got = T._poly_prefix_hash(_t(a), int(base)).numpy()
-    want = np.asarray(jax.jit(lambda x: D._poly_prefix_hash(x, base))(a))
-    assert want.dtype == np.uint32
-    assert np.array_equal(got, want.astype(np.int64))
-    got = T._suffix_hash(_t(a), int(base), minlen).numpy()
-    want = np.asarray(jax.jit(lambda x: D._suffix_hash(x, base, minlen))(a))
-    assert np.array_equal(got, want.astype(np.int64))
-    assert T._u32_inv(int(base)) == D._u32_inv(int(base))
-
-
 def _overlap_case(p, L1, L2, seed):
     """Pairs with planted forward overlaps (r1 suffix = r2 prefix),
     backward ones (r2 suffix = r1 prefix), none, and low-complexity rows
@@ -114,19 +99,65 @@ def _overlap_case(p, L1, L2, seed):
                                    (11, 40)])
 def test_overlap_pairs_matches_jax_and_host(L1, L2):
     r1, r2 = _overlap_case(400, L1, L2, L1 * 1000 + L2)
-    ov, coll = T.overlap_pairs_device(_t(r1), _t(r2))
+    ov = T.overlap_pairs_device(_t(r1), _t(r2))
     wov, wcoll = jax.jit(D.overlap_pairs_device)(jnp.asarray(r1),
                                                  jnp.asarray(r2))
-    assert ov.dtype == torch.int32 and coll.dtype == torch.bool
+    assert ov.dtype == torch.int32 and ov.shape == (400,)
+    assert not np.asarray(wcoll).any()
     assert np.array_equal(ov.numpy(), np.asarray(wov))
-    assert np.array_equal(coll.numpy(), np.asarray(wcoll))
     assert np.array_equal(ov.numpy(), vectorized._overlap_pairs(r1, r2))
-    assert not coll.any()
+    assert np.array_equal(ov.numpy(), [oracle.overlap(a.tobytes(),
+                                                      b.tobytes())
+                                       for a, b in zip(r1, r2)])
     if min(L1, L2) >= 12:  # both kinds are found, and the shortest ones
         ov = ov.numpy()
         assert (ov > 0).any() and (ov < 0).any() and (ov == 12).any()
     else:
         assert not ov.numpy().any()
+
+
+@pytest.mark.parametrize("name", OVERLAP_CASES)
+def test_overlap_edge_cases_match_oracle_and_jax(name):
+    """chip_smoke's edge cases of the overlap kernel (phase 2 holds the
+    kernel to the plain version on them): the plain version and
+    overlap_pairs_device against the reference's scalar search and JAX's
+    hash search, as given and as strided views."""
+    r1, r2 = overlap_case(name)
+    want = np.array([oracle.overlap(a.tobytes(), b.tobytes())
+                     for a, b in zip(r1, r2)], dtype=np.int32)
+    wov, wcoll = jax.jit(D.overlap_pairs_device)(jnp.asarray(r1),
+                                                 jnp.asarray(r2))
+    assert not np.asarray(wcoll).any()
+    assert np.array_equal(np.asarray(wov), want)
+    assert np.array_equal(TK.overlap_pairs_plain(_t(r1), _t(r2)).numpy(),
+                          want)
+    wide = np.zeros((r1.shape[0], r1.shape[1] + r2.shape[1] + 3), np.uint8)
+    wide[:, 1:1 + r1.shape[1]] = r1
+    wide[:, 3 + r1.shape[1]:] = r2
+    w = _t(wide)
+    got = T.overlap_pairs_device(w[:, 1:1 + r1.shape[1]],
+                                 w[:, 3 + r1.shape[1]:])
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+
+
+def test_overlap_pairs_on_cpu_grid_and_bad_inputs():
+    """The head of chip_smoke's PE chunk grid, read as the engine reads it
+    (its odd and even rows): CPU tensors run the plain version and launch
+    nothing; inputs that are not 2-D uint8 tensors of contiguous rows, one
+    row count, raise, on the CPU as on a card."""
+    grid = pe_overlap_grid()[:4000]
+    g = _t(grid)
+    want = np.array([oracle.overlap(a.tobytes(), b.tobytes())
+                     for a, b in zip(grid[0::2], grid[1::2])], np.int32)
+    before = dict(TK.launches)
+    assert np.array_equal(TK.overlap_pairs(g[0::2], g[1::2]).numpy(), want)
+    assert TK.overlap_pairs(g[:0], g[:0]).shape == (0,)
+    assert TK.launches == before
+    assert (want > 0).any() and (want < 0).any()
+    for bad in ((g[0::2].int(), g[1::2]), (g[0], g[1]),
+                (g[0::2], g[1::2][:-1]), (g[0::2, ::2], g[1::2, ::2])):
+        with pytest.raises(ValueError):
+            TK.overlap_pairs(*bad)
 
 
 # ---------------------------------------------------------------------------
@@ -315,22 +346,50 @@ def test_pe_nbasequal_policy(eng, jax_eng, qual_branch):
     _check_decode(eng, header, block, got, qual_branch)
 
 
-def test_pe_collision_takes_the_host_route(eng, monkeypatch):
-    orig = T.overlap_pairs_device
+def _plant_backward(block, L, seed):
+    """Plant backward overlaps (the reverse complement of R2 ends in R1's
+    prefix) into a third of block's pairs, of 12 up to L bases; those above
+    103 are clamped to 0 by the overlap shift of -24."""
+    rng = np.random.default_rng(seed)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[np.frombuffer(b"ACGTN", np.uint8)] = np.frombuffer(b"TGCAN",
+                                                            np.uint8)
+    seqs = block.seq_flat.reshape(-1, L)
+    for p in range(1, seqs.shape[0] // 2, 3):
+        o = int(rng.integers(12, L + 1))
+        r2rc = np.concatenate([rng.choice(np.frombuffer(b"ACGT", np.uint8),
+                                          size=L - o), seqs[2 * p, :o]])
+        seqs[2 * p + 1] = comp[r2rc][::-1]
 
-    def colliding(r1, r2):
-        ov, coll = orig(r1, r2)
-        coll = coll.clone()
-        coll[5] = True
-        return ov, coll
 
-    monkeypatch.setattr(T, "overlap_pairs_device", colliding)
-    block = _mk_block(600, 96, seed=7, pe_overlap=0.5)
+@pytest.mark.parametrize("L,nfrac,seed", [(96, 0.0, 41), (150, 0.01, 42),
+                                          (150, 0.0, 43)])
+def test_pe_overlaps_both_ways_on_the_device(eng, jax_eng, L, nfrac, seed):
+    """A PE chunk with planted forward and backward overlaps takes the
+    device step (no host route is left for the search), and its bytes
+    equal the host engine's and the JAX engine's; the stored overlaps are
+    the reference's search, clamped by the shift."""
+    block = _mk_block(600, L, seed=seed, pe_overlap=0.5, nfrac=nfrac)
+    _plant_backward(block, L, seed)
     header = vectorized.make_header_pe(block)
+    assert header.encode_pe_by_overlap()
+    want = vectorized.encode_chunk(header, block, True).to_bytes()
     got = eng.encode_chunk(header, block, True)
-    assert got.to_bytes() == vectorized.encode_chunk(header, block,
-                                                     True).to_bytes()
-    assert eng.stats["host_chunks"] == 1 and eng.stats["device_chunks"] == 0
+    assert got.to_bytes() == want
+    assert jax_eng.encode_chunk(header, block, True).to_bytes() == want
+    assert eng.stats["device_chunks"] == 1 and eng.stats["host_chunks"] == 0
+    seqs = block.seq_flat.reshape(-1, L)
+    comp = np.zeros(256, dtype=np.uint8)
+    comp[np.frombuffer(b"ACGTN", np.uint8)] = np.frombuffer(b"TGCAN",
+                                                            np.uint8)
+    ref = np.array([oracle.overlap(seqs[2 * p].tobytes(),
+                                   comp[seqs[2 * p + 1][::-1]].tobytes())
+                    for p in range(seqs.shape[0] // 2)])
+    shift = header.overlap_shift
+    ref[(ref + shift > 127) | (ref + shift < -127)] = 0
+    ov = np.frombuffer(got.overlap_buf, np.int8).astype(np.int64) - shift
+    assert np.array_equal(ov, ref)
+    assert (ov > 0).sum() > 50 and (ov < 0).sum() > 20
 
 
 def test_pe_qfetch_overflow_takes_the_host_route(eng, monkeypatch):

@@ -9,6 +9,12 @@ With ``--se``, chip_smoke.py's single-end corpus instead (640k reads of
 Run from the root of a checkout on a machine with a card:
 
     python3 tools/profile_torch_pe.py [--se] [--pairs N] [--workers 8,1]
+                                      [--tree DIR]
+
+``--tree DIR`` profiles the package of another checkout (for example the
+parent commit, unpacked with ``git archive`` into a git-ignored
+directory) with this script's report, so two trees can be read in turns
+by the same measurement.
 
 For each worker count and direction it prints the wall time, the device
 time (kernels and copies, summed), the device's idle share of the wall,
@@ -17,9 +23,10 @@ run-boundary kernels' device time and share (the port's kernels of
 csrc/scan.cu, and torch's cummax/cummin kernels should any run), the
 host-device copies, the kernels with the most device time, and the time
 inside each of the engine's named stage ranges (``enc.*`` / ``dec.*``,
-see repaq_tpu_torch/codec/device_engine.py). The profiler records the
-ranges of the thread that runs it only, so they show with one worker,
-where the pipeline runs each chunk inline.
+see repaq_tpu_torch/codec/device_engine.py) with the kernels and the
+copies and fills launched inside it. The profiler records the ranges of
+the thread that runs it only, so they show with one worker, where the
+pipeline runs each chunk inline.
 """
 
 from __future__ import annotations
@@ -32,6 +39,23 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _is_copy(name: str) -> bool:
+    return "Memcpy" in name or "Memset" in name
+
+
+def _launched_under(e) -> tuple:
+    """(kernels, copies and fills) launched by host event e and the ops
+    below it (a range's own device-side extent is not a launch)."""
+    ops = [k.name for k in e.kernels
+           if not k.name.startswith(("enc.", "dec."))]
+    kern = sum(not _is_copy(name) for name in ops)
+    copies = len(ops) - kern
+    for c in e.cpu_children:
+        k, cp = _launched_under(c)
+        kern, copies = kern + k, copies + cp
+    return kern, copies
+
+
 def report(label: str, prof, wall: float) -> None:
     from torch.autograd import DeviceType
 
@@ -40,9 +64,12 @@ def report(label: str, prof, wall: float) -> None:
     for e in prof.events():
         ranged = e.name.startswith(("enc.", "dec."))
         if e.device_type != DeviceType.CUDA:
-            if ranged:  # the host side of a named range: time and calls
-                t, c = host_spans.get(e.name, (0.0, 0))
-                host_spans[e.name] = (t + e.cpu_time_total, c + 1)
+            if ranged:  # the host side of a named range: time, calls and
+                # the device work it launched
+                t, c, k, cp = host_spans.get(e.name, (0.0, 0, 0, 0))
+                dk, dcp = _launched_under(e)
+                host_spans[e.name] = (t + e.cpu_time_total, c + 1, k + dk,
+                                      cp + dcp)
             continue
         us = e.time_range.elapsed_us()
         if ranged:  # the device-side extent of a named range
@@ -51,27 +78,28 @@ def report(label: str, prof, wall: float) -> None:
             busy += us
             kernels[e.name] = kernels.get(e.name, 0.0) + us
             counts[e.name] = counts.get(e.name, 0) + 1
-    copies = sum(c for k, c in counts.items()
-                 if "Memcpy" in k or "Memset" in k)
+    copies = sum(c for k, c in counts.items() if _is_copy(k))
     print("%s: wall %.3f s, device %.3f s, device idle %.1f%% of the wall; "
           "%d kernel launches, %d copies and fills"
           % (label, wall, busy / 1e6, 100 * (1 - busy / 1e6 / wall),
              sum(counts.values()) - copies, copies))
-    for what, keys in (("the port's", ("run_offsets_kernel",
+    for what, keys in (("the port's run-boundary", ("run_offsets_kernel",
                                        "seg_positions_kernel",
                                        "run_boundary_scan")),
-                       ("torch's cummax/cummin", ("with_indices",))):
+                       ("torch's cummax/cummin", ("with_indices",)),
+                       ("the port's overlap", ("overlap_kernel",))):
         hit = [k for k in kernels if any(key in k for key in keys)]
         us = sum(kernels[k] for k in hit)
-        print("  run-boundary kernels (%s) %.3f ms, %.2f%% of the device "
+        print("  kernels (%s) %.3f ms, %.2f%% of the device "
               "time, %d launches" % (what, us / 1e3, 100 * us / max(busy, 1e-9),
                                      sum(counts[k] for k in hit)))
     for name in sorted(set(dev_spans) | set(host_spans)):
-        t, c = host_spans.get(name, (0.0, 0))
-        print("  range %-15s device extent %.1f ms, host %.1f ms, %d calls"
-              % (name, dev_spans.get(name, 0.0) / 1e3, t / 1e3, c))
+        t, c, k, cp = host_spans.get(name, (0.0, 0, 0, 0))
+        print("  range %-15s device extent %.3f ms, host %.1f ms, %d calls; "
+              "%d kernel launches, %d copies and fills inside"
+              % (name, dev_spans.get(name, 0.0) / 1e3, t / 1e3, c, k, cp))
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]):
-        if "Memcpy" in k or "Memset" in k:
+        if _is_copy(k):
             print("  copy  %-40s %.1f ms" % (k[:40], v / 1e3))
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
         print("  kernel %6.1f ms %5.1f%%  %s"
@@ -85,8 +113,12 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=320_000)
     ap.add_argument("--workers", default="8,1",
                     help="comma-separated worker counts, one profile each")
+    ap.add_argument("--tree", default=ROOT,
+                    help="the checkout whose repaq_tpu_torch and "
+                         "chip_smoke.py are profiled (default: this one)")
     args = ap.parse_args()
-    sys.path.insert(0, ROOT)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
     import torch
 
     if not torch.cuda.is_available():
@@ -111,7 +143,8 @@ def main() -> int:
     eng = DeviceEngine("cuda:0")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    print("card: %s; corpus %d FASTQ bytes" % (chip_smoke.card_line(), size))
+    print("card: %s; corpus %d FASTQ bytes; tree %s"
+          % (chip_smoke.card_line(), size, tree))
     for workers in args.workers.split(","):
         w = ["-w", workers, "--engine", "device"]
         enc = ["-c", *ins, "-o", rfq, "-k", "12000", *w]
