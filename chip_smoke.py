@@ -21,7 +21,12 @@ Phases, each of which must pass:
      uniform random bytes, where all 65,536 contexts are live, and on 27
      staging edge cases, RANS_CASES; rans_layout also on the edges of its
      tiles, LAYOUT_CASES, placed by the built tile, one launch each, and
-     the payload's zero fill timed alone at both sections), exact
+     the payload's zero fill timed alone at both sections; rans_decode
+     through its wrapper, with the live contexts counted on the host as
+     decode_section_device counts them, its table packing timed alone, and
+     on 31 edge cases, DECODE_CASES, placed by the built window and shared
+     limit, one launch each, against its plain version and the data, the
+     route each took counted), exact
      equality, both timed with CUDA
      events (median of 15 runs, L2 flushed before each; the rANS kernels'
      plain versions, a Python loop over the steps, median of 3), each
@@ -55,7 +60,8 @@ Phases, each of which must pass:
      sweep of its block size, window and batch is logged at these shapes
      (every build exact against the package's), with the floor its state
      chain sets: the longest lane's steps times the cycles of one step
-     (tools/rans_chain_probe.cu) at the card's maximum SM clock;
+     (tools/rans_chain_probe.cu) at the card's maximum SM clock, and the
+     same floor of rans_decode's step at RANS_SHAPES;
   3. goldens: `python -m repaq_tpu_torch.cli -c --engine device` on the
      single-end fixtures and, with -i/-I and -o/-O, the paired-end ones,
      byte-compared with the reference encoder's goldens, and `-d` back to
@@ -92,8 +98,10 @@ Phases, each of which must pass:
      launched once per section that reached the section coder (none took
      the host oracle). Then every rANS section of the default-chunk file
      (the LZ sections' inner ones included) is decoded on the card and
-     held against rans_np, and `-d` must give the inputs back. The section
-     census, the ratio and both encode rates are printed;
+     held against rans_np, each section's order, live contexts and route
+     counted and printed, and `-d` must give the inputs back; over phases
+     2 and 6 rans_decode must have taken both routes. The section census,
+     the ratio and both encode rates are printed;
   7. the multi-GPU mesh (--mesh_devices), both corpora: compress_se_mesh /
      compress_pe_mesh and decompress_se_mesh (PE with out2) on two engines
      sharing cuda:0 (the mesh path whose launch counts are reported) and,
@@ -1124,6 +1132,125 @@ def rans_edge_cases(dev) -> int:
     return len(RANS_CASES)
 
 
+def _decode_case_makers(window: int, shared_rows: int) -> dict:
+    """name -> (order, n, lanes, shift, kind) of decode_case; kind is one of
+    rans_case's, "sparse" or "symbols K" (K distinct bytes, none 0)."""
+    cases = {}
+    for order in (0, 1):
+        for what, length in (("window - 1", window - 1), ("window", window),
+                             ("window + 1", window + 1),
+                             ("2 window + 1", 2 * window + 1)):
+            for extra in (0, 17):
+                cases["o%d lanes of %s%s" % (
+                    order, what, ", 17 one longer" if extra else "")] = (
+                    order, 37 * length + extra, 37, 0, "quals")
+        cases["o%d 1003 lanes" % order] = (order, 1003 * 9 + 501, 1003, 0,
+                                          "quals")
+        cases["o%d n < lanes" % order] = (order, 20, 64, 0, "quals")
+        cases["o%d one lane" % order] = (order, 2 * window + 3, 1, 0,
+                                        "quals")
+        cases["o%d payload 5 B past a boundary" % order] = (
+            order, 70 * window + 11, 70, 5, "quals")
+        cases["o%d one symbol" % order] = (order, 64 * (window + 3), 64, 0,
+                                          "one symbol")
+        cases["o%d lanes with no renormalisation word" % order] = (
+            order, 64 * 40, 64, 0, "sparse")
+    cases["o1 live contexts at the shared limit"] = (
+        1, 64 * 300, 64, 0, "symbols %d" % (shared_rows - 1))
+    cases["o1 live contexts one past the shared limit"] = (
+        1, 64 * 300, 64, 0, "symbols %d" % shared_rows)
+    cases["o1 uniform random bytes"] = (1, 2048 * 700, 2048, 0, "uniform")
+    return cases
+
+
+# the names do not depend on the window or the shared limit
+DECODE_CASES = sorted(_decode_case_makers(124, 12))
+
+
+def decode_case(name: str, window: int, shared_rows: int):
+    """(order, data, lanes, shift) of one edge of rans_decode, whose lanes
+    decode `window` steps between copy-outs and whose order-1 tables stay
+    in shared memory up to `shared_rows` live contexts: lane lengths of
+    window - 1, window, window + 1 and 2 window + 1 (equal and ragged), 1003
+    lanes, n < lanes (the section takes n lanes of one byte), one lane, a
+    payload `shift` bytes past a 16-byte boundary (lanes start at odd
+    aligned offsets), a one-symbol section (freq 4096: no lane reads a
+    word), lanes of 40 bytes that are mostly one symbol (some read no
+    word), order-1 with shared_rows and shared_rows + 1 live contexts
+    (context 0 and K other bytes), and order-1 on uniform random bytes
+    with all 65,536 contexts live."""
+    import zlib
+
+    import numpy as np
+
+    order, n, lanes, shift, kind = _decode_case_makers(window,
+                                                       shared_rows)[name]
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    quals = np.frombuffer(NOVA_QUALS, np.uint8)
+    if kind == "uniform":
+        data = uniform_bytes(n, zlib.crc32(name.encode()))
+    elif kind == "one symbol":
+        data = np.full(n, 0x42, np.uint8)
+    elif kind == "sparse":
+        data = rng.choice(quals[:2], size=n, p=[0.9, 0.1])
+    elif kind.startswith("symbols "):
+        k = int(kind.split()[1])
+        data = rng.choice(np.arange(1, k + 1, dtype=np.uint8) * 7, size=n)
+    else:
+        data = rng.choice(quals, size=n, p=NOVA_P)
+    return order, data, lanes, shift
+
+
+def decode_case_inputs(dev, order, data, lanes, shift):
+    """(rans_decode_device's arguments, offsets) for the host coder's
+    section of `data`, its payload starting `shift` bytes into an
+    allocation on `dev`."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.codec import rans_np
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    enc = rans_np.encode_section(data, order=order, lanes=lanes)
+    order, n, lanes, payload, counts, freqs, cum, sym, _ = RD.parse_section(
+        enc)
+    base = torch.zeros(shift + payload.shape[0], dtype=torch.uint8,
+                       device=dev)
+    base[shift:] = torch.from_numpy(payload.copy()).to(dev)
+    args = (base[shift:], *(torch.from_numpy(a).to(dev) for a in (
+        counts, sym, freqs.astype(np.int32), cum.astype(np.int32))),
+        lanes, 0, order)
+    return args, rans_np.lane_slices(n, lanes)
+
+
+def decode_edge_cases(dev) -> dict:
+    """rans_decode exact against its plain version (and the data) on every
+    case of DECODE_CASES, placed by the built window and shared limit, one
+    launch each; the routes taken, {route: cases}."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    routes = {"shared": 0, "global": 0}
+    for label in DECODE_CASES:
+        order, data, lanes, shift = decode_case(label, RD.decode_window(),
+                                                RD.decode_shared_rows())
+        args, off = decode_case_inputs(dev, order, data, lanes, shift)
+        before = TK.launches["rans_decode"]
+        got = RD.rans_decode_device(*args, offsets=off)
+        torch.cuda.synchronize()
+        check(TK.launches["rans_decode"] == before + 1,
+              "rans_decode launched %d times on %s"
+              % (TK.launches["rans_decode"] - before, label))
+        check(np.array_equal(got.cpu().numpy(), data)
+              and torch.equal(got, RD.rans_decode_plain(*args, offsets=off)),
+              "rans_decode differs from its plain version on %s" % label)
+        routes[RD.last_decode[2]] += 1
+    return routes
+
+
 def _layout_case_makers(tile_steps: int, tile_lanes: int) -> dict:
     """name -> (steps, lanes, emits, starts, cap) of layout_case: emits is
     "mixed" (each lane its own emit rate in [0, 1)), "some lanes none",
@@ -1253,7 +1380,10 @@ def rans_kernel_phase(dev) -> dict:
         enc = RD.rans_encode_device(d, f, c, lanes, order)
         start = torch.cumsum(lane_bytes, 0) - lane_bytes
         dec = (payload[:int(total)], lane_bytes, sy, f, c, lanes, 0, order)
-        out = RD.rans_decode_device(*dec, offsets=off)
+        # the live contexts counted on the host, as decode_section_device
+        # counts them
+        live = RD.live_contexts(freqs)
+        out = RD._rans_decode(*dec, off, live)
         check(np.array_equal(out.cpu().numpy(), data),
               "rans_decode did not give the order-%d section back" % order)
         # bytes each function must move: its inputs once, its outputs once
@@ -1267,7 +1397,7 @@ def rans_kernel_phase(dev) -> dict:
                             lambda: RD.rans_layout_plain(*enc, start, cap),
                             nbytes(enc, start) + int(total)),
             "rans_decode": (
-                lambda: RD.rans_decode_device(*dec, offsets=off),
+                lambda: RD._rans_decode(*dec, off, live),
                 lambda: RD.rans_decode_plain(*dec, offsets=off),
                 nbytes(*dec[:5]) + n),
         }
@@ -1283,6 +1413,14 @@ def rans_kernel_phase(dev) -> dict:
             lambda: torch.zeros(cap, dtype=torch.uint8, device=dev))
         log("rans_layout at %s: the zero fill of out_cap = %d B alone %.4f "
             "ms" % (shape, cap, fill))
+        # the decode's time includes the wrapper's table packing
+        by = results["rans_decode"]["by_shape"][shape]
+        by["live"], by["route"] = RD.last_decode[1:]
+        by["table_ms"] = cuda_ms(lambda: RD.decode_table(
+            sy, f, c, order, live if by["route"] == "shared" else None))
+        log("rans_decode at %s: %d live contexts, %s route; the table "
+            "packing (decode_table) alone %.4f ms"
+            % (shape, by["live"], by["route"], by["table_ms"]))
     order, n, lanes = RANS_SHAPES[0]
     rans_encode_at(dev, results["rans_encode"], uniform_bytes(n), lanes,
                    ", uniform random bytes")
@@ -1291,6 +1429,18 @@ def rans_kernel_phase(dev) -> dict:
         "n < lanes; one lane; data 5 B past a 16-byte boundary; one symbol; "
         "order-1 with all 65,536 contexts live), section bytes equal to the "
         "host coder's" % (rans_edge_cases(dev), RD.encode_window()))
+    routes = decode_edge_cases(dev)
+    results["rans_decode"].update(window=RD.decode_window(),
+                                  shared_rows=RD.decode_shared_rows(),
+                                  edge_routes=routes)
+    log("kernel rans_decode exact on %d edge cases (window %d, shared "
+        "table up to %d live contexts: lane lengths window - 1 .. 2 window "
+        "+ 1, equal and ragged; 1003 lanes; n < lanes; one lane; payload 5 "
+        "B past a 16-byte boundary; one symbol; lanes with no "
+        "renormalisation word; the shared limit and one past it; all "
+        "65,536 contexts live), one launch each; routes %s"
+        % (len(DECODE_CASES), RD.decode_window(), RD.decode_shared_rows(),
+           routes))
     results["rans_layout"]["tile"] = list(RD.layout_tile())
     log("kernel rans_layout exact on %d tile edge cases (tile %d steps x %d "
         "lanes: lanes W - 1 .. W + 16, 1003, 1; steps T - 1 .. 2 T + 1, 0; "
@@ -1321,11 +1471,12 @@ def rans_encode_at(dev, res: dict, data, lanes: int, what: str) -> None:
     res["by_shape"][shape] = r
 
 
-def rans_sweep_phase(dev, res: dict, real=None) -> None:
+def rans_sweep_phase(dev, res: dict, dres: dict, real=None) -> None:
     """tools/profile_rans.py's sweep of rans_encode's block size, window
     and batch at RANS_SHAPES and the uniform order-1 section (and the
     real one when given), each build exact against the package's; then the
-    chain floor of every shape in res's by-shape readings."""
+    chain floor of every shape in res's by-shape readings, and of the
+    decode's step (shared table) at RANS_SHAPES in dres's."""
     import tempfile
 
     sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -1347,7 +1498,9 @@ def rans_sweep_phase(dev, res: dict, real=None) -> None:
             % (len(swept), time.perf_counter() - t0, "; ".join(
                 "%s %s (%.4f ms)" % (label, name, ms)
                 for label, (ms, name) in best.items())))
-        cycles = PR.chain_cycles(dev, tmp)
+        probe = PR.probe_lib(tmp)
+        cycles = PR.chain_cycles(dev, probe)
+        dcycles = PR.decode_chain_cycles(dev, probe)
     mhz = PR.max_sm_clock_mhz()
     for label, inp in cases.items():
         floor = PR.chain_floor_ms(inp["steps"], cycles, mhz)
@@ -1364,6 +1517,20 @@ def rans_sweep_phase(dev, res: dict, real=None) -> None:
     order, n, lanes = RANS_SHAPES[0]
     res["chain_floor_ms"] = res["by_shape"][rans_label(order, n, lanes,
                                                        "")]["chain_floor_ms"]
+    dres.update(chain_cycles=dcycles, max_sm_mhz=mhz)
+    for order, n, lanes in RANS_SHAPES:
+        r = dres["by_shape"][rans_label(order, n, lanes, "")]
+        steps = -(-n // lanes)
+        r["chain_floor_ms"] = PR.chain_floor_ms(steps, dcycles["shared"],
+                                                mhz)
+        log("rans_decode chain floor at %s: %d steps x %.2f cycles (table "
+            "in shared memory; %.2f read from global memory) at %.0f MHz = "
+            "%.4f ms; the wrapper %.4f ms (%.0f%% of the floor's rate)"
+            % (rans_label(order, n, lanes, ""), steps, dcycles["shared"],
+               dcycles["global"], mhz, r["chain_floor_ms"], r["ms"],
+               100 * r["chain_floor_ms"] / r["ms"]))
+    dres["chain_floor_ms"] = dres["by_shape"][rans_label(
+        *RANS_SHAPES[0], "")]["chain_floor_ms"]
 
 
 def boundary_kernels_at_main_path_sizes(kres: dict, cres: dict) -> None:
@@ -1966,6 +2133,7 @@ def rfqz_phase(tag: str, fqs: list, fastq_bytes: int) -> dict:
           % (tag, shared["stats"]))
 
     decoded = []
+    routes = Counter()
 
     def decode_both(buf, off=0):
         want = rans_np.decode_section(buf, off)
@@ -1973,6 +2141,7 @@ def rfqz_phase(tag: str, fqs: list, fastq_bytes: int) -> dict:
         check(got == want, "%s: device decode of the rANS section at %d "
               "differs from rans_np's" % (tag, off))
         decoded.append(len(want[0]))
+        routes[RD.last_decode] += 1  # (order, live contexts, route)
         return got
 
     before = TK.launches["rans_decode"]
@@ -1982,6 +2151,9 @@ def rfqz_phase(tag: str, fqs: list, fastq_bytes: int) -> dict:
     check(decoded and TK.launches["rans_decode"] - before == len(decoded),
           "%s: %d sections decoded but rans_decode launched %d times"
           % (tag, len(decoded), TK.launches["rans_decode"] - before))
+    log("rfqz %s: sections decoded on the card by (order, live contexts, "
+        "route): %s" % (tag, "; ".join("%s x %d" % (k, v) for k, v in
+                                       sorted(routes.items()))))
     dec = ["-o", backs[0]] + (["-O", backs[1]] if len(backs) > 1 else [])
     rc = cli.main(["-d", "-i", main["out"], *dec, "--engine", "device"])
     check(rc == 0, "%s: .rfqz decompress exited %d" % (tag, rc))
@@ -2271,6 +2443,7 @@ def main() -> int:
         % (sys.version.split()[0], torch.__version__, torch.version.cuda,
            kind))
     from repaq_tpu_torch.ops import _build
+    from repaq_tpu_torch.ops import rans_device as RD
 
     try:
         build_native()
@@ -2292,13 +2465,19 @@ def main() -> int:
         for tag in ("se", "pe"):
             cres["rfqz_" + tag] = rfqz_phase(tag, cres[tag]["fqs"],
                                              cres[tag]["bytes"])
+        check(all(RD.decode_routes.values()), "rans_decode took one route "
+              "only over phases 2 and 6: %s" % RD.decode_routes)
+        kres["rans_decode"]["routes"] = dict(RD.decode_routes)
+        log("rans_decode launches by route over phases 2 and 6: %s"
+            % RD.decode_routes)
         # rans_encode on the SE compress's largest order-1 section, then
         # its shape sweep and chain floor
         data, lanes = cres["rfqz_se"]["largest_o1"]
         real = (np.frombuffer(data, np.uint8).copy(), lanes)
         rans_encode_at(torch.device("cuda:0"), kres["rans_encode"], *real,
                        ", real .rfq bytes")
-        rans_sweep_phase(torch.device("cuda:0"), kres["rans_encode"], real)
+        rans_sweep_phase(torch.device("cuda:0"), kres["rans_encode"],
+                         kres["rans_decode"], real)
         log("mesh: torch sees %d CUDA device(s)%s"
             % (torch.cuda.device_count(),
                "; two engines share cuda:0, so this is a byte check, not a "

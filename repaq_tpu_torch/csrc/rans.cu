@@ -31,12 +31,26 @@
 // 32-64 SMs. What is left above the floor are the two stores of each step
 // and its loads' instructions (tools/profile_rans.py).
 //
-// rans_decode is bound by latency too: at most 4096 threads (32 blocks of
-// 128) run one serial chain each. It reads a symbol and its table entry
-// from one slot index and loads the next payload word before it knows it
-// needs it. Its order-0 tables sit in shared memory, its order-1 ones (1
-// Mi slots of symbol and entry) in global memory, read through L1/L2.
-// Batching sections, so that more than 32 SMs work, is later work.
+// rans_decode is bound by latency too: each lane decodes its bytes one
+// after another, and a step is a chain of a table load and four integer
+// instructions (decode_step: the entry's freq - 1, y, the compare, the
+// select of the next entry's offset), about 59 cycles on an NVIDIA H100
+// 80GB HBM3 with the table in shared memory and about 325 read from
+// global memory (tools/rans_chain_probe.cu). The design keeps the chain's loads in
+// shared memory and all else off it: each lane's payload is staged a
+// window ahead by cp.async into a ring, so the next 16-bit word is one
+// shared load beside the table's; the table is packed per live context
+// (rans_device.decode_table: one u32 an entry that carries freq - 1,
+// slot - cum and the next context's row), in shared memory with each
+// slot's symbol when at most kSharedRows contexts are live, else all 256
+// rows read from global memory, one load a step, the row being the
+// context byte, so that the entry's next row is the output byte; each
+// lane's decoded bytes
+// are staged in shared memory and copied out at each window's end as
+// contiguous runs, a warp a lane; 32-lane blocks, each warp on its own,
+// put 2048 lanes on 64 SMs and 4096 on 128. What is left above the chain
+// is its shared loads' bank conflicts, 32 lanes at random slots, and each
+// window's copies (tools/profile_rans.py --decode).
 //
 // rans_layout, in place of the payload sort, is a transpose and a
 // per-lane compaction, with no chain: what bounds it is memory, 3 bytes
@@ -64,7 +78,6 @@ namespace {
 constexpr uint32_t kScaleBits = 12;
 constexpr uint32_t kScaleMask = (1u << kScaleBits) - 1;
 constexpr uint32_t kRansL = 1u << 16;
-constexpr int kThreads = 128;
 
 // rans_encode's shape: kEncThreads lanes a block, each lane's next
 // kWindow steps staged in shared memory while the current ones are coded,
@@ -596,68 +609,373 @@ __global__ void __launch_bounds__(kLayoutThreads)
   }
 }
 
-// fcs[ctx * SCALE + slot] is the entry freq | cum << 16 of the symbol at
-// that slot, so the symbol and its entry load together, and the next
-// payload word is loaded before the state says whether it is needed: one
-// memory latency per step. Reads stay inside [lane_start[i],
-// min(lane_start[i+1], plen)), so a corrupt payload cannot make a lane
-// read out of bounds.
-template <int kOrder>
-__global__ void rans_decode_kernel(const uint8_t* __restrict__ payload,
-                                   long long plen,
-                                   const long long* __restrict__ lane_start,
-                                   const long long* __restrict__ off,
-                                   int lanes,
-                                   const uint8_t* __restrict__ sym_lut,
-                                   const uint32_t* __restrict__ fcs,
-                                   uint8_t* __restrict__ out) {
-  __shared__ uint8_t sym0[kOrder == 0 ? 1 << kScaleBits : 1];
-  __shared__ uint32_t fcs0[kOrder == 0 ? 1 << kScaleBits : 1];
-  if (kOrder == 0) {
-    for (int s = threadIdx.x; s < (1 << kScaleBits); s += blockDim.x) {
-      sym0[s] = sym_lut[s];
-      fcs0[s] = fcs[s];
-    }
-  }
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  long long ptr = lane_start[i];
-  const long long lane_end =
-      lane_start[i + 1] < plen ? lane_start[i + 1] : plen;
-  uint32_t x = 0;
-  for (int b = 0; b < 4; ++b, ++ptr) {
-    if (ptr < lane_end) x |= static_cast<uint32_t>(payload[ptr]) << (8 * b);
-  }
-  uint32_t prev = 0;
-  const long long end = off[i + 1];
-  for (long long p = off[i]; p < end; ++p) {
-    const bool more = ptr + 1 < lane_end;
-    const uint32_t word =
-        more ? (static_cast<uint32_t>(payload[ptr]) << 8) | payload[ptr + 1]
-             : 0u;
-    const uint32_t slot = x & kScaleMask;
-    uint32_t s, e;
-    if (kOrder == 0) {
-      s = sym0[slot];
-      e = fcs0[slot];
-    } else {
-      const uint32_t at = (prev << kScaleBits) | slot;
-      s = __ldg(sym_lut + at);
-      e = __ldg(fcs + at);
-    }
-    x = (e & 0xFFFFu) * (x >> kScaleBits) + slot - (e >> 16);
-    if (x < kRansL && more) {
-      x = (x << 16) | word;
-      ptr += 2;
-    }
-    out[p] = static_cast<uint8_t>(s);
-    prev = s;
+// rans_decode's shape: 32 lanes a block, decoded by its first warp while
+// its second copies the decoded bytes out; each lane's payload staged in a
+// ring of kDecRing bytes (a power of two); windows of kDecWindow steps;
+// order-1 tables of at most kSharedRows live contexts in shared memory. The
+// -D switches exist for tools/profile_rans.py --decode's sweep; the
+// defaults are its fastest on the card.
+#ifndef REPAQ_DEC_RING
+#define REPAQ_DEC_RING 2048
+#endif
+#ifndef REPAQ_DEC_SHARED_ROWS
+#define REPAQ_DEC_SHARED_ROWS 6
+#endif
+constexpr int kDecLanes = 32;
+constexpr int kDecThreads = 2 * kDecLanes;  // the decode warp, the copy warp
+constexpr int kDecRing = REPAQ_DEC_RING;
+constexpr int kSharedRows = REPAQ_DEC_SHARED_ROWS;
+// A window reads at most 2 kDecWindow bytes, and the ring is refilled at
+// each window's start up to 4 kDecWindow bytes past the lane's position:
+// with the chunk that holds the position, kDecWindow / 4 + 1 chunks of 16
+// bytes, the ring's.
+constexpr int kDecWindow = kDecRing / 4 - 4;
+constexpr int kRingChunks = kDecRing / 16;
+constexpr int kRingStride = kDecRing + 16;  // lanes' rings start in other banks
+// a lane's decoded bytes of a window, in an odd number of words, so that
+// the lanes' bytes of one step land in 32 distinct banks; two stages, one
+// written while the other is copied out
+constexpr int kStageStride = 4 * (((kDecWindow + 3) / 4) | 1);
+constexpr int kStageBytes = kDecLanes * kStageStride;
+// a context's row: 4096 packed entries and the 4096 symbols of its slots
+constexpr int kRowBytes = 5 << kScaleBits;
+// a stage's runs: each lane's first output byte and count
+struct DecRun {
+  long long dst;
+  int n, pad;
+};
+constexpr size_t kDecLaneBytes =
+    static_cast<size_t>(kDecLanes) * kRingStride + 2 * kStageBytes +
+    2 * kDecLanes * sizeof(DecRun);
+constexpr size_t kMaxSmem = 232448;  // 227 KB, a block's most on Hopper
+constexpr uint32_t kFullMask = 0xFFFFFFFFu;
+static_assert(kDecRing >= 64 && (kDecRing & (kDecRing - 1)) == 0,
+              "a ring of a power of two, 64 bytes or more");
+static_assert(static_cast<size_t>(kSharedRows) * kRowBytes + kDecLaneBytes <=
+                  kMaxSmem,
+              "the shared table, rings, stages and runs fit a block");
+
+// shared memory: [entries of the rows][symbols of the rows] on the shared
+// route, none on the global one; then [rings][stages 0 and 1][runs 0 and 1]
+size_t decode_smem_bytes(int rows, bool shared) {
+  return (shared ? static_cast<size_t>(rows) * kRowBytes : 0) +
+         kDecLaneBytes;
+}
+
+// Named barriers between the decode warp and the copy warp of a block:
+// stage b is full (decoded) or empty (copied out).
+constexpr int kStageFull = 1, kStageEmpty = 3;
+
+// A barrier counts whole warps: each is reached by a converged warp.
+__device__ __forceinline__ void bar_sync(int id) {
+  __syncwarp();
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kDecThreads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  __syncwarp();
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(kDecThreads) : "memory");
+}
+
+// The packed table (rans_device.decode_table): one u32 a (context row,
+// slot), (freq - 1) | row' << 12 | (slot - cum) << 20, where row' is the
+// row of the decoded symbol as the next context. Both 12-bit fields hold
+// their whole range: freq is 1..4096 and slot - cum 0..freq - 1. The
+// shared route holds the live rows only (order-0: one row, row' 0), and a
+// symbol that is no live context, which on a valid section only ends a
+// lane, names the last; the output byte is each slot's symbol, `syms`,
+// beside the entries. The global route holds all 256 rows, row r being
+// context byte r, so row' is the decoded symbol and the output byte: the
+// entry is the step's one load from global memory.
+//
+// Shared-memory loads the compiler keeps where they are written: the
+// payload word is loaded on every step, and must not sink under the branch
+// that uses it, which would put it on the state chain.
+__device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u16 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lds_u8(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u8 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// y < lim ? a : b, the compare and the select in one piece of PTX, so that
+// both candidates are formed before the choice and nothing is left after it
+__device__ __forceinline__ uint32_t select_lt(uint32_t y, uint32_t lim,
+                                              uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("{\n\t.reg .pred p;\n\tsetp.lt.u32 p, %1, %2;\n\t"
+      "selp.b32 %0, %3, %4, p;\n\t}"
+      : "=r"(r) : "r"(y), "r"(lim), "r"(a), "r"(b));
+  return r;
+}
+
+// One decoder step of a lane. kb = 4 (row << 12 | x's slot) is the byte
+// offset of the entry; the entry and the 16-bit word at byte `at` of the
+// lane's ring (shared address `ring`) load side by side (the entry from
+// shared memory on the shared route), and the output byte: the slot's
+// symbol from shared memory (`syms`) on the shared route, the entry's
+// next row on the global one. Then y =
+// freq (x >> 12) + slot - cum, and the word is shifted in when y < lim,
+// which is 2^16 while the lane holds two more bytes (`left`) and else 0.
+// The next offset is either the word's slot or y's in the entry's row:
+// both are formed from y4 = 4 y + 0..3 (an IMAD beside y's) and chosen by
+// one select. Selects, not branches: lanes renormalise on different steps.
+// Returns the symbol.
+template <bool kShared, bool kEven>
+__device__ __forceinline__ uint32_t decode_step(uint32_t& x, uint32_t& kb,
+                                                uint32_t& at, uint32_t& lim,
+                                                uint32_t& left,
+                                                const uint32_t* tab,
+                                                const uint8_t* syms,
+                                                uint32_t ring) {
+  const uint32_t v =  // the word as a little-endian u16: its high byte first
+      kEven ? lds_u16(ring + at)
+            : lds_u8(ring + at) |
+                  lds_u8(ring + ((at + 1) & (kDecRing - 1))) << 8;
+  const uint32_t* const at_e = reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<const uint8_t*>(tab) + kb);
+  const uint32_t e = kShared ? *at_e : __ldg(at_e);
+  const uint32_t s = kShared ? syms[kb >> 2] : (e >> 12) & 0xFFu;
+  const uint32_t w = __byte_perm(v, 0, 0x4401);  // hi << 8 | lo
+  const uint32_t q = x >> kScaleBits, q4 = (x >> (kScaleBits - 2)) & ~3u;
+  const uint32_t f1 = e & kScaleMask;
+  const uint32_t y = f1 * q + q + (e >> 20);
+  const uint32_t y4 = f1 * q4 + q4 + (e >> 18);  // bits 0-1 are not 4 y's
+  const uint32_t row4 = (e & 0xFF000u) << 2;
+  kb = select_lt(y, lim, row4 | ((w << 2) & 0x3FFCu), row4 | (y4 & 0x3FFCu));
+  const bool need = y < lim;
+  x = need ? y << 16 | w : y;
+  at = need ? (at + 2) & (kDecRing - 1) : at;
+  left -= need ? 2u : 0u;
+  lim = left > 1 ? kRansL : 0u;
+  return s;
+}
+
+// A lane of rans_decode_kernel: its payload bytes [a, e) in aligned
+// coordinates (abase = payload - a0; none when e <= a), its output bytes
+// [lo, lo + len), and its ring in shared memory.
+struct DecLane {
+  const uint8_t* abase;
+  long long a, e, lo, len;
+  uint8_t* ring;
+};
+
+// Asynchronous 16-byte copies of the lane's chunks from chunk `next` (in
+// aligned coordinates) through the one that holds byte min(limit, e) - 1,
+// chunk c into ring slot c % kRingChunks. Each chunk holds a byte of the
+// lane, so no copy leaves the payload's allocation.
+__device__ __forceinline__ void top_up(const DecLane& ln, long long& next,
+                                       long long limit) {
+  const long long stop = limit < ln.e ? limit : ln.e;
+  if (stop <= ln.a) return;
+  for (const long long last = (stop + 15) >> 4; next < last; ++next) {
+    cp_async16(ln.ring + ((next & (kRingChunks - 1)) << 4),
+               ln.abase + (next << 4));
   }
 }
 
-unsigned blocks_for(int lanes) {
-  return static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
+// The lane's decode once its first chunks have landed: the state from its
+// first 4 bytes, then windows of kDecWindow steps into stage t % 2, each
+// begun by the request of the bytes the next one may read. A stage is
+// handed to the copy warp when full, with each lane's run, and written
+// again once the copy warp has emptied it; a window whose lanes have no
+// step left hands over empty runs, which end the copy warp's loop. `at`
+// starts at the lane's first word (0 for a lane with no bytes).
+template <bool kShared, bool kEven>
+__device__ __forceinline__ void decode_lanes(const DecLane& ln,
+                                             long long next, uint32_t at,
+                                             const uint32_t* tab,
+                                             const uint8_t* syms,
+                                             uint8_t* stages, DecRun* runs) {
+  const int lane = threadIdx.x & 31;
+  const long long have = ln.e - ln.a;
+  uint32_t x = 0;
+  for (int b = 0; b < 4; ++b) {
+    if (b < have) x |= static_cast<uint32_t>(
+        ln.ring[(ln.a + b) & (kDecRing - 1)]) << (8 * b);
+  }
+  // the lane's bytes past its state (a lane's count is a u32); the first
+  // entry is in row 0, context 0's, the first live one
+  const uint32_t left0 = have <= 4 ? 0u
+                         : have - 4 < 0xFFFFFFFFLL
+                             ? static_cast<uint32_t>(have - 4)
+                             : 0xFFFFFFFFu;
+  uint32_t left = left0, lim = left > 1 ? kRansL : 0u;
+  uint32_t kb = (x & kScaleMask) << 2;
+  const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(
+      ln.ring));
+  for (int t = 0;; ++t) {
+    const long long k0 = static_cast<long long>(t) * kDecWindow;
+    const long long rest = ln.len - k0;
+    const int n = rest <= 0 ? 0 : rest < kDecWindow ? static_cast<int>(rest)
+                                                    : kDecWindow;
+    const int b = t & 1;
+    if (t >= 2) bar_sync(kStageEmpty + b);  // window t - 2 is copied out
+    runs[b * kDecLanes + lane] = {ln.lo + k0, n, 0};
+    if (!__any_sync(kFullMask, n > 0)) {
+      bar_arrive(kStageFull + b);  // empty runs: the copy warp stops
+      if (t >= 1) bar_sync(kStageEmpty + (b ^ 1));  // and has copied t - 1
+      return;
+    }
+    top_up(ln, next, ln.a + 4 + (left0 - left) + 4LL * kDecWindow);
+    cp_async_commit();
+    cp_async_wait_but_one();  // this window's bytes have landed
+    uint8_t* const stage = stages + b * kStageBytes + lane * kStageStride;
+    for (int j = 0; j < n; ++j) {
+      stage[j] = static_cast<uint8_t>(decode_step<kShared, kEven>(
+          x, kb, at, lim, left, tab, syms, ring));
+    }
+    bar_arrive(kStageFull + b);
+  }
+}
+
+// The copy warp: each full stage's runs to `out`, a lane's run at a time,
+// in aligned 32-bit words: word j of a run at out + dst (m bytes past a
+// word) holds stage bytes 4 j - m .. 4 j - m + 3, two stage words funnel-
+// shifted; the first and last words, which the run may share with others,
+// are written byte by byte. Every word of the row is formed and the stores
+// are predicated, with no branch, so that the lanes' loads overlap. Until
+// a stage of empty runs.
+__device__ __forceinline__ void copy_stages(const uint8_t* stages,
+                                            const DecRun* runs,
+                                            uint8_t* __restrict__ out) {
+  // the words a run can touch, in rounds of 32; the stage words they read
+  // (one before the row, up to 32 kRounds - kStageStride / 4 after it) lie
+  // inside shared memory and feed no written byte
+  constexpr int kRounds = (kStageStride / 4 + 1 + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  for (int t = 0;; ++t) {
+    const int b = t & 1;
+    bar_sync(kStageFull + b);
+    if (!__any_sync(kFullMask, runs[b * kDecLanes + lane].n > 0)) return;
+#pragma unroll 8
+    for (int l = 0; l < kDecLanes; ++l) {
+      const DecRun r = runs[b * kDecLanes + l];
+      const int m = static_cast<int>(
+          (reinterpret_cast<uintptr_t>(out) + r.dst) & 3);
+      const int end = m + r.n;
+      const uint32_t* const src = reinterpret_cast<const uint32_t*>(
+          stages + b * kStageBytes + l * kStageStride);
+      uint8_t* const base = out + (r.dst - m);
+#pragma unroll
+      for (int u = 0; u < kRounds; ++u) {
+        const int p = 4 * (lane + 32 * u);
+        const uint32_t v = __funnelshift_rc(src[p / 4 - 1], src[p / 4],
+                                            32 - 8 * m);
+        const bool full = p >= m && p + 4 <= end;
+        if (full) *reinterpret_cast<uint32_t*>(base + p) = v;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (!full && p + k >= m && p + k < end) {
+            base[p + k] = static_cast<uint8_t>(v >> (8 * k));
+          }
+        }
+      }
+    }
+    bar_arrive(kStageEmpty + b);
+  }
+}
+
+// 32 lanes a block. On the shared route both warps stage the block's
+// tables; then the first decodes, a thread a lane, and the second copies
+// its output out. Lane i reads its payload bytes [start_i, min(start_i +
+// counts[i], plen)), start_i the sum of the counts before it (the decode
+// warp sums those of the lanes before it: all blocks together read
+// lanes^2 / 64 counts, 2 MB at 4096 lanes and 0.5 GB at the section
+// format's most, 65,535), and writes lane i's part of the split of n
+// bytes of rans_np.lane_slices, the one split the section format has.
+// Blocks whose lanes all start at an even aligned offset read each word
+// as one u16, the others as two bytes. An order-0 section is a table of
+// one row.
+template <bool kShared>
+__global__ void __launch_bounds__(kDecThreads)
+    rans_decode_kernel(const uint8_t* __restrict__ payload, long long plen,
+                       const long long* __restrict__ counts, int lanes,
+                       long long n, const uint32_t* __restrict__ table,
+                       const uint8_t* __restrict__ syms, int rows,
+                       uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  uint32_t* const table_s = reinterpret_cast<uint32_t*>(smem);
+  uint8_t* const syms_s = smem + (kShared ? rows << (kScaleBits + 2) : 0);
+  uint8_t* const rings = smem + (kShared ? rows * kRowBytes : 0);
+  uint8_t* const stages = rings + kDecLanes * kRingStride;
+  DecRun* const runs = reinterpret_cast<DecRun*>(stages + 2 * kStageBytes);
+  if (kShared) {
+    for (int v = tid; v < rows << (kScaleBits - 2); v += kDecThreads) {
+      cp_async16(table_s + 4 * v, table + 4 * v);
+    }
+    for (int v = tid; v < rows << (kScaleBits - 4); v += kDecThreads) {
+      cp_async16(syms_s + 16 * v, syms + 16 * v);
+    }
+  }
+  cp_async_commit();
+  if (tid >= kDecLanes) {  // the copy warp
+    cp_async_wait_all();
+    __syncthreads();  // the tables have landed
+    copy_stages(stages, runs, out);
+    return;
+  }
+
+  const int i = blockIdx.x * kDecLanes + lane;
+  const bool active = i < lanes;
+  // the counts of the lanes before this block's, two at a time
+  const int pairs = blockIdx.x * (kDecLanes / 2);
+  const longlong2* const count2 = reinterpret_cast<const longlong2*>(counts);
+  long long before = 0;
+  for (int k0 = lane; k0 < pairs; k0 += 32 * 8) {
+    longlong2 v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int k = k0 + 32 * u;
+      v[u] = k < pairs ? __ldg(count2 + k) : make_longlong2(0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) before += v[u].x + v[u].y;
+  }
+  const long long mine = active ? counts[i] : 0;
+  long long incl = mine;
+  for (int d = 1; d < 32; d <<= 1) {
+    const long long t = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += t;
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    before += __shfl_xor_sync(kFullMask, before, d);
+  }
+  const long long start = before + incl - mine;
+  const long long ps = start < 0 ? 0 : start < plen ? start : plen;
+  const long long end = start + mine;
+  const long long pe = end < ps ? ps : end < plen ? end : plen;
+
+  const int a0 = static_cast<int>(reinterpret_cast<uintptr_t>(payload) & 15);
+  DecLane ln;
+  ln.abase = payload - a0;
+  ln.a = ps + a0;
+  ln.e = pe + a0;
+  const long long q = n / lanes, r = n % lanes;
+  ln.lo = i * q + (i < r ? i : r);
+  ln.len = active ? q + (i < r ? 1 : 0) : 0;
+  ln.ring = rings + lane * kRingStride;
+  // the bytes window 0 reads now; its own top-up requests the rest
+  long long next = ln.a >> 4;
+  top_up(ln, next, ln.a + 4 + 2LL * kDecWindow);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();  // the tables have landed
+
+  const uint32_t* const tab = kShared ? table_s : table;
+  const uint32_t at =
+      ln.e > ln.a ? static_cast<uint32_t>(ln.a + 4) & (kDecRing - 1) : 0u;
+  if (__all_sync(kFullMask, !(at & 1))) {
+    decode_lanes<kShared, true>(ln, next, at, tab, syms_s, stages, runs);
+  } else {
+    decode_lanes<kShared, false>(ln, next, at, tab, syms_s, stages, runs);
+  }
 }
 
 long long layout_tiles(long long steps) {
@@ -748,18 +1066,50 @@ extern "C" int repaq_rans_layout(const void* words, const void* emits,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The built decode window (steps) and shared-table limit (live contexts):
+// the card tests and chip_smoke.py place their edge cases by them.
+extern "C" long long repaq_rans_decode_window() { return kDecWindow; }
+extern "C" long long repaq_rans_decode_shared_rows() { return kSharedRows; }
+
+// table: the packed rows (rans_device.decode_table); syms: their slots'
+// symbols on the shared route, in shared memory with them (order-0
+// always: one row), else null, with the table's 256 rows read from global
+// memory; counts, table and syms 16-byte aligned; out gets the split of n
+// bytes of rans_np.lane_slices.
 extern "C" int repaq_rans_decode(const void* payload, long long plen,
-                                 const void* lane_start, const void* off,
-                                 int lanes, const void* sym_lut,
-                                 const void* fcs, int order, void* out,
+                                 const void* counts, int lanes, long long n,
+                                 const void* table, const void* syms,
+                                 int rows, int shared, int order, void* out,
                                  void* stream) {
-  auto* kernel = order == 0 ? rans_decode_kernel<0> : rans_decode_kernel<1>;
-  kernel<<<blocks_for(lanes), kThreads, 0,
+  if (lanes <= 0) return 0;
+  const uintptr_t aligned = reinterpret_cast<uintptr_t>(counts) |
+                            reinterpret_cast<uintptr_t>(table) |
+                            reinterpret_cast<uintptr_t>(syms);
+  if ((aligned & 15) || (shared != 0) == (syms == nullptr) ||
+      (shared ? rows < 1 || rows > kSharedRows || (order == 0 && rows != 1)
+              : order == 0 || rows != 256)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* kernel = shared ? rans_decode_kernel<true> : rans_decode_kernel<false>;
+  // raised once per device and route to the route's most, as for
+  // rans_encode
+  static bool raised[2][64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64 || !raised[shared != 0][dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(decode_smem_bytes(kSharedRows, shared != 0)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 64) raised[shared != 0][dev] = true;
+  }
+  kernel<<<static_cast<unsigned>((lanes + kDecLanes - 1) / kDecLanes),
+           kDecThreads, decode_smem_bytes(rows, shared != 0),
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(payload), plen,
-      static_cast<const long long*>(lane_start),
-      static_cast<const long long*>(off), lanes,
-      static_cast<const uint8_t*>(sym_lut), static_cast<const uint32_t*>(fcs),
-      static_cast<uint8_t*>(out));
+      static_cast<const long long*>(counts), lanes, n,
+      static_cast<const uint32_t*>(table), static_cast<const uint8_t*>(syms),
+      rows, static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -139,8 +139,13 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_rans_layout_tile_steps.restype = ll
     lib.repaq_rans_layout_tile_lanes.argtypes = []
     lib.repaq_rans_layout_tile_lanes.restype = ll
-    lib.repaq_rans_decode.argtypes = [vp, ll, vp, vp, ci, vp, vp, ci, vp, vp]
+    lib.repaq_rans_decode.argtypes = [vp, ll, vp, ci, ll, vp, vp, ci, ci, ci,
+                                      vp, vp]
     lib.repaq_rans_decode.restype = ci
+    lib.repaq_rans_decode_window.argtypes = []
+    lib.repaq_rans_decode_window.restype = ll
+    lib.repaq_rans_decode_shared_rows.argtypes = []
+    lib.repaq_rans_decode_shared_rows.restype = ll
     lib.repaq_overlap_pairs.argtypes = [vp, ll, ci, vp, ll, ci, ll, vp, vp]
     lib.repaq_overlap_pairs.restype = ci
     return lib

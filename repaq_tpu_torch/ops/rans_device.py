@@ -24,7 +24,12 @@ Three CUDA kernels (``csrc/rans.cu``) replace the JAX module's two
   built shape is ``layout_tile()``), each lane's base from the counts the
   tiles above it publish, a warp writing a lane's words as one run;
 - ``rans_decode``: one thread per lane runs the decoder forward over its
-  payload bytes into its slice of the output.
+  payload bytes into its slice of the output, its bytes staged in shared
+  memory a window ahead, its output staged and copied out in runs, and
+  the section's tables packed per context by ``decode_table`` (the live
+  rows in shared memory when at most ``decode_shared_rows()`` contexts
+  are live: the "shared" route; else all rows read from global memory:
+  "global").
 
 The wrappers follow ops/kernels.py: a CPU tensor runs the plain torch
 version (same signature, the lanes in lockstep, one step of int64
@@ -46,7 +51,7 @@ import torch
 from ..codec import rans_np
 
 from . import _build
-from .kernels import _check_u8, _launch, _on_cuda, _stream
+from .kernels import _aligned, _check_u8, _launch, _on_cuda, _stream
 
 SCALE_BITS = rans_np.SCALE_BITS
 SCALE = rans_np.SCALE
@@ -138,14 +143,21 @@ def _lane_offsets(n: int, lanes: int, offsets) -> tuple[np.ndarray, int]:
     return off, int(np.diff(off).max())
 
 
-def _fc_table(freq_lut: torch.Tensor, cum_lut: torch.Tensor, order: int):
-    """freq | cum << 16 in one int32 per entry (freq <= SCALE, cum <
-    SCALE): (256,) for order-0, (65536,) for order-1 (context-major)."""
+def _check_tables(freq_lut, cum_lut, order: int, sym_lut=None) -> None:
     shape = (256,) if order == 0 else (256, 256)
     if tuple(freq_lut.shape) != shape or tuple(cum_lut.shape) != shape:
         raise ValueError("order-%d tables must be %s, got %s and %s"
                          % (order, shape, tuple(freq_lut.shape),
                             tuple(cum_lut.shape)))
+    if (sym_lut is not None
+            and sym_lut.numel() != SCALE * (1 if order == 0 else 256)):
+        raise ValueError("sym_lut must hold %d entries per context" % SCALE)
+
+
+def _fc_table(freq_lut: torch.Tensor, cum_lut: torch.Tensor, order: int):
+    """freq | cum << 16 in one int32 per entry (freq <= SCALE, cum <
+    SCALE): (256,) for order-0, (65536,) for order-1 (context-major)."""
+    _check_tables(freq_lut, cum_lut, order)
     return (freq_lut.to(torch.int32)
             | (cum_lut.to(torch.int32) << 16)).reshape(-1).contiguous()
 
@@ -340,9 +352,10 @@ def rans_encode_payload_device(data: torch.Tensor, freq_lut: torch.Tensor,
     return payload, lane_bytes, lane_bytes.sum()
 
 
-def _decode_args(payload, lane_counts, lanes, steps, offsets):
-    """Host lane offsets and the lanes' payload starts (lanes+1,) int64 on
-    the payload's device."""
+def _decode_offsets(payload, lane_counts, lanes, steps, offsets):
+    """Host lane offsets (lanes+1,) int64 of a decode: the equal split of
+    lanes * steps bytes, or the given `offsets`, which must be
+    rans_np.lane_slices' split, the only one the section format has."""
     _check_u8("payload", payload)
     if tuple(lane_counts.shape) != (lanes,):
         raise ValueError("lane_counts must be (%d,), got %s"
@@ -350,16 +363,109 @@ def _decode_args(payload, lane_counts, lanes, steps, offsets):
     if offsets is None:
         if lanes < 1:
             raise ValueError("need at least one lane, got %d" % lanes)
-        off = np.arange(lanes + 1, dtype=np.int64) * steps
-    else:
-        off, _ = _lane_offsets(int(np.asarray(offsets)[-1]), lanes, offsets)
-    zero = torch.zeros(1, dtype=torch.int64, device=lane_counts.device)
-    lane_start = torch.cat([zero, torch.cumsum(lane_counts.long(), 0)])
-    return off, lane_start
+        return np.arange(lanes + 1, dtype=np.int64) * steps
+    n = int(np.asarray(offsets)[-1])
+    off = _lane_offsets(n, lanes, offsets)[0]
+    if not np.array_equal(off, rans_np.lane_slices(n, lanes)):
+        raise ValueError("offsets must be rans_np.lane_slices(%d, %d), the "
+                         "section format's split" % (n, lanes))
+    return off
 
 
 def _decode_result(out: torch.Tensor, lanes: int, steps: int, offsets):
     return out.view(lanes, steps).T if offsets is None else out
+
+
+_consts: dict = {}
+
+
+def _const(name: str, device: torch.device) -> torch.Tensor:
+    """Constants of the table packing on `device`, built once per process
+    and device: "slot" (SCALE,) slot << 20 and "next" (256,) r << 12 - 1,
+    int64."""
+    t = _consts.get((name, device))
+    if t is None:
+        t = {"slot": torch.arange(SCALE) << 20,
+             "next": (torch.arange(256) << 12) - 1}[name]
+        t = _consts[(name, device)] = t.to(device)
+    return t
+
+
+def live_contexts(freqs: np.ndarray) -> int:
+    """The live contexts of host tables (256,) or (256, 256): 1 for
+    order-0, else the nonzero rows (at least 1)."""
+    return 1 if freqs.ndim == 1 else max(1, int(freqs.any(axis=1).sum()))
+
+
+def _live_of(freq_lut: torch.Tensor, order: int) -> int:
+    """The live contexts of device tables, read on the host (one
+    device-to-host copy on a card)."""
+    return 1 if order == 0 else max(1, int(freq_lut.any(1).sum()))
+
+
+def decode_table(sym_lut: torch.Tensor, freq_lut: torch.Tensor,
+                 cum_lut: torch.Tensor, order: int, live: int | None):
+    """The tables ``rans_decode`` reads, packed per context, built with
+    torch on the tables' device. Returns (table (rows, SCALE) int32, syms
+    (rows, SCALE) uint8 or None).
+
+    Entry (r, slot) of a row, for the symbol s at that slot of the row's
+    context in sym_lut, is (freq - 1) | next << 12 | (slot - cum) << 20 as
+    a u32: freq and cum those of s in that context, next the row of s as a
+    context (0 for order-0). The decoder's step is then x' = (freq - 1 +
+    1) (x >> 12) + (slot - cum) and its next entry is in row next.
+
+    With `live`, the live contexts (``_live_of``: the nonzero rows of
+    freq_lut; 1 for order-0), the shared route's layout: the live rows
+    only, ascending by context, a symbol that is no live context (on a
+    valid section it only ends a lane) naming the last of them, so that
+    every row a corrupt payload reaches lies in the table, and syms, each
+    slot's symbol, the output byte. With None (order-1 only), the global
+    route's: all 256 rows, row r being context r, so next is the symbol
+    itself and the output byte, and syms is None."""
+    _check_order(order)
+    _check_tables(freq_lut, cum_lut, order, sym_lut)
+    if order == 0 and live is None:
+        raise ValueError("an order-0 table takes the shared route")
+    dev = freq_lut.device
+    ctx = 1 if order == 0 else 256
+    sym = sym_lut.reshape(ctx, SCALE)
+    # per (context, symbol): freq - 1 - cum << 20 + next << 12
+    per_sym = torch.add(freq_lut.reshape(ctx, 256).long(),
+                        cum_lut.reshape(ctx, 256), alpha=-(1 << 20))
+    if order == 0:
+        per_sym -= 1
+    elif live is None:
+        per_sym += _const("next", dev)
+    else:
+        # the live rows first, ascending; a symbol's next row is its place
+        rows = torch.sort(freq_lut.any(1), descending=True,
+                          stable=True).indices
+        nxt = torch.empty_like(rows).scatter_(0, rows, _const("next", dev))
+        per_sym += nxt.clamp_(max=((live - 1) << 12) - 1)
+        per_sym, sym = per_sym[rows[:live]], sym[rows[:live]]
+    table = (per_sym.gather(1, sym.long()) + _const("slot", dev)).to(
+        torch.int32)
+    return table, None if live is None else sym.to(torch.uint8)
+
+
+def decode_window() -> int:
+    """Steps of a lane that the built ``rans_decode`` decodes between two
+    copy-outs of its staged bytes (card-side tests place lane lengths by
+    it)."""
+    return int(_build.library().repaq_rans_decode_window())
+
+
+def decode_shared_rows() -> int:
+    """Live contexts whose packed rows the built ``rans_decode`` holds in
+    shared memory; more take the global route."""
+    return int(_build.library().repaq_rans_decode_shared_rows())
+
+
+# the routes ``rans_decode_device`` launched, and the last one's (order,
+# live contexts, route)
+decode_routes = {"shared": 0, "global": 0}
+last_decode = None
 
 
 def rans_decode_plain(payload: torch.Tensor, lane_counts: torch.Tensor,
@@ -368,8 +474,7 @@ def rans_decode_plain(payload: torch.Tensor, lane_counts: torch.Tensor,
                       order: int, *, offsets=None) -> torch.Tensor:
     """Plain torch version of ``rans_decode_device``."""
     _check_order(order)
-    off_np, lane_start = _decode_args(payload, lane_counts, lanes, steps,
-                                      offsets)
+    off_np = _decode_offsets(payload, lane_counts, lanes, steps, offsets)
     fc = _fc_table(freq_lut, cum_lut, order).long()
     dev = payload.device
     lens = torch.from_numpy(np.diff(off_np)).to(dev)
@@ -377,12 +482,13 @@ def rans_decode_plain(payload: torch.Tensor, lane_counts: torch.Tensor,
     # one zero byte past the end: every masked read lands there
     p = torch.cat([payload.long(), torch.zeros(1, dtype=torch.int64,
                                                device=dev)])
-    lane_end = lane_start[1:].clamp(max=plen)
+    ends = torch.cumsum(lane_counts.long(), 0)
+    lane_end = ends.clamp(max=plen)
 
     def byte(pos, ok):
         return p[torch.where(ok, pos, plen)]
 
-    ptr = lane_start[:-1].clone()
+    ptr = ends - lane_counts.long()
     x = torch.zeros(lanes, dtype=torch.int64, device=dev)
     for b in range(4):
         x |= byte(ptr, ptr < lane_end) << (8 * b)
@@ -424,35 +530,52 @@ def rans_decode_device(payload: torch.Tensor, lane_counts: torch.Tensor,
     lane; sym_lut (SCALE,) u8 for order-0, (256, SCALE) for order-1;
     freq_lut/cum_lut as for ``rans_encode_device``. Without `offsets`, the
     equal split of lanes * steps bytes, returned as JAX's (steps, lanes)
-    grid; with host `offsets` (lanes+1,), lane i decodes into
-    out[off[i]:off[i+1]] of the flat (off[-1],) result (steps is then
-    unused). The kernel is ``rans_decode``."""
+    grid; with host `offsets` (lanes+1,), which must be rans_np.lane_slices'
+    split (ragged lanes), the flat (off[-1],) result (steps is then
+    unused). The kernel is ``rans_decode``: the tables are packed on the
+    card (``decode_table``) and the lane starts and the split computed in
+    the kernel; the live contexts, counted on the card (one read), choose
+    the route."""
+    return _rans_decode(payload, lane_counts, sym_lut, freq_lut, cum_lut,
+                        lanes, steps, order, offsets, None)
+
+
+def _rans_decode(payload, lane_counts, sym_lut, freq_lut, cum_lut, lanes,
+                 steps, order, offsets, live):
+    """``rans_decode_device`` with `live`, the order-1 live contexts when
+    the caller counted them on the host from the same tables
+    (``live_contexts``, as ``decode_section_device`` does), or None to
+    count them on the card."""
+    global last_decode
     _check_order(order)
-    off_np, lane_start = _decode_args(payload, lane_counts, lanes, steps,
-                                      offsets)
-    fc = _fc_table(freq_lut, cum_lut, order)
-    sym = sym_lut.reshape(-1)
-    if sym.shape[0] != SCALE * (1 if order == 0 else 256):
-        raise ValueError("sym_lut must hold %d entries per context"
-                         % SCALE)
-    if not _on_cuda(payload, lane_start, sym, fc):
+    off_np = _decode_offsets(payload, lane_counts, lanes, steps, offsets)
+    _check_tables(freq_lut, cum_lut, order, sym_lut)
+    if not _on_cuda(payload, lane_counts, sym_lut, freq_lut, cum_lut):
         return rans_decode_plain(payload, lane_counts, sym_lut, freq_lut,
                                  cum_lut, lanes, steps, order,
                                  offsets=offsets)
     lib = _build.library()
     dev = payload.device
     payload = payload.contiguous()
-    sym = sym.to(torch.uint8).contiguous()
-    # each slot's entry beside its symbol: the kernel loads both at once
-    rows = 1 if order == 0 else 256
-    fcs = fc.view(rows, 256).gather(1, sym.view(rows, SCALE).long())
-    off = torch.from_numpy(off_np).to(dev)
-    out = torch.empty(int(off_np[-1]), dtype=torch.uint8, device=dev)
+    counts = _aligned(lane_counts.long())
+    if live is None:
+        live = _live_of(freq_lut, order)
+    shared = order == 0 or live <= decode_shared_rows()
+    table, syms = decode_table(sym_lut, freq_lut, cum_lut, order,
+                               live if shared else None)
+    if syms is not None:
+        syms = _aligned(syms)
+    n = int(off_np[-1])
+    out = torch.empty(n, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         _launch("rans_decode", lib.repaq_rans_decode, payload.data_ptr(),
-                payload.shape[0], lane_start.data_ptr(), off.data_ptr(),
-                lanes, sym.data_ptr(), fcs.data_ptr(), order, out.data_ptr(),
+                payload.shape[0], counts.data_ptr(), lanes, n,
+                table.data_ptr(), None if syms is None else syms.data_ptr(),
+                table.shape[0], int(shared), order, out.data_ptr(),
                 _stream(dev))
+    route = "shared" if shared else "global"
+    decode_routes[route] += 1
+    last_decode = (order, live, route)
     return _decode_result(out, lanes, steps, offsets)
 
 
@@ -487,10 +610,11 @@ def encode_section_device(data, order: int = 0,
                      payload[:total].cpu().numpy().tobytes()])
 
 
-def decode_section_device(buf, off: int = 0, *, device) -> tuple[bytes, int]:
-    """Drop-in for rans_np.decode_section(buf, off): (raw bytes, offset
-    past the section), with the decoder on `device`. The section is
-    checked before any launch: a short buffer raises
+def parse_section(buf, off: int = 0):
+    """The parts of the section at `off` of `buf`, checked as
+    rans_np.decode_section checks them: (order, n, lanes, payload u8,
+    lane counts int64, freqs, cum, sym_lut, offset past the section);
+    n = 0 gives None for the arrays. A short buffer raises
     ``rans_np.RansTruncated`` (a ValueError; "rANS section truncated"
     past the tables, as the JAX module says), a bad lane table
     ValueError("rANS section lane table corrupt")."""
@@ -505,7 +629,7 @@ def decode_section_device(buf, off: int = 0, *, device) -> tuple[bytes, int]:
         if len(buf) - off < 4:
             raise rans_np.RansTruncated(
                 "rANS section truncated (empty payload len)")
-        return b"", off + 4
+        return order, 0, lanes, None, None, None, None, None, off + 4
     if lanes < 1:
         raise ValueError("rANS section lane count corrupt (0 with n > 0)")
     freqs, cum, sym, off = _parse_tables(buf, off, order)
@@ -522,9 +646,21 @@ def decode_section_device(buf, off: int = 0, *, device) -> tuple[bytes, int]:
     if (int(counts.sum()) != payload_len or (counts < 4).any()
             or ((counts - 4) % 2).any()):
         raise ValueError("rANS section lane table corrupt")
+    return order, n, lanes, payload, counts, freqs, cum, sym, off
+
+
+def decode_section_device(buf, off: int = 0, *, device) -> tuple[bytes, int]:
+    """Drop-in for rans_np.decode_section(buf, off): (raw bytes, offset
+    past the section), with the decoder on `device`. The section is
+    checked before any launch (``parse_section``)."""
+    order, n, lanes, payload, counts, freqs, cum, sym, off = parse_section(
+        buf, off)
+    if n == 0:
+        return b"", off
     dev = torch.device(device)
-    out = rans_decode_device(
+    out = _rans_decode(
         _to(payload, dev), _to(counts, dev), _to(sym, dev),
         _to(freqs.astype(np.int32), dev), _to(cum.astype(np.int32), dev),
-        lanes, 0, order, offsets=rans_np.lane_slices(n, lanes))
+        lanes, 0, order, rans_np.lane_slices(n, lanes),
+        live_contexts(freqs))
     return out.cpu().numpy().tobytes(), off

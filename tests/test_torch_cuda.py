@@ -21,11 +21,12 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
-from chip_smoke import (FSM_KINDS, LAYOUT_CASES, OVERLAP_CASES, RANS_CASES,
-                        RANS_SHAPES, RUN_KINDS, SEG_KINDS, fsm_case,
-                        layout_case, overlap_case, rans_case,
-                        rans_case_inputs, rans_shape_data, run_case,
-                        seg_case)
+from chip_smoke import (DECODE_CASES, FSM_KINDS, LAYOUT_CASES,
+                        OVERLAP_CASES, RANS_CASES, RANS_SHAPES, RUN_KINDS,
+                        SEG_KINDS, _decode_case_makers, decode_case,
+                        decode_case_inputs, fsm_case, layout_case,
+                        overlap_case, rans_case, rans_case_inputs,
+                        rans_shape_data, run_case, seg_case)
 from test_device_engine import _mk_block
 
 
@@ -609,6 +610,70 @@ def test_rans_layout_at_rans_shapes(cuda, index):
     size = 4 + 2 * emits.sum(0)
     _layout_held([words, emits, final, torch.cumsum(size, 0) - size],
                  2 * data.shape[0] + 4 * lanes + 8)
+
+
+def _decode_route(name, window, rows):
+    """The route rans_decode must take on a DECODE_CASES case: the
+    qualities' and the limit's tables in shared memory, one past the limit
+    and all contexts live from global memory."""
+    order, _n, _lanes, _shift, kind = _decode_case_makers(window, rows)[name]
+    if order == 0 or kind != "uniform" and not name.endswith("past the "
+                                                             "shared limit"):
+        return "shared"
+    return "global"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DECODE_CASES)
+def test_rans_decode_edges(cuda, name):
+    """The edges of the decode kernel (chip_smoke's DECODE_CASES, placed
+    by the built window and shared limit) against its plain version and
+    the data, one launch each, on the route its live contexts choose."""
+    window, rows = RD.decode_window(), RD.decode_shared_rows()
+    order, data, lanes, shift = decode_case(name, window, rows)
+    args, off = decode_case_inputs(cuda, order, data, lanes, shift)
+    before = TK.launches["rans_decode"]
+    routes = dict(RD.decode_routes)
+    got = RD.rans_decode_device(*args, offsets=off)
+    torch.cuda.synchronize()
+    assert TK.launches["rans_decode"] == before + 1
+    route = _decode_route(name, window, rows)
+    assert RD.last_decode[2] == route
+    assert RD.decode_routes[route] == routes[route] + 1
+    assert np.array_equal(got.cpu().numpy(), data)
+    assert torch.equal(got, RD.rans_decode_plain(*args, offsets=off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["o1 live contexts at the shared limit",
+                                  "o1 uniform random bytes",
+                                  "o0 lanes of window + 1"])
+def test_rans_decode_corrupt_payload(cuda, name):
+    """A payload of other bytes, one shifted to an odd address and lane
+    counts that run past it: the kernel returns on either route and gives
+    the right shape, and the bytes around the payload in its allocation
+    (0x00 in one run, 0xFF in the other) never change the output, so every
+    byte it decodes comes from inside the payload."""
+    window, rows = RD.decode_window(), RD.decode_shared_rows()
+    order, data, lanes, _shift = decode_case(name, window, rows)
+    args, off = decode_case_inputs(cuda, order, data, lanes, 0)
+    rng = np.random.default_rng(lanes)
+    payload = torch.from_numpy(rng.integers(
+        0, 256, size=args[0].shape[0] // 2 + 1, dtype=np.uint8)).to(cuda)
+    plen = payload.shape[0]
+    for shift, extra in ((0, 0), (1, 3)):
+        outs = []
+        for fill in (0x00, 0xFF):
+            buf = torch.full((plen + 64,), fill, dtype=torch.uint8,
+                             device=cuda)
+            p = buf[32 + shift:32 + plen]
+            p.copy_(payload[shift:])
+            outs.append(RD.rans_decode_device(p, args[1] + extra, *args[2:],
+                                              offsets=off))
+            torch.cuda.synchronize()
+            assert outs[-1].shape == (data.shape[0],)
+            assert RD.last_decode[2] == _decode_route(name, window, rows)
+        assert torch.equal(*outs)
 
 
 @pytest.mark.cuda

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""The rANS encode and layout kernels (repaq_tpu_torch/csrc/rans.cu,
-rans_encode and rans_layout) on one NVIDIA GPU: their shape sweeps, the
-floor the encode's state chain sets, and an earlier source of either timed
-in turns beside the current one.
+"""The rANS kernels (repaq_tpu_torch/csrc/rans.cu: rans_encode,
+rans_layout, rans_decode) on one NVIDIA GPU: their shape sweeps, the
+floors the encode's and the decode's state chains set, and an earlier
+source of each timed in turns beside the current one.
 
     python3 tools/profile_rans.py [--parent OLD_rans.cu] [--real]
                                   [--sass OUT.txt] [--ablate]
     python3 tools/profile_rans.py --layout [--parent OLD_rans.cu]
+    python3 tools/profile_rans.py --decode [--parent OLD_rans.cu] [--ablate]
 
 Builds csrc/rans.cu with the package's nvcc flags once as the package
 builds it and once for each point of SWEEP (-DREPAQ_RANS_THREADS, _WINDOW,
@@ -45,7 +46,32 @@ timed beside them. OLD_rans.cu is then an earlier source whose
 repaq_rans_layout(words, emits, final, start, lanes, steps, payload, cap,
 stream) takes no status words (PR 10's: ``git show
 019f466:repaq_tpu_torch/csrc/rans.cu``), timed in turns, old, new, new,
-old. The last line of output is one JSON object.
+old.
+
+--decode profiles rans_decode instead, on the host coder's sections of
+RANS_SHAPES (the shared route: their order-1 tables have 5 live contexts),
+of uniform random order-1 bytes (all 256 contexts live: the global
+route) and of the order-0 bytes in the format's most lanes, 65,535: the
+package's wrapper (table packing, then the launch; as
+decode_section_device calls it, with the host's live count, and as
+rans_decode_device runs, counting them on the card), the packing alone,
+and the kernel alone on tables packed beforehand, for the
+package build and each point of DECODE_SWEEP (-DREPAQ_DEC_RING,
+_SHARED_ROWS: ring bytes a lane, and the most live contexts that fit in
+shared memory beside the rings), each exact against the package's
+output, which equals the section's data; then the decode step's chain
+(decode_step alone in tools/rans_chain_probe.cu: its table in shared
+memory, or a 256-row table read from global memory) and the floor it
+sets. OLD_rans.cu is then the PR 3 decoder, whose repaq_rans_decode(
+payload, plen, lane_start, off, lanes, sym_lut, fcs, order, out, stream)
+reads lane starts, offsets and an fcs table the caller builds (``git show
+f541c4e:repaq_tpu_torch/csrc/rans.cu``); it is timed in turns with the
+package's build, old, new, new, old, alone and with its wrapper's work
+(the lane starts' zeros/cumsum/cat, the offsets' copy, the fcs gather).
+--decode --ablate times the package build with a part cut out
+(DECODE_ABLATIONS): the stage stores, the copy-out, the payload word's
+load, or all lanes of each warp but its first, which runs the same steps
+with no bank conflicts. The last line of output is one JSON object.
 """
 
 from __future__ import annotations
@@ -68,6 +94,30 @@ OLD = "parent"
 SWEEP = [(t, w, b) for t in (32, 64, 128) for w in (512, 1024)
          for b in (8, 16)]
 PROBE_STEPS = 1 << 16
+# --decode: ring bytes a lane
+DECODE_SWEEP = [256, 512, 1024, 2048]
+# the section format's most lanes (a u16 field)
+MAX_LANES = 65535
+# --decode --ablate: rans_decode with a part cut out (outputs wrong on
+# purpose): the stage stores (one store a window instead), the copy-out,
+# the payload word's load (a constant word), the output byte's load (the
+# entry stands in), or all lanes of a warp but its first (the same steps
+# with no bank conflicts)
+DECODE_ABLATIONS = {
+    "no stage stores": [(
+        "      stage[j] = static_cast<uint8_t>(decode_step<kShared, kEven>(",
+        "      stage[0] ^= static_cast<uint8_t>(decode_step<kShared, kEven>(")],
+    "no copy-out": [("    for (int l = 0; l < kDecLanes; ++l) {",
+                     "    for (int l = kDecLanes; l < kDecLanes; ++l) {")],
+    "no word load": [("      kEven ? lds_u16(ring + at)",
+                      "      kEven ? 0x5A5Au + at")],
+    "no symbol load": [(
+        "  const uint32_t s = kShared ? syms[kb >> 2] : (e >> 12) & 0xFFu;",
+        "  const uint32_t s = e;")],
+    "one lane a warp": [(
+        "  ln.len = active ? q + (i < r ? 1 : 0) : 0;",
+        "  ln.len = active && lane == 0 ? q + (i < r ? 1 : 0) : 0;")],
+}
 # --layout: (tile steps, tile lanes)
 LAYOUT_SWEEP = [(t, w) for t in (64, 128, 256, 512) for w in (32, 64, 128)]
 # --layout --ablate: rans_layout with a phase cut out (outputs wrong on
@@ -294,22 +344,50 @@ def max_sm_clock_mhz() -> float:
     return float(r.stdout.split()[0])
 
 
-def chain_cycles(dev, tmp: str) -> float:
-    """Cycles of one encode_step on the state chain alone (the median of 5
-    probe runs of PROBE_STEPS steps on NovaSeq-like order-0 symbols)."""
+def probe_lib(tmp: str):
+    """tools/rans_chain_probe.cu built and loaded."""
+    so = _nvcc_jobs(tmp, {"probe": (PROBE, [])})["probe"]
+    lib = ctypes.CDLL(so)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.repaq_rans_chain_probe.argtypes = [vp, ci, vp, vp, vp]
+    lib.repaq_rans_chain_probe.restype = ci
+    lib.repaq_rans_decode_chain_probe.argtypes = [vp, vp, ci, vp, ci, ci, vp,
+                                                  vp, vp]
+    lib.repaq_rans_decode_chain_probe.restype = ci
+    lib.repaq_rans_decode_probe_ring.argtypes = []
+    lib.repaq_rans_decode_probe_ring.restype = ci
+    return lib
+
+
+def _probe_runs(launch, dev) -> float:
+    """The median cycles a step of 5 probe runs (after one warm-up) of
+    PROBE_STEPS steps; launch(cycles, out) starts one."""
     import statistics
 
+    import torch
+
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    runs = []
+    for _ in range(6):
+        rc = launch(cycles, out)
+        if rc:
+            raise RuntimeError("chain probe launch refused: error %d" % rc)
+        torch.cuda.synchronize()
+        runs.append(int(cycles.item()) / PROBE_STEPS)
+    return statistics.median(runs[1:])
+
+
+def chain_cycles(dev, lib) -> float:
+    """Cycles of one encode_step on the state chain alone (the median of 5
+    probe runs of PROBE_STEPS steps on NovaSeq-like order-0 symbols);
+    lib: probe_lib()'s."""
     import numpy as np
     import torch
 
     from repaq_tpu_torch.codec import rans_np
     from repaq_tpu_torch.ops import rans_device as RD
 
-    so = _nvcc_jobs(tmp, {"probe": (PROBE, [])})["probe"]
-    lib = ctypes.CDLL(so)
-    vp = ctypes.c_void_p
-    lib.repaq_rans_chain_probe.argtypes = [vp, ctypes.c_int, vp, vp, vp]
-    lib.repaq_rans_chain_probe.restype = ctypes.c_int
     freqs = rans_np.quantize_freqs(np.bincount(
         np.frombuffer(b"F" * 86 + b":" * 9 + b"," * 4 + b"#", np.uint8),
         minlength=256))
@@ -321,18 +399,49 @@ def chain_cycles(dev, tmp: str) -> float:
         syms.append([e, *rcp[freqs[s]], 0])
     syms = torch.tensor(np.array(syms, dtype=np.uint32).view(np.int32),
                         device=dev)
-    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
-    out = torch.zeros(1, dtype=torch.int32, device=dev)
-    runs = []
-    for _ in range(6):
-        rc = lib.repaq_rans_chain_probe(
-            syms.data_ptr(), PROBE_STEPS, cycles.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        if rc:
-            raise RuntimeError("chain probe launch refused: error %d" % rc)
-        torch.cuda.synchronize()
-        runs.append(int(cycles.item()) / PROBE_STEPS)
-    return statistics.median(runs[1:])
+    return _probe_runs(lambda cycles, out: lib.repaq_rans_chain_probe(
+        syms.data_ptr(), PROBE_STEPS, cycles.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), dev)
+
+
+def decode_chain_cycles(dev, lib) -> dict:
+    """Cycles of one decode_step on the state chain alone, {route: cycles}:
+    "shared", the order-0 table of NovaSeq qualities in shared memory;
+    "global", the 256-row order-1 table of uniform random bytes read from
+    global memory. The payload ring holds random bytes; lib: probe_lib()'s.
+    """
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    rng = np.random.default_rng(17)
+    words = torch.from_numpy(rng.integers(
+        0, 256, size=lib.repaq_rans_decode_probe_ring(),
+        dtype=np.uint8)).to(dev)
+    tables = {
+        "shared": rng.choice(np.frombuffer(cs.NOVA_QUALS, np.uint8),
+                             size=100_000, p=cs.NOVA_P),
+        "global": cs.uniform_bytes(2_000_000)}
+    res = {}
+    for route, data in tables.items():
+        order = 0 if route == "shared" else 1
+        head, freqs, cum = RD.section_prologue(data, order, 64)
+        sym = RD._parse_tables(memoryview(head), 7, order)[2]
+        table, syms = RD.decode_table(*(
+            torch.from_numpy(a).to(dev) for a in (sym, freqs, cum)), order,
+            1 if order == 0 else None)
+
+        def launch(cycles, out, table=table, syms=syms):
+            return lib.repaq_rans_decode_chain_probe(
+                table.data_ptr(), None if syms is None else syms.data_ptr(),
+                table.shape[0],
+                words.data_ptr(), 0x00C0FFEE, PROBE_STEPS, cycles.data_ptr(),
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+
+        res[route] = _probe_runs(launch, dev)
+    return res
 
 
 def chain_floor_ms(steps: int, cycles: float, mhz: float) -> float:
@@ -561,6 +670,250 @@ def layout_profile(dev, tmp: str, parent: str | None,
     return result
 
 
+def decode_name(ring: int) -> str:
+    return "ring %d" % ring
+
+
+def decode_shared_rows(ring: int) -> int:
+    """The most packed rows (20 KB each) that fit in a block's 227 KB
+    beside 32 lanes' rings, two stages and their runs (the static_assert
+    of csrc/rans.cu)."""
+    window = ring // 4 - 4
+    stage = 4 * (((window + 3) // 4) | 1)
+    lanes = 32 * (ring + 16) + 2 * 32 * stage + 2 * 32 * 16
+    return min(256, (232448 - lanes) // (5 << 12))
+
+
+def decode_build(tmp: str, parent: str | None = None,
+                 ablations: dict | None = None) -> dict:
+    """name -> (loaded library, takes packed tables) of the package build,
+    each DECODE_SWEEP point, each of `ablations` and the parent source."""
+    jobs = {AS_BUILT: (SRC, [])}
+    for ring in DECODE_SWEEP:
+        jobs[decode_name(ring)] = (SRC, [
+            "-DREPAQ_DEC_RING=%d" % ring,
+            "-DREPAQ_DEC_SHARED_ROWS=%d" % decode_shared_rows(ring)])
+    jobs.update(ablation_jobs(tmp, ablations or {}))
+    if parent:
+        jobs[OLD] = (parent, [])
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    libs = {}
+    for name, so in _nvcc_jobs(tmp, jobs).items():
+        lib = ctypes.CDLL(so)
+        packed = name != OLD
+        lib.repaq_rans_decode.argtypes = (
+            [vp, ll, vp, ci, ll, vp, vp, ci, ci, ci, vp, vp] if packed
+            else [vp, ll, vp, vp, ci, vp, vp, ci, vp, vp])
+        lib.repaq_rans_decode.restype = ci
+        libs[name] = (lib, packed)
+    return libs
+
+
+def decode_cases(dev) -> dict:
+    """label -> inputs of rans_decode: the host coder's sections of
+    RANS_SHAPES, of uniform random order-1 bytes (2048 lanes) and of
+    RANS_SHAPES' order-0 bytes in MAX_LANES lanes on `dev`, with the data,
+    the packed tables and the longest lane."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    sections = [(order, data, lanes, "") for order, data, lanes in
+                cs.rans_shape_data()]
+    order, n, lanes = cs.RANS_SHAPES[0]
+    sections.append((order, cs.uniform_bytes(n), lanes,
+                     ", uniform random bytes"))
+    # the order-0 section in the most lanes the section format holds,
+    # where the kernel's sums of the counts before each block are longest
+    sections.append((0, sections[1][1], MAX_LANES, ", the format's most "
+                     "lanes"))
+    cases = {}
+    for order, data, lanes, what in sections:
+        args, off = cs.decode_case_inputs(dev, order, data, lanes, 0)
+        live = RD._live_of(args[3], order)
+        shared = order == 0 or live <= RD.decode_shared_rows()
+        table, syms = RD.decode_table(*args[2:5], order,
+                                      live if shared else None)
+        cases[cs.rans_label(order, data.shape[0], lanes, what)] = {
+            "args": args, "off": off, "data": data, "order": order,
+            "lanes": lanes, "n": data.shape[0],
+            "steps": int(np.diff(off).max()), "table": table,
+            "syms": syms, "live": live, "shared": shared}
+    return cases
+
+
+def decode_launcher(lib, packed: bool, inp):
+    """A function that launches `lib`'s rans_decode alone on `inp` (its
+    tables packed beforehand for the package's route, or the parent's lane
+    starts, offsets and fcs table built beforehand) and returns the
+    output; raises if the launch is refused (a build whose shared table
+    holds fewer rows than the case's live contexts)."""
+    import torch
+
+    payload, counts, sym = inp["args"][:3]
+    dev = payload.device
+    order, lanes, n = inp["order"], inp["lanes"], inp["n"]
+    if packed:
+        table = inp["table"]
+        syms = inp["syms"]
+        held = (table, syms)
+        args = [counts.data_ptr(), lanes, n, table.data_ptr(),
+                None if syms is None else syms.data_ptr(), table.shape[0],
+                int(inp["shared"]), order]
+    else:
+        held = start, off, fcs = parent_inputs(inp)
+        args = [start.data_ptr(), off.data_ptr(), lanes, sym.data_ptr(),
+                fcs.data_ptr(), order]
+
+    # held: the tensors whose pointers args holds, alive as long as run
+    def run(held=held):
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
+        rc = lib.repaq_rans_decode(
+            payload.data_ptr(), payload.shape[0], *args, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc:
+            raise RuntimeError("rans_decode launch refused: error %d" % rc)
+        return out
+
+    return run
+
+
+def parent_inputs(inp):
+    """What the parent's wrapper built before its launch: lane starts
+    (zeros, cumsum, cat), offsets (a copy from the host) and the fcs table
+    (each slot's freq | cum << 16, a gather)."""
+    import torch
+
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    payload, counts, sym, f, c = inp["args"][:5]
+    dev = payload.device
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    start = torch.cat([zero, torch.cumsum(counts.long(), 0)])
+    off = torch.from_numpy(inp["off"]).to(dev)
+    rows = 1 if inp["order"] == 0 else 256
+    fc = RD._fc_table(f, c, inp["order"])
+    fcs = fc.view(rows, 256).gather(1, sym.reshape(rows, RD.SCALE).long())
+    return start, off, fcs
+
+
+def decode_profile(dev, tmp: str, parent: str | None,
+                   ablate: bool = False) -> dict:
+    """The package's wrapper and its table packing alone at every case,
+    the parent in turns (when given), the sweep, with `ablate`
+    DECODE_ABLATIONS, and the chain floor, printed; the readings."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repaq_tpu_torch.ops import rans_device as RD
+
+    cases = decode_cases(dev)
+    cut = DECODE_ABLATIONS if ablate else {}
+    libs = decode_build(tmp, parent, cut)
+    result = {"window": RD.decode_window(),
+              "shared_rows": RD.decode_shared_rows(), "cases": {},
+              "sweep": {}}
+    ref = {}
+    for label, inp in cases.items():
+        args, off = inp["args"], inp["off"]
+
+        def wrapper(args=args, off=off, live=inp["live"]):
+            return RD._rans_decode(*args, off, live)
+
+        def reading(args=args, off=off):
+            return RD.rans_decode_device(*args, offsets=off)
+
+        ref[label] = wrapper()
+        cs.check(np.array_equal(ref[label].cpu().numpy(), inp["data"]),
+                 "rans_decode did not give the section back at %s" % label)
+        table_ms = cs.cuda_ms(lambda inp=inp: RD.decode_table(
+            *inp["args"][2:5], inp["order"],
+            inp["live"] if inp["shared"] else None))
+        route = RD.last_decode[2]
+        result["cases"][label] = r = {
+            "route": route, "live": inp["live"], "steps": inp["steps"],
+            "wrapper_ms": cs.cuda_ms(wrapper), "table_ms": table_ms,
+            "reading_wrapper_ms": cs.cuda_ms(reading),
+            "kernel_ms": cs.cuda_ms(decode_launcher(*libs[AS_BUILT], inp))}
+        print("decode at %s: %s route, %d live contexts; wrapper %.4f ms "
+              "(%.4f ms when it reads the live count from the card), its "
+              "table packing alone %.4f ms, kernel alone %.4f ms"
+              % (label, route, inp["live"], r["wrapper_ms"],
+                 r["reading_wrapper_ms"], table_ms, r["kernel_ms"]),
+              flush=True)
+    if parent:
+        turns = {}
+        for label, inp in cases.items():
+            old = decode_launcher(*libs[OLD], inp)
+            new = decode_launcher(*libs[AS_BUILT], inp)
+            cs.check(torch.equal(old(), ref[label]) and
+                     torch.equal(new(), ref[label]), "the parent's or the "
+                     "package's kernel differs from the wrapper at %s"
+                     % label)
+            lib = libs[OLD][0]
+
+            def old_wrapper(inp=inp, lib=lib):
+                return decode_launcher(lib, False, inp)()
+
+            def new_wrapper(inp=inp):
+                return RD._rans_decode(*inp["args"], inp["off"], inp["live"])
+
+            runs = {"parent kernel": old, "kernel": new,
+                    "parent wrapper": old_wrapper, "wrapper": new_wrapper}
+            times = [(name, cs.cuda_ms(runs[name])) for name in (
+                "parent kernel", "kernel", "kernel", "parent kernel",
+                "parent wrapper", "wrapper", "wrapper", "parent wrapper")]
+            turns[label] = times
+            print("decode turns at %s: %s" % (label, ", ".join(
+                "%s %.4f ms" % t for t in times)), flush=True)
+        result["turns"] = turns
+    if ablate:
+        result["ablations"] = {}
+        for name in (AS_BUILT, *cut):
+            result["ablations"][name] = times = {
+                label: cs.cuda_ms(decode_launcher(*libs[name], inp))
+                for label, inp in cases.items()}
+            print("decode ablation %-18s %s" % (name, "; ".join(
+                "%s %.4f ms, %.1f ns a step" % (
+                    label, ms, 1e6 * ms / cases[label]["steps"])
+                for label, ms in times.items())), flush=True)
+    for name, (lib, packed) in libs.items():
+        if name == OLD or name in cut:
+            continue
+        result["sweep"][name] = times = {}
+        for label, inp in cases.items():
+            run = decode_launcher(lib, packed, inp)
+            try:
+                out = run()
+            except RuntimeError:
+                times[label] = None
+                continue
+            cs.check(torch.equal(out, ref[label]), "rans_decode built with "
+                     "%s differs from the package build at %s"
+                     % (name, label))
+            times[label] = cs.cuda_ms(run)
+        print("decode sweep %-22s %s" % (name, "; ".join(
+            "%s %s" % (label, "refused" if ms is None else "%.4f ms" % ms)
+            for label, ms in times.items())), flush=True)
+    cyc = decode_chain_cycles(dev, probe_lib(tmp))
+    mhz = max_sm_clock_mhz()
+    result.update(chain_cycles=cyc, max_sm_mhz=mhz)
+    for label, r in result["cases"].items():
+        r["chain_floor_ms"] = chain_floor_ms(r["steps"], cyc[r["route"]],
+                                             mhz)
+        print("decode chain at %s: %d steps x %.2f cycles (%s table) at "
+              "%.0f MHz = %.4f ms; the kernel alone %.4f ms (%.0f%% of the "
+              "floor's rate)" % (label, r["steps"], cyc[r["route"]],
+                                 r["route"], mhz, r["chain_floor_ms"],
+                                 r["kernel_ms"],
+                                 100 * r["chain_floor_ms"] / r["kernel_ms"]),
+              flush=True)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="an earlier csrc/rans.cu to time")
@@ -573,6 +926,9 @@ def main() -> int:
     ap.add_argument("--layout", action="store_true",
                     help="profile rans_layout instead (LAYOUT_SWEEP; "
                          "--parent then takes PR 10's source)")
+    ap.add_argument("--decode", action="store_true",
+                    help="profile rans_decode instead (DECODE_SWEEP; "
+                         "--parent then takes PR 13's source)")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import torch
@@ -587,10 +943,12 @@ def main() -> int:
 
     card = cs.card_line()
     result = {"card": card}
-    if args.layout:
+    if args.layout or args.decode:
         with tempfile.TemporaryDirectory() as tmp:
-            result.update(layout_profile(dev, tmp, args.parent,
-                                         args.ablate))
+            result.update(
+                layout_profile(dev, tmp, args.parent, args.ablate)
+                if args.layout else decode_profile(dev, tmp, args.parent,
+                                                   args.ablate))
         print(card)
         print(json.dumps(result))
         return 0
@@ -632,7 +990,7 @@ def main() -> int:
                         label, ms, 1e6 * ms / cases[label]["steps"])
                     for label, ms in times.items())), flush=True)
             result["ablations"] = cut
-        cyc = chain_cycles(dev, tmp)
+        cyc = chain_cycles(dev, probe_lib(tmp))
         mhz = max_sm_clock_mhz()
         floors = {label: chain_floor_ms(inp["steps"], cyc, mhz)
                   for label, inp in cases.items()}
