@@ -37,9 +37,15 @@ Phases, each of which must pass:
      the frontend also at n % 4 = 1, 2, 3 with 'N' and the major qual in
      the tail; the unpack also at m = 0, 1, 15, 16, 17 and 4109 (every
      tail of its words and of a thread's four words) and into the
-     decode's (4m + 1)-byte buffer, and timed at 16 bytes (the fixed cost
-     of one event-timed launch), at 32 Mbyte and back to back over 8
-     buffer sets. The run-boundary kernels (run_offsets on encode,
+     decode's (4m + 1)-byte buffer; the pack and the byte-form frontend
+     also on FRONT_CASES (every byte value at every position of a 16-byte
+     group, n = 63, 64, 65, one wave's bases and one either side, a view
+     one byte off alignment, 2^24 + 5 bases, the PE chunk), one launch
+     each, and the byte form traced by torch.profiler as one kernel a
+     call; these three streaming kernels (unpack, pack, byte form) also
+     timed at 16 units (the fixed cost of one event-timed launch), at 32
+     Mi units, back to back over 8 buffer sets and once after a flush
+     that leaves no dirty line in the L2. The run-boundary kernels (run_offsets on encode,
      seg_positions on decode) at a whole chunk's 11,829,248 elements and
      run_offsets at (2, 80000) coordinate rows, and both at n = 1,
      tile - 1, tile, tile + 1, 3 tiles + 5 and past 3,000 tiles
@@ -840,36 +846,122 @@ def back_to_back_ms(fn, sets: int, runs: int = 48) -> float:
     return start.elapsed_time(end) / runs
 
 
-def unpack_readings(dev, packed):
-    """What holds the unpack kernel at the decode's size, beside its
-    single-launch time: the same time at 16 packed bytes (the fixed cost
-    of one event-timed launch) and at 32 Mbyte (the streaming rate, the
-    fixed cost spread thin), as by-shape results; and the time a launch
-    back to back over 8 buffer sets, in ms."""
+def stream_readings(name: str, unit: str, make, kern, plain, n: int,
+                    moved) -> dict:
+    """What holds a streaming kernel at its timed shape of n units, beside
+    its single-launch time there: the same time at 16 units (the fixed cost
+    of one event-timed launch) and at 32 Mi units (the streaming rate, the
+    fixed cost spread thin), as by-shape results; the time a launch back to
+    back over 8 buffer sets; and one launch after a flush that leaves no
+    dirty line in the L2 (cuda_ms(clean=True)). make(size, seed) gives a
+    call's arguments, kern(*args) and plain(*args) compute, moved(size) is
+    the bytes the function must move."""
+    res = {"by_shape": {}}
+    for size, what in ((16, "one event-timed launch's fixed cost"),
+                       (32 << 20, "the streaming rate")):
+        args = make(size, 0)
+        res["by_shape"]["%d %s (%s)" % (size, unit, what)] = held_and_timed(
+            name, lambda: kern(*args), lambda: plain(*args), args,
+            "%d %s" % (size, unit), plain_runs=3, moved=moved(size))
+        del args
+    sets = [make(n, seed) for seed in range(8)]
+    res["back_to_back_ms"] = back_to_back_ms(lambda i: kern(*sets[i]), 8)
+    res["clean_flush_ms"] = cuda_ms(lambda: kern(*sets[0]), clean=True)
+    bound = 1e3 * moved(n) / HBM_BYTES_PER_S
+    log("kernel %s back to back at %d %s, 48 launches over 8 buffer sets: "
+        "%.4f ms a launch (bound %.4f ms, %.0f%%)"
+        % (name, n, unit, res["back_to_back_ms"], bound,
+           100 * bound / res["back_to_back_ms"]))
+    log("kernel %s at %d %s after a clean flush: %.4f ms (%.0f%% of bound)"
+        % (name, n, unit, res["clean_flush_ms"],
+           100 * bound / res["clean_flush_ms"]))
+    return res
+
+
+# the edge cases of the streaming frontend kernels (pack_bases and
+# encode_frontend_bytes), each placed by the kernel's own built wave: every
+# byte value at every position of a 16-byte group, n around 64, one wave's
+# bases and one either side, a view one byte off 16-byte alignment,
+# 2^24 + 5 bases and the PE chunk
+FRONT_CASES = ("every_byte", "n63", "n64", "n65", "wave-1", "wave",
+               "wave+1", "misaligned", "2^24+5", "pe_chunk")
+
+
+def front_case(name: str, wave: int):
+    """numpy (seq, qual, bins, major) of a FRONT_CASES case, and the
+    offset at which the kernel's view of seq and qual starts. Bases are
+    half 'ACGTN' and half any byte; quals any byte; a palette of 63 chars
+    (the most) besides the major 'F'."""
+    import numpy as np
+
+    rng = np.random.default_rng(1500 + FRONT_CASES.index(name))
+    n, offset = {"n63": 63, "n64": 64, "n65": 65, "wave-1": wave - 1,
+                 "wave": wave, "wave+1": wave + 1, "misaligned": 3 * 4096 + 7,
+                 "2^24+5": (1 << 24) + 5, "pe_chunk": PE_BASES,
+                 "every_byte": 256 * 16}[name], int(name == "misaligned")
+    size = n + offset
+    seq = rng.integers(0, 256, size=size, dtype=np.uint8)
+    acgtn = rng.random(size) < 0.5
+    seq[acgtn] = rng.choice(np.frombuffer(b"ACGTN", np.uint8),
+                            size=int(acgtn.sum()))
+    qual = rng.integers(0, 256, size=size, dtype=np.uint8)
+    if name == "every_byte":
+        # group g, position p: byte g + 37p (seq), 3g + 101p + 7 (qual)
+        g, p = np.divmod(np.arange(size), 16)
+        seq = ((g + 37 * p) % 256).astype(np.uint8)
+        qual = ((3 * g + 101 * p + 7) % 256).astype(np.uint8)
+    major = ord("F")
+    bins = rng.choice(np.setdiff1d(np.arange(256), [major]), size=63,
+                      replace=False).astype(np.uint8)
+    return seq, qual, bins, major, offset
+
+
+def front_edge_cases(dev) -> int:
+    """pack_bases and encode_frontend_bytes exact against their plain
+    versions on every FRONT_CASES case, one launch each, the byte form's
+    outputs bool and int32; returns the cases run."""
     import torch
 
     from repaq_tpu_torch.ops import kernels as TK
 
-    m = packed.shape[0]
-    res = {}
-    for size, what in ((16, "one event-timed launch's fixed cost"),
-                       (32 << 20, "the streaming rate")):
-        p = torch.randint(0, 256, (size,), dtype=torch.uint8, device=dev)
-        res["%d packed bytes (%s)" % (size, what)] = held_and_timed(
-            "unpack_bases", lambda: TK.unpack_bases(p),
-            lambda: TK.unpack_bases_plain(p), (p,),
-            "%d packed bytes" % size, plain_runs=3)
-        del p
-    sets = [(torch.randint(0, 256, (m,), dtype=torch.uint8, device=dev),
-             torch.empty(4 * m, dtype=torch.uint8, device=dev))
-            for _ in range(8)]
-    b2b = back_to_back_ms(lambda i: TK.unpack_bases(sets[i][0],
-                                                    out=sets[i][1]), 8)
-    bound = 1e3 * 5 * m / HBM_BYTES_PER_S
-    log("kernel unpack_bases back to back at %d packed bytes, 48 launches "
-        "over 8 buffer sets: %.4f ms a launch (bound %.4f ms, %.0f%%)"
-        % (m, b2b, bound, 100 * bound / b2b))
-    return res, b2b
+    waves = dict(zip(("pack_bases", "encode_frontend_bytes"),
+                     TK.frontend_waves()))
+    runs = 0
+    for name in FRONT_CASES:
+        for kernel, wave in waves.items():
+            seq, qual, bins, major, off = front_case(name, wave)
+            seq_t = torch.from_numpy(seq).to(dev)[off:]
+            args = ((seq_t,) if kernel == "pack_bases" else
+                    (seq_t, torch.from_numpy(qual).to(dev)[off:],
+                     torch.from_numpy(bins).to(dev), major))
+            before = TK.launches[kernel]
+            got = getattr(TK, kernel)(*args)
+            want = getattr(TK, kernel + "_plain")(*args)
+            torch.cuda.synchronize()
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            check(TK.launches[kernel] == before + 1
+                  and max_abs_err(got, want) == 0
+                  and [t.dtype for t in got] == [t.dtype for t in want],
+                  "%s differs from its plain version on FRONT_CASES %s (n=%d)"
+                  % (kernel, name, seq_t.shape[0]))
+            runs += 1
+    return runs
+
+
+def one_kernel_a_call(fn) -> list:
+    """The CUDA kernels a torch.profiler trace of one fn() call shows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def fsm_inputs(dev, n: int, dtype, seed: int):
@@ -956,12 +1048,51 @@ def kernel_phase(dev) -> dict:
             lambda: TK.encode_frontend_plain(pe_seq_t, pe_qual_t, bins,
                                              major),
             (pe_seq_t, pe_qual_t, bins), pe_shape)}
-    unpack = results["unpack_bases"]
-    by_shape, unpack["back_to_back_ms"] = unpack_readings(dev, packed)
-    unpack["by_shape"] = {"%d packed bytes" % (n // 4): dict(unpack),
-                          **by_shape}
+    # the streaming kernels: fixed cost, streaming rate, back to back and
+    # after a clean flush, beside the single launch at the timed shape
+    def rand_u8(size, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(0, 256, (size,), dtype=torch.uint8, device=dev,
+                             generator=g)
+
+    def frontend_args(size, seed):
+        return (rand_u8(size, 2 * seed), rand_u8(size, 2 * seed + 1), bins,
+                major)
+
+    streaming = [
+        ("unpack_bases", "packed bytes", n // 4,
+         lambda size, seed: (rand_u8(size, seed),
+                             torch.empty(4 * size, dtype=torch.uint8,
+                                         device=dev)),
+         lambda p, out: TK.unpack_bases(p, out=out),
+         lambda p, out: TK.unpack_bases_plain(p), lambda m: 5 * m),
+        ("pack_bases", "bases", pk_seq.shape[0],
+         lambda size, seed: (rand_u8(size, seed),), TK.pack_bases,
+         TK.pack_bases_plain, lambda m: m + (m + 3) // 4),
+        ("encode_frontend_bytes", "bases", PE_BASES, frontend_args,
+         TK.encode_frontend_bytes, TK.encode_frontend_bytes_plain,
+         lambda m: 7 * m + (m + 3) // 4),
+    ]
+    for name, unit, size, make, kern, plain, moved in streaming:
+        res = results[name]
+        more = stream_readings(name, unit, make, kern, plain, size, moved)
+        res["by_shape"] = {"%d %s" % (size, unit): dict(res),
+                           **more.pop("by_shape")}
+        res.update(more)
     log("kernel unpack_bases exact at m = %s (every tail; the last one into "
         "the decode's buffer)" % unpack_cases(dev, packed))
+    log("kernels pack_bases and encode_frontend_bytes exact on %d edge cases "
+        "(FRONT_CASES: every byte value at every position of a 16-byte "
+        "group, n = 63, 64, 65, one wave's bases and one either side, a view "
+        "one byte off alignment, 2^24 + 5 and the PE chunk), one launch "
+        "each; waves %s bases" % (front_edge_cases(dev), TK.frontend_waves()))
+    traced = one_kernel_a_call(lambda: TK.encode_frontend_bytes(
+        pe_seq_t, pe_qual_t, bins, major))
+    check(len(traced) == 1 and "frontend_bytes_kernel" in traced[0],
+          "encode_frontend_bytes is not one kernel a call: the trace shows "
+          "%s" % traced)
+    log("kernel encode_frontend_bytes: one call at the PE chunk traces as "
+        "one kernel, %s" % traced[0])
     results["token_start_mask"]["by_shape"] = {
         fsm_shape + ", uint8 lengths": dict(results["token_start_mask"]),
         fsm_shape + ", int32 lengths": held_and_timed(

@@ -103,8 +103,15 @@ def _bind(path: str) -> ctypes.CDLL:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.repaq_encode_frontend.argtypes = [vp, vp, vp, ci, ci, vp, vp, ll, vp]
     lib.repaq_encode_frontend.restype = ci
+    lib.repaq_encode_frontend_bytes.argtypes = [vp, vp, vp, ci, ci, vp, vp,
+                                                vp, ll, vp]
+    lib.repaq_encode_frontend_bytes.restype = ci
     lib.repaq_pack_bases.argtypes = [vp, vp, ll, vp]
     lib.repaq_pack_bases.restype = ci
+    lib.repaq_pack_wave_bases.argtypes = []
+    lib.repaq_pack_wave_bases.restype = ll
+    lib.repaq_frontend_bytes_wave_bases.argtypes = []
+    lib.repaq_frontend_bytes_wave_bases.restype = ll
     lib.repaq_unpack_bases.argtypes = [vp, vp, ll, vp]
     lib.repaq_unpack_bases.restype = ci
     lib.repaq_token_start_mask.argtypes = [vp, ci, vp, ll, vp, vp, vp]

@@ -134,23 +134,6 @@ def _check_frontend(seq, qual, bins, major) -> None:
                          % (bins.shape[0], major))
 
 
-def _frontend_launch(name: str, seq, qual, bins, major: int):
-    """Launch the frontend kernel, counted under `name`."""
-    n = seq.shape[0]
-    packed = torch.empty((n + 3) // 4, dtype=torch.uint8, device=seq.device)
-    meta = torch.empty(n, dtype=torch.uint8, device=seq.device)
-    if n == 0:
-        return packed, meta
-    lib = _build.library()
-    seq, qual, bins = _aligned(seq), _aligned(qual), bins.contiguous()
-    with torch.cuda.device(seq.device):
-        _launch(name, lib.repaq_encode_frontend, seq.data_ptr(),
-                qual.data_ptr(), bins.data_ptr(), int(bins.shape[0]),
-                int(major), packed.data_ptr(), meta.data_ptr(), n,
-                _stream(seq.device))
-    return packed, meta
-
-
 def encode_frontend(seq: torch.Tensor, qual: torch.Tensor,
                     bins: torch.Tensor, major: int):
     """(seq (n,) u8, qual (n,) u8, bins (B,) u8, major) -> (packed
@@ -161,17 +144,27 @@ def encode_frontend(seq: torch.Tensor, qual: torch.Tensor,
     _check_frontend(seq, qual, bins, major)
     if not _on_cuda(seq, qual, bins):
         return encode_frontend_plain(seq, qual, bins, int(major))
-    return _frontend_launch("encode_frontend", seq, qual, bins, int(major))
-
-
-def _split_meta(packed, meta):
-    return packed, meta >= 0x80, (meta & 0x7F).to(torch.int32)
+    n = seq.shape[0]
+    packed = torch.empty((n + 3) // 4, dtype=torch.uint8, device=seq.device)
+    meta = torch.empty(n, dtype=torch.uint8, device=seq.device)
+    if n == 0:
+        return packed, meta
+    lib = _build.library()
+    seq, qual, bins = _aligned(seq), _aligned(qual), bins.contiguous()
+    with torch.cuda.device(seq.device):
+        _launch("encode_frontend", lib.repaq_encode_frontend, seq.data_ptr(),
+                qual.data_ptr(), bins.data_ptr(), int(bins.shape[0]),
+                int(major), packed.data_ptr(), meta.data_ptr(), n,
+                _stream(seq.device))
+    return packed, meta
 
 
 def encode_frontend_bytes_plain(seq: torch.Tensor, qual: torch.Tensor,
                                 bins: torch.Tensor, major: int):
-    """Plain torch version of ``encode_frontend_bytes``."""
-    return _split_meta(*encode_frontend_plain(seq, qual, bins, int(major)))
+    """Plain torch version of ``encode_frontend_bytes``: the meta bytes of
+    ``encode_frontend_plain``, split."""
+    packed, meta = encode_frontend_plain(seq, qual, bins, int(major))
+    return packed, meta >= 0x80, (meta & 0x7F).to(torch.int32)
 
 
 def encode_frontend_bytes(seq: torch.Tensor, qual: torch.Tensor,
@@ -180,14 +173,26 @@ def encode_frontend_bytes(seq: torch.Tensor, qual: torch.Tensor,
     repaq_tpu.ops.pallas_tpu.encode_frontend_pallas: (seq (n,) u8, qual
     (n,) u8, bins (B,) u8, major) -> (packed ((n+3)//4,) u8, nmask (n,)
     bool, bid (n,) int32), any n. bid: 0..B-1 palette entry, B escape, B+1
-    major. Launches the frontend kernel (counted as
-    ``encode_frontend_bytes``) and splits its meta bytes; the engine reads
-    the meta bytes of ``encode_frontend`` instead."""
+    major. One launch of its own kernel (counted as
+    ``encode_frontend_bytes``) writes all three; the engine reads the meta
+    bytes of ``encode_frontend`` instead."""
     _check_frontend(seq, qual, bins, major)
     if not _on_cuda(seq, qual, bins):
         return encode_frontend_bytes_plain(seq, qual, bins, major)
-    return _split_meta(*_frontend_launch(
-        "encode_frontend_bytes", seq, qual, bins, int(major)))
+    n, dev = seq.shape[0], seq.device
+    packed = torch.empty((n + 3) // 4, dtype=torch.uint8, device=dev)
+    nmask = torch.empty(n, dtype=torch.bool, device=dev)
+    bid = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return packed, nmask, bid
+    lib = _build.library()
+    seq, qual, bins = _aligned(seq), _aligned(qual), bins.contiguous()
+    with torch.cuda.device(dev):
+        _launch("encode_frontend_bytes", lib.repaq_encode_frontend_bytes,
+                seq.data_ptr(), qual.data_ptr(), bins.data_ptr(),
+                int(bins.shape[0]), int(major), packed.data_ptr(),
+                nmask.data_ptr(), bid.data_ptr(), n, _stream(dev))
+    return packed, nmask, bid
 
 
 def pack_bases(seq: torch.Tensor) -> torch.Tensor:
@@ -207,6 +212,20 @@ def pack_bases(seq: torch.Tensor) -> torch.Tensor:
         _launch("pack_bases", lib.repaq_pack_bases, seq.data_ptr(),
                 out.data_ptr(), n, _stream(seq.device))
     return out
+
+
+def frontend_waves() -> tuple:
+    """Bases one wave of resident blocks covers in the pack_bases and
+    encode_frontend_bytes kernels on the current CUDA device, as the built
+    library reports them; the card tests and chip_smoke.py place edge
+    cases by them."""
+    lib = _build.library()
+    waves = (int(lib.repaq_pack_wave_bases()),
+             int(lib.repaq_frontend_bytes_wave_bases()))
+    if not all(waves):
+        raise RuntimeError("the CUDA runtime gave no occupancy for the "
+                           "frontend kernels")
+    return waves
 
 
 # ---------------------------------------------------------------------------

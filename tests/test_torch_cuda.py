@@ -21,10 +21,11 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
-from chip_smoke import (DECODE_CASES, FSM_KINDS, LAYOUT_CASES,
-                        OVERLAP_CASES, RANS_CASES, RANS_SHAPES, RUN_KINDS,
-                        SEG_KINDS, _decode_case_makers, decode_case,
-                        decode_case_inputs, fsm_case, layout_case,
+from chip_smoke import (DECODE_CASES, FRONT_CASES, FSM_KINDS, LAYOUT_CASES,
+                        OVERLAP_CASES, PE_BASES, RANS_CASES, RANS_SHAPES,
+                        RUN_KINDS, SEG_KINDS, _decode_case_makers,
+                        decode_case, decode_case_inputs, front_case,
+                        fsm_case, layout_case, one_kernel_a_call,
                         overlap_case, rans_case, rans_case_inputs,
                         rans_shape_data, run_case, seg_case)
 from test_device_engine import _mk_block
@@ -102,6 +103,46 @@ def test_pack_kernel_matches_plain(cuda, n):
     if n > 1:
         assert torch.equal(TK.pack_bases(seq[1:]),
                            TK.pack_bases_plain(seq[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["pack_bases", "encode_frontend_bytes"])
+@pytest.mark.parametrize("case", FRONT_CASES)
+def test_front_kernels_on_edge_cases(cuda, case, kernel):
+    """chip_smoke.FRONT_CASES, placed by each kernel's built wave
+    (kernels.frontend_waves()): every byte value at every position of a
+    16-byte group, n = 63, 64, 65, one wave's bases and one either side, a
+    view one byte off alignment, 2^24 + 5 bases and the PE chunk; one
+    launch each, the byte form's outputs bool and int32."""
+    wave = dict(zip(("pack_bases", "encode_frontend_bytes"),
+                    TK.frontend_waves()))[kernel]
+    seq, qual, bins, major, off = front_case(case, wave)
+    seq_t = torch.from_numpy(seq).to(cuda)[off:]
+    args = ((seq_t,) if kernel == "pack_bases" else
+            (seq_t, torch.from_numpy(qual).to(cuda)[off:],
+             torch.from_numpy(bins).to(cuda), major))
+    before = TK.launches[kernel]
+    got = getattr(TK, kernel)(*args)
+    want = getattr(TK, kernel + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert TK.launches[kernel] == before + 1
+    if kernel == "pack_bases":
+        got, want = (got,), (want,)
+    else:
+        assert [t.dtype for t in got] == [torch.uint8, torch.bool,
+                                          torch.int32]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_frontend_bytes_is_one_kernel_a_call(cuda):
+    """At the PE chunk, a torch.profiler trace of one encode_frontend_bytes
+    call shows its kernel and nothing else: no torch pass after it."""
+    seq, qual, table, major = _frontend_case(PE_BASES, 5, 0.01, True)
+    args = [torch.from_numpy(a).to(cuda) for a in (seq, qual, table)]
+    traced = one_kernel_a_call(lambda: TK.encode_frontend_bytes(*args, major))
+    assert len(traced) == 1 and "frontend_bytes_kernel" in traced[0], traced
 
 
 @pytest.mark.cuda
