@@ -37,7 +37,7 @@ Phases, each of which must pass:
      the frontend also at n % 4 = 1, 2, 3 with 'N' and the major qual in
      the tail; the unpack also at m = 0, 1, 15, 16, 17 and 4109 (every
      tail of its words and of a thread's four words) and into the
-     decode's (4m + 1)-byte buffer; the pack and the byte-form frontend
+     a buffer one byte longer; the pack and the byte-form frontend
      also on FRONT_CASES (every byte value at every position of a 16-byte
      group, n = 63, 64, 65, one wave's bases and one either side, a view
      one byte off alignment, 2^24 + 5 bases, the PE chunk), one launch
@@ -57,7 +57,15 @@ Phases, each of which must pass:
      and o = minlen, both directions in one pair, rows of one byte, bytes
      0 and 255, periodic rows, near misses), as given and as strided
      views, and at a PE chunk's grid, 49,152 pairs of 150 bytes, read as
-     the engine reads it (the odd and even rows of one buffer), timed;
+     the engine reads it (the odd and even rows of one buffer), timed.
+     The decode's masked run writes (fill_runs) on every FILL_CASES case
+     in uint8, bool and int32 (against its plain version and a numpy
+     loop), then at one SE decode chunk's quality writes (FILL_CHUNK:
+     2,359,296 entries, 1,680,349 with a count, 9,604 runs of 2; no keep,
+     as the decode passes none), timed beside its bound, beside index_put_ of the same writes as distinct indices,
+     and in turns beside the parent's composition of them (the token
+     index_put_ and the 73,138,176-entry run grid aimed at a dump byte),
+     and at that chunk's N deltas and N bases;
      after phase 5 both scans are held and timed again at the
      shapes the two corpora handed them (the SE and PE quality streams and
      coordinate rows, and decode token counts), and after
@@ -81,8 +89,8 @@ Phases, each of which must pass:
      run_offsets 3 times a chunk on compress and never on decompress,
      seg_positions once a chunk on decompress and never on compress (the
      same in phases 7 and 8; overlap_pairs likewise once a PE compress
-     chunk and never elsewhere), and the shapes they were handed are
-     logged.
+     chunk and never elsewhere, fill_runs 3 times a decompress chunk and
+     never on compress), and the shapes they were handed are logged.
      The round
      trip runs twice: the first (cold) pays torch's lazy setup of each
      operator, the second (warm) is the steady rate. The token FSM is then
@@ -187,6 +195,11 @@ KERNELS = [
      "repaq_tpu/ops/rans_device.py:330", ()),
     ("overlap_pairs", "repaq_tpu_torch/csrc/overlap.cu",
      "repaq_tpu/ops/device_streams.py:1369", ("pe", "mesh_pe", "shard_pe")),
+    # the decode's masked writes: XLA scatters aimed at a dump element
+    ("fill_runs", "repaq_tpu_torch/csrc/fill.cu",
+     "repaq_tpu/ops/device_streams.py:982, :992, :1161, :1197, :1211, "
+     ":1228, :1242, :1257; repaq_tpu/codec/device_engine.py:845, :982",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
 ]
 
 # why a kernel is on no main path (its launches there are 0)
@@ -343,6 +356,34 @@ def bound_fields(moved: int, ms: float) -> dict:
     bound = 1e3 * moved / HBM_BYTES_PER_S
     return {"bound_ms": bound, "bound_by": "bytes",
             "share_of_bound": bound / ms}
+
+
+def fill_moved(out, start, count, value, keep=None) -> int:
+    """The bytes fill_runs must move: keep for every entry (without keep,
+    count, where it is a tensor: either says which entries write), count
+    for the kept entries, start and value (where they are tensors) for the
+    entries that write, and each element written once."""
+    import torch
+
+    n = start.shape[0]
+    cnt = (count.long() if isinstance(count, torch.Tensor)
+           else torch.full((n,), int(count), dtype=torch.long,
+                           device=start.device))
+    kept = (torch.ones(n, dtype=torch.bool, device=start.device)
+            if keep is None else keep)
+    writes = kept & (cnt >= 1)
+    moved = nbytes(keep) + (int(kept.sum()) * 4 if keep is not None
+                            and isinstance(count, torch.Tensor) else 0)
+    if keep is None:
+        moved += nbytes(count) if isinstance(count, torch.Tensor) else 0
+    w = int(writes.sum())
+    moved += w * 4
+    if isinstance(value, torch.Tensor):
+        moved += w * value.element_size()
+    lo = start.long().clamp(min=0)
+    hi = (start.long() + cnt).clamp(max=out.shape[0])
+    elements = int(torch.where(writes, (hi - lo).clamp(min=0), 0).sum())
+    return moved + elements * out.element_size()
 
 
 def held_and_timed(name, kern, plain, inputs, shape, plain_runs=15,
@@ -558,6 +599,324 @@ def boundary_kernels_at(dev, name: str, shape: tuple, label: str,
     return held_and_timed(name, lambda: getattr(TK, name)(*args),
                           lambda: getattr(TK, name + "_plain")(*args), args,
                           label)
+
+
+# one SE decode chunk's quality writes: phase 4's corpus in 12-Mbase chunks
+# (80,000 reads of 150 bp, NovaSeq qualities) as DeviceEngine._decode_caps
+# sizes its first chunk: tokens, positions, the token cap and the run cap
+FILL_CHUNK = {"length": 12_582_912, "tok_cap": 2_359_296,
+              "tokens": 1_680_349, "positions": 1_689_953,
+              "run_cap": 786_432, "major": ord("F")}
+
+
+def fill_chunk_inputs(dev, seed: int = 1047):
+    """(out, start, count, value, keep) of FILL_CHUNK's quality writes: out
+    the major-filled (length,) buffer; the tokens ordered by bin, then by
+    position (NovaSeq's three non-major bins), each at a distinct even
+    position, positions - tokens of them runs of 2; the rest of the token
+    cap masked, with count 0."""
+    import numpy as np
+    import torch
+
+    c = FILL_CHUNK
+    rng = np.random.default_rng(seed)
+    t, cap = c["tokens"], c["tok_cap"]
+    pos = np.sort(rng.choice(c["length"] // 2, size=t, replace=False)) * 2
+    p = np.array(NOVA_P[1:]) / sum(NOVA_P[1:])
+    bin_of = rng.choice(3, size=t, p=p)
+    order = np.lexsort((pos, bin_of))
+    count = np.ones(t, dtype=np.int32)
+    count[rng.choice(t, size=c["positions"] - t, replace=False)] = 2
+    value = np.frombuffer(NOVA_QUALS[1:], np.uint8)[bin_of[order]]
+
+    def padded(a, dtype):
+        out = np.zeros(cap, dtype=dtype)
+        out[:t] = a
+        return torch.from_numpy(out).to(dev)
+
+    start = padded(pos[order], np.int32)
+    count = padded(count, np.int32)
+    out = torch.full((c["length"],), c["major"], dtype=torch.uint8,
+                     device=dev)
+    return (out, start, count, padded(value, np.uint8), count >= 1)
+
+
+# fill_runs' edge cases, each in every output type: no entries, counts of
+# 0, 1 and 32, starts below 0, runs clipped at the end, none kept, every
+# entry kept (keep None), one count and one value for all, an output view
+# one element off its allocation's start, counts of 0-32 at random
+# alignments, and an SE-chunk-like mix (2^16 entries, ~70% kept, ~0.6%
+# runs of 2-32, ordered by bin as the decode's tokens are); all but the
+# empty case cross a 1,024-entry block edge
+FILL_CASES = ("empty", "count0", "count1", "count32", "neg_start",
+              "clip_end", "keep_none", "keep_all", "scalars", "unaligned",
+              "mixed", "se_mix")
+FILL_DTYPES = ("uint8", "bool", "int32")
+
+
+def fill_case(name: str, dtype: str):
+    """(out, start, count, value, keep, off) numpy arrays of a FILL_CASES
+    case: out the buffer whose view out[off:] is written, start int32,
+    count int32 or one int, value of out's type or one scalar, keep bool or
+    None. Kept runs never overlap, so the result is defined."""
+    import numpy as np
+
+    rng = np.random.default_rng(1000 + 10 * FILL_CASES.index(name)
+                                + FILL_DTYPES.index(dtype))
+    n = {"empty": 0, "se_mix": 1 << 16}.get(name, 3 * 1024 + 5)
+    if name == "count0":
+        count = np.zeros(n, np.int32)
+    elif name in ("count1", "scalars"):
+        count = np.ones(n, np.int32)
+    elif name == "count32":
+        count = np.full(n, 32, np.int32)
+    elif name in ("mixed", "unaligned"):
+        count = rng.integers(0, 33, size=n).astype(np.int32)
+    elif name == "se_mix":
+        count = np.ones(n, np.int32)
+        runs = rng.random(n) < 0.006
+        count[runs] = rng.integers(2, 33, size=int(runs.sum()))
+    else:
+        count = rng.integers(1, 33, size=n).astype(np.int32)
+    gaps = rng.integers(0, 8, size=n)
+    start = (np.cumsum(count + gaps) - count).astype(np.int32)
+    size = int(start[-1] + count[-1]) + 5 if n else 16
+    if name == "neg_start":
+        start -= int(start[min(n - 1, 40)]) + 3
+    if name == "clip_end":
+        size = int(start[n // 2]) + int(count[n // 2]) // 2 + 1
+    off = int(name == "unaligned")
+    keep = rng.random(n) < (0.7 if name == "se_mix" else 0.9)
+    if name == "keep_none":
+        keep[:] = False
+    if name == "keep_all":
+        keep = None
+    if dtype == "bool":
+        value = rng.random(n) < 0.5
+        out = rng.random(size + off) < 0.5
+    else:
+        info = np.iinfo(dtype)
+        value = rng.integers(info.min, info.max, size=n, endpoint=True,
+                             dtype=dtype)
+        out = rng.integers(info.min, info.max, size=size + off,
+                           endpoint=True, dtype=dtype)
+    if name == "se_mix":
+        order = np.lexsort((start, rng.integers(0, 3, size=n)))
+        start, count, value, keep = (a[order] for a in (start, count, value,
+                                                          keep))
+    if name == "scalars":
+        count, value = 1, {"uint8": 78, "bool": True, "int32": -5}[dtype]
+    return out, start, count, value, keep, off
+
+
+def fill_loop(out, start, count, value, keep):
+    """fill_case's writes done by a numpy loop: a copy of out, each kept
+    run written, its targets clipped to the output."""
+    import numpy as np
+
+    out = out.copy()
+    n = out.shape[0]
+    for i in range(start.shape[0]):
+        if keep is not None and not keep[i]:
+            continue
+        c = count if np.isscalar(count) else int(count[i])
+        lo, hi = max(int(start[i]), 0), min(int(start[i]) + c, n)
+        if lo < hi:
+            out[lo:hi] = value if np.isscalar(value) else value[i]
+    return out
+
+
+def fill_args(case, dev):
+    """fill_case's arrays as fill_runs' arguments on dev: (buf, out, start,
+    count, value, keep), out the view of buf that is written."""
+    import numpy as np
+    import torch
+
+    buf, start, count, value, keep, off = case
+
+    def on(a):
+        return a if a is None or np.isscalar(a) or isinstance(a, int) \
+            else torch.from_numpy(a.copy()).to(dev)
+
+    buf = on(buf)
+    return (buf, buf[off:], on(start), on(count), on(value), on(keep))
+
+
+def parent_qual_fill(out, start, count, value, keep, run_cap: int):
+    """The writes fill_runs replaced on the decode, as the parent's
+    qualcol_decode_device made them in token space: a copy of out with a
+    spare last byte that takes every masked write, one index_put_ a token,
+    then the (run_cap, 4, 31) grid of the 4-token groups holding a run,
+    compacted by a sort, in one more index_put_."""
+    import torch
+
+    length, dev = out.shape[0], out.device
+    i32 = torch.int32
+    qual = torch.cat([out, out.new_zeros(1)])
+    ok_t = keep & (start >= 0) & (start < length)
+    qual[torch.where(ok_t, start, length).long()] = value
+    rmask = keep & (count >= 2)
+    pad4 = (-start.shape[0]) % 4
+    zi = torch.zeros(pad4, dtype=i32, device=dev)
+    rmask = torch.cat([rmask, torch.zeros(pad4, dtype=torch.bool,
+                                          device=dev)])
+    rp = torch.cat([start, zi]).view(-1, 4)
+    rn = torch.cat([count, zi]).view(-1, 4)
+    rv = torch.cat([value, zi.to(torch.uint8)]).view(-1, 4)
+    ng = rp.shape[0]
+    run_cap_eff = max(1, min(run_cap, ng + 1))
+    g_has = rmask.view(-1, 4).any(dim=1)
+    gidx = torch.sort(torch.where(g_has, torch.arange(ng, dtype=i32,
+                                                      device=dev), ng)
+                      ).values[:run_cap_eff].long()
+
+    def _g4(x):
+        return torch.cat([x, x.new_zeros((1, 4))])[gidx]
+
+    rp, rn, rv = _g4(rp), _g4(rn), _g4(rv)
+    rm = _g4(rmask.view(-1, 4))
+    lanes31 = torch.arange(1, 32, dtype=i32, device=dev)[None, None, :]
+    cand = rp[:, :, None] + lanes31
+    cv = (rm[:, :, None] & (lanes31 < rn[:, :, None]) & (cand >= 0)
+          & (cand < length))
+    qual[torch.where(cv, cand, length).reshape(-1).long()] = (
+        rv[:, :, None].expand(cv.shape).reshape(-1))
+    return qual[:length]
+
+def fill_edge_cases(dev) -> int:
+    """fill_runs exact against its plain version and fill_loop on every
+    FILL_CASES case in every output type, one launch each (none for no
+    entries), the element before an offset view left alone; returns the
+    number of cases."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    done = 0
+    for name in FILL_CASES:
+        for dtype in FILL_DTYPES:
+            case = fill_case(name, dtype)
+            buf, out, start, count, value, keep = fill_args(case, dev)
+            before = TK.launches["fill_runs"]
+            got = TK.fill_runs(out, start, count, value, keep)
+            torch.cuda.synchronize()
+            check(TK.launches["fill_runs"] == before + (start.shape[0] > 0),
+                  "fill_runs launched %d times on %s %s"
+                  % (TK.launches["fill_runs"] - before, name, dtype))
+            _b, pout, *pargs = fill_args(case, dev)
+            off = case[5]
+            check(torch.equal(got, TK.fill_runs_plain(pout, *pargs))
+                  and (got.cpu().numpy() == fill_loop(
+                      case[0][off:], *case[1:5])).all()
+                  and (buf[:off].cpu().numpy() == case[0][:off]).all(),
+                  "fill_runs differs from its plain version on %s %s"
+                  % (name, dtype))
+            done += 1
+    return done
+
+
+def fill_kernel_phase(dev) -> dict:
+    """fill_runs on its edge cases, then at one SE decode chunk's quality
+    writes (FILL_CHUNK, keep None as the decode calls it) exact against
+    its plain version, timed beside its bound (fill_moved: the count of
+    every entry, start and value of those that write, the run elements
+    written once), beside
+    index_put_ of the same writes given as distinct indices (the library
+    call) and, in turns, beside the parent's composition of the same
+    writes (parent_qual_fill: the token index_put_, the 73 M-entry run grid
+    and its index_put_); also at the N stream's shapes of that chunk: the
+    int32 deltas (786,432 entries, the starts kept) and the N bases (786,432
+    entries, -1 past the real ones, one value)."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    log("kernel fill_runs exact on %d edge cases (FILL_CASES in uint8, bool "
+        "and int32: no entries, counts 0, 1 and 32, starts below 0, runs "
+        "clipped at the end, none kept, all kept, one count and value, an "
+        "offset view, counts 0-32 at random alignments, an SE-like mix of "
+        "2^16 entries), one launch each" % fill_edge_cases(dev))
+    c = FILL_CHUNK
+    out, start, count, value, keep = fill_chunk_inputs(dev)
+    plain_out = out.clone()
+    written = int(count.sum())
+    shape = ("%d entries (%d with count >= 1, %d runs), %d elements "
+             "written into %d" % (start.shape[0], int(keep.sum()),
+                                  written - c["tokens"], written,
+                                  c["length"]))
+    entry = torch.repeat_interleave(torch.arange(start.shape[0],
+                                                 device=dev), count.long())
+    idx = (start.long()[entry] + torch.arange(written, device=dev)
+           - (torch.cumsum(count.long(), 0) - count.long())[entry])
+    vals = value[entry]
+    # keep None, as qualcol_decode_device calls it: count 0 masks the tail
+    res = held_and_timed(
+        "fill_runs", lambda: TK.fill_runs(out, start, count, value),
+        lambda: TK.fill_runs_plain(plain_out, start, count, value),
+        (start, count, value), shape,
+        moved=fill_moved(out, start, count, value),
+        library=lambda: out.index_put_((idx,), vals))
+    del entry, idx, vals
+    base = torch.full_like(out, c["major"])
+
+    def kernel():
+        return TK.fill_runs(base.clone(), start, count, value)
+
+    def parent():
+        return parent_qual_fill(base, start, count, value, keep,
+                                c["run_cap"])
+
+    check(torch.equal(kernel(), parent()), "fill_runs differs from the "
+          "parent's composition at %s" % shape)
+    turns = [("parent", parent), ("fill_runs", kernel),
+             ("fill_runs", kernel), ("parent", parent)]
+    times = {"parent": [], "fill_runs": []}
+    for name, fn in turns:
+        times[name].append(cuda_ms(fn))
+    res["parent_ms"] = times["parent"]
+    res["with_copy_ms"] = times["fill_runs"]
+    log("kernel fill_runs at %s with a copy of the output, in turns with the "
+        "parent's composition (the token index_put_, the run grid of %d "
+        "entries and its index_put_): parent %s ms, fill_runs %s ms"
+        % (shape, min(c["run_cap"], (start.shape[0] + 3) // 4) * 124,
+           ", ".join("%.4f" % t for t in times["parent"]),
+           ", ".join("%.4f" % t for t in times["fill_runs"])))
+    # the N stream's writes in the same chunk: 12,573 N positions
+    rng = np.random.default_rng(1231)
+    m = c["length"] // 16
+    real = min(12_573, m // 2)
+    pos = np.full(m, -1, np.int32)
+    pos[:real] = np.sort(rng.choice(c["length"], size=real, replace=False))
+    first = torch.from_numpy(np.sort(rng.choice(m, size=real,
+                                                replace=False))
+                             .astype(np.int32)).to(dev)
+    slot = torch.full((m,), m, dtype=torch.int32, device=dev)
+    slot[:real] = first
+    dist = torch.from_numpy(rng.integers(1, 2000, size=m,
+                                         dtype=np.int32)).to(dev)
+    starts = torch.zeros(m, dtype=torch.bool, device=dev)
+    starts[:real] = True
+    deltas, pdeltas = (torch.ones(m, dtype=torch.int32, device=dev)
+                       for _ in range(2))
+    seq = torch.full((c["length"],), ord("G"), dtype=torch.uint8,
+                     device=dev)
+    pseq = seq.clone()
+    pos_t = torch.from_numpy(pos).to(dev)
+    res["by_shape"] = {shape: dict(res)}
+    for label, kern, plain, inputs, moved in (
+            ("N deltas: %d int32 entries, %d kept" % (m, real),
+             lambda: TK.fill_runs(deltas, slot, 1, dist, starts),
+             lambda: TK.fill_runs_plain(pdeltas, slot, 1, dist, starts),
+             (slot, dist, starts), fill_moved(deltas, slot, 1, dist,
+                                              starts)),
+            ("N bases: %d entries, %d in the output, one value" % (m, real),
+             lambda: TK.fill_runs(seq, pos_t, 1, ord("N")),
+             lambda: TK.fill_runs_plain(pseq, pos_t, 1, ord("N")),
+             (pos_t,), fill_moved(seq, pos_t, 1, ord("N")))):
+        res["by_shape"][label] = held_and_timed(
+            "fill_runs", kern, plain, inputs, label, moved=moved)
+    return res
 
 
 def _overlap_case_makers() -> dict:
@@ -797,8 +1156,8 @@ def unpack_cases(dev, packed) -> list:
     """The unpack kernel exact against its plain version on every tail
     length (m % 4 bytes past its last word, m % 16 past a thread's four
     words), one launch each but none for m = 0, and at packed's size into
-    the (4m + 1)-byte buffer the decode gives it, whose last byte it must
-    leave alone; returns the lengths."""
+    a (4m + 1)-byte buffer, whose last byte it must leave alone; returns
+    the lengths."""
     import numpy as np
     import torch
 
@@ -819,8 +1178,8 @@ def unpack_cases(dev, packed) -> list:
     got = TK.unpack_bases(packed, out=buf)
     torch.cuda.synchronize()
     check(torch.equal(got, TK.unpack_bases_plain(packed))
-          and int(buf[-1]) == 7, "unpack_bases into the decode's (4m + "
-          "1)-byte buffer differs at m=%d" % m)
+          and int(buf[-1]) == 7, "unpack_bases into a (4m + 1)-byte "
+          "buffer differs at m=%d" % m)
     return list(UNPACK_TAILS) + [m]
 
 
@@ -1912,15 +2271,18 @@ def main_path_boundary_shapes(shapes: list, cut: int) -> dict:
             if v}
 
 
-# launches of the run-boundary kernels a chunk, by direction: the smoke
-# corpora's chunks all code N positions, qualities and coordinates
+# launches a chunk of the kernels whose count a chunk fixes, by direction:
+# the smoke corpora's chunks all code N positions, qualities and
+# coordinates, and no quality escapes
 def per_chunk(what: str, pe: bool) -> dict:
     """The launches a chunk of the kernels whose count a chunk fixes, on
     compress or decompress: run_offsets 3 an encode, seg_positions 1 a
-    decode, overlap_pairs 1 a PE encode; none in the other direction."""
+    decode, overlap_pairs 1 a PE encode, fill_runs 3 a decode (the quality
+    runs, the N positions' deltas, the N bases); none in the other
+    direction."""
     enc = what == "compress"
     return {"run_offsets": 3 * enc, "seg_positions": int(not enc),
-            "overlap_pairs": int(enc and pe)}
+            "overlap_pairs": int(enc and pe), "fill_runs": 3 * (not enc)}
 
 
 def check_chunk_launches(where: str, what: str, launches: dict,
@@ -2021,7 +2383,7 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
     for what, counts in (("compress", enc), ("decompress", dec)):
         check_chunk_launches(tag, what, counts, len(chunks), pe)
     counted = per_chunk("compress", pe)
-    log("corpus %s: run-boundary and overlap launches, compress %s, "
+    log("corpus %s: run-boundary, overlap and fill launches, compress %s, "
         "decompress %s, for %d chunks"
         % (tag, {k: enc[k] for k in counted}, {k: dec[k] for k in counted},
            len(chunks)))
@@ -2380,7 +2742,7 @@ RANK_TIMEOUT_S = 300
 # the kernels each direction of a shard must launch in every rank
 SHARD_KERNELS = {"compress": ("encode_frontend", "run_offsets"),
                  "decompress": ("unpack_bases", "token_start_mask",
-                                "seg_positions")}
+                                "seg_positions", "fill_runs")}
 
 
 def rank_env(rank: int, per_card: bool) -> dict:
@@ -2584,6 +2946,7 @@ def main() -> int:
             % (time.perf_counter() - t0))
         kres = kernel_phase(torch.device("cuda:0"))
         kres["overlap_pairs"] = overlap_kernel_phase(torch.device("cuda:0"))
+        kres["fill_runs"] = fill_kernel_phase(torch.device("cuda:0"))
         kres.update(rans_kernel_phase(torch.device("cuda:0")))
         golden_phase()
         cres = {"se": corpus_phase("cuda:0", pe=False),

@@ -52,13 +52,16 @@ _N = ord("N")
 _span = torch.profiler.record_function
 
 # the chunk-size window of the JAX engine (device_engine.py:51-52), kept so
-# that chunks route as they do there: 12 Mbase stays inside the int32
-# bid<<24|pos and (pos+len)<<6 key packings after bucketing
+# that chunks route as they do there: 12 Mbase stays inside the encode's
+# int32 bid<<24|pos key packing after bucketing (the JAX decode's
+# (pos+len)<<6 packing, which the port's decode no longer has, set it too)
 _MAX_DEVICE_BASES = 12 << 20
 _MIN_DEVICE_BASES = 128 << 10
-# the frontend takes B <= 63 and the quality decode packs the bin id into 6
-# bits; the by-column mode allows 64 bins when the major qual doubles as
-# the N qual, and those chunks take the host route
+# the frontend takes B <= 63 (the bin id in 6 bits of its meta byte), and
+# the JAX engine's quality decode packs it so too: the port keeps the limit
+# so that chunks route as they do there. The by-column mode allows 64 bins
+# when the major qual doubles as the N qual, and those chunks take the host
+# route
 _MAX_BINS = 63
 
 
@@ -573,7 +576,8 @@ class DeviceEngine:
         decode step; its (2 * n_cap,) u8 payload as numpy, or None for the
         host route."""
         if n_cap >= (1 << 24):
-            return None  # past the (pos+length)<<6 decode packing
+            return None  # routed as the JAX engine routes it (its decode
+            # packs (pos + length) << 6 into int32)
         nbins = int(header.normal_qual_bins())
         qual_len = len(chunk.qual_buf)
         npos_len = len(chunk.npos_buf) if header.encode_n_pos() else 0
@@ -642,9 +646,10 @@ class DeviceEngine:
         pos_cap = geo(c, lo=512)
         esc_cap = 0 if esc == 0 else geo(esc, lo=8)
         # run tokens (covering >= 2 positions) number <= positions -
-        # tokens; the token-space decode extends them through a (run, 4,
-        # 31) grid, worth it while that grid stays small next to the
-        # slot-space rebuild it replaces; run-heavy chunks take the latter
+        # tokens; run_cap picks the JAX engine's branch (its (run, 4, 31)
+        # grid while small, else the slot-space rebuild). The port's decode
+        # writes every run whole and selects nothing by it (nor by pos_cap):
+        # both stay so that the tests hand both packages the same caps
         run_cnt = max(0, c - t)
         run_cap = (geo(run_cnt + 2, lo=64) if run_cnt * 31 <= max(4096, c)
                    else None)
@@ -662,15 +667,13 @@ class DeviceEngine:
         n_cap = 4 * packed.shape[0]
         tok_cap, pos_cap, esc_cap, run_cap = qcaps
         with _span("dec.unpack"):
-            # one spare byte past the bases: the N scatter's dump slot
-            buf = torch.empty(n_cap + 1, dtype=torch.uint8,
-                              device=packed.device)
-            seq = kernels.unpack_bases(packed, out=buf)
+            seq = kernels.unpack_bases(packed)
             if has_npos:  # in stored (elided) space
                 pos, _cnt = ds.decode_positions_device(npos_buf, npos_len,
                                                        np_cap)
-                tgt = torch.where((pos >= 0) & (pos < n_cap), pos, n_cap)
-                buf[tgt.long()] = _N
+                with _span("dec.nscatter"):
+                    # the -1 padding of pos lies outside seq: no write
+                    kernels.fill_runs(seq, pos, 1, _N)
         if tables is not None:
             with _span("dec.expand"):
                 seq = _expand(seq, tables, L)

@@ -155,6 +155,9 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_rans_decode_shared_rows.restype = ll
     lib.repaq_overlap_pairs.argtypes = [vp, ll, ci, vp, ll, ci, ll, vp, vp]
     lib.repaq_overlap_pairs.restype = ci
+    for entry in (lib.repaq_fill_runs_u8, lib.repaq_fill_runs_i32):
+        entry.argtypes = [vp, ll, vp, vp, ci, vp, ci, vp, ll, vp]
+        entry.restype = ci
     return lib
 
 

@@ -6,9 +6,13 @@ Each function keeps the name, the arguments and the int32 arithmetic of
 its JAX twin, so the two can be fed the same input, and is byte-exact with
 it and with repaq_tpu.codec.kernels_np. What differs from JAX:
 
-- JAX's ``.at[idx].set(mode="drop")`` drops out-of-range indices; torch on
-  CUDA would assert. Every such scatter here writes into one spare slot
-  past the end and slices it off, and clamps its indices into range.
+- JAX's ``.at[idx].set(mode="drop")`` drops out-of-range indices, and
+  its callers aim every masked write at one spare element past the end.
+  Here the decode's writes (the quality runs, the escapes, the N
+  positions' deltas and segment marks) are ``kernels.fill_runs``: masked
+  entries and targets out of range write nothing, and a token's run is
+  written whole, so neither the spare element nor JAX's (run_cap, 4, 31)
+  run grid is needed.
 - ``lax.sort((keys, payload), num_keys=1)`` is a stable ``torch.sort`` of
   the keys and a gather of the payload by the returned order. Keys repeat
   only at the sentinel fill, whose payloads are masked afterwards.
@@ -34,6 +38,10 @@ from . import kernels
 
 _I32 = torch.int32
 _INF = 2**31 - 1
+
+# named ranges of the decode's writes in a torch.profiler trace (a flag
+# test when no profiler runs); tools/profile_torch_pe.py reads them
+_span = torch.profiler.record_function
 
 # emission layout-sort strategy threshold: outputs below this pack
 # (offset << 8 | byte) into one int32 key; at or above it the offsets ride
@@ -577,31 +585,25 @@ def decode_positions_device(buf: torch.Tensor, valid_len, max_positions: int,
     cum_pos = _cumsum(npos_tok)
     count = cum_pos[-1] if m else _scalar(0, dev)
     first_slot = cum_pos - npos_tok
-    deltas = torch.ones(max_positions + 1, dtype=_I32, device=dev)
-    slot = torch.where(starts, first_slot.clamp(max=max_positions),
-                       max_positions)
-    deltas[slot.long()] = torch.where(starts, dist, 1).to(_I32)
-    deltas = deltas[:max_positions]
+    with _span("dec.npos.write"):
+        deltas = torch.ones(max_positions, dtype=_I32, device=dev)
+        kernels.fill_runs(deltas, first_slot, 1, dist.to(_I32), starts)
     if force_start is not None:
         # a segment restarts its running position at -1: subtract the
         # running total just before each segment start
-        seg_first = starts & force_start
-        seg_slot = torch.where(seg_first, first_slot.clamp(max=max_positions),
-                               max_positions)
-        seg_mark = torch.zeros(max_positions + 1, dtype=torch.bool,
-                               device=dev)
-        seg_mark[seg_slot.long()] = seg_first
-        positions = kernels.seg_positions(deltas, seg_mark[:max_positions])
+        seg_mark = torch.zeros(max_positions, dtype=torch.bool, device=dev)
+        kernels.fill_runs(seg_mark, first_slot, 1, True,
+                          starts & force_start)
+        positions = kernels.seg_positions(deltas, seg_mark)
     else:
         positions = _cumsum(deltas) - 1
     k = _arange(max_positions, dev)
     return torch.where(k < count, positions, -1), count
 
 
-def _scatter_escapes(qual, buf, w32, stream_end, total_len, esc_cap: int,
-                     length: int):
-    """Write the 5-byte escape records in [stream_end, total_len) into
-    qual, a (length + 1,) buffer whose last slot absorbs dropped writes."""
+def _scatter_escapes(qual, buf, w32, stream_end, total_len, esc_cap: int):
+    """Write the 5-byte escape records in [stream_end, total_len) into the
+    (length,) qual; a record's position outside it writes nothing."""
     m = buf.shape[0]
     dev = buf.device
     rec = stream_end + 5 * _arange(esc_cap, dev)
@@ -611,9 +613,7 @@ def _scatter_escapes(qual, buf, w32, stream_end, total_len, esc_cap: int,
     ch = (we & 0xFF).to(torch.uint8)
     pos = ((we >> 8) & 0xFFFFFF) | (
         buf[(recc + 4).clamp(max=m - 1).long()].to(_I32) << 24)
-    ok = rec_ok & (pos >= 0) & (pos < length)
-    qual[torch.where(ok, pos, length).long()] = torch.where(
-        ok, ch, torch.zeros_like(ch))
+    kernels.fill_runs(qual, pos, 1, ch, rec_ok)
 
 
 def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
@@ -626,29 +626,23 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
     compact token space: one token-FSM pass over the concatenated per-bin
     streams (stream boundaries force restarts), token compaction by a sort
     carrying each token's 4-byte window, per-token gap/run arithmetic, then
-    the writes of (position -> bin char) and of the escape records into
-    the major-filled output.
-
-    run_cap is None: slot-space rebuild (a per-token packed delta scattered
-    at each token's first slot, one cumsum). Otherwise token-space writes:
-    one per token, plus a compacted (run, 4, 31) grid extending the <=
-    run_cap groups of tokens that cover >= 2 positions.
+    the writes of each token's run of (position -> bin char), then of the
+    escape records, into the major-filled output (``kernels.fill_runs``).
 
     buf: (m,) u8 padded with >= 5 zero bytes; total_len: true qual_buf
-    size. tok_cap / pos_cap / esc_cap: upper bounds on token, position and
-    escape-record counts. Returns qual (length,) u8."""
+    size. tok_cap / esc_cap: upper bounds on token and escape-record
+    counts. pos_cap and run_cap keep JAX's signature and select nothing
+    here: JAX picks its slot-space rebuild (a delta scattered at each
+    token's first slot, one cumsum, pos_cap slots) when run_cap is None,
+    else token-space writes with a (run_cap, 4, 31) grid extending the
+    runs; both give these bytes while the caps hold the chunk's counts.
+    Returns qual (length,) u8."""
     m = buf.shape[0]
     dev = buf.device
     major = int(major)
     tok_cap = max(1, min(m if tok_cap is None else tok_cap, m))
-    pos_cap = max(1, min(min(length, 32 * m) if pos_cap is None else pos_cap,
-                         length))
     if esc_cap is None:
         esc_cap = m // 5 + 1
-    if not (length < (1 << 24) and nbins < 64):
-        raise ValueError("qualcol decode packs (pos_delta + length) << 6 | "
-                         "bin into int32; length %d / nbins %d out of range"
-                         % (length, nbins))
     lens_table = (buf[0: 4 * nbins: 4].to(_I32)
                   | (buf[1: 4 * nbins + 1: 4].to(_I32) << 8)
                   | (buf[2: 4 * nbins + 2: 4].to(_I32) << 16)
@@ -692,61 +686,16 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
                            torch.full((1,), major, dtype=torch.uint8,
                                       device=dev)])
 
-    qual = torch.full((length + 1,), major, dtype=torch.uint8, device=dev)
-    if run_cap is not None:
-        val_t = bin_chars[tok_bin.long()]
-        ok_t = valid & (npos >= 1) & (pos_first >= 0) & (pos_first < length)
-        qual[torch.where(ok_t, pos_first, length).long()] = val_t
-        # run extension: 4-token groups holding a token that covers >= 2
-        # positions, compacted by sort-slice to run_cap groups
-        rmask = valid & (npos >= 2)
-        pad4 = (-tok_i.shape[0]) % 4
-        zi = torch.zeros(pad4, dtype=_I32, device=dev)
-        rmask = torch.cat([rmask, torch.zeros(pad4, dtype=torch.bool,
-                                              device=dev)])
-        rp = torch.cat([pos_first, zi]).view(-1, 4)
-        rn = torch.cat([npos, zi]).view(-1, 4)
-        rv = torch.cat([val_t, zi.to(torch.uint8)]).view(-1, 4)
-        ng = rp.shape[0]
-        run_cap_eff = max(1, min(run_cap, ng + 1))
-        g_has = rmask.view(-1, 4).any(dim=1)
-        gidx = torch.sort(torch.where(g_has, _arange(ng, dev), ng)).values[
-            :run_cap_eff].long()
-
-        def _g4(x):
-            return torch.cat([x, x.new_zeros((1, 4))])[gidx]
-
-        rp, rn, rv = _g4(rp), _g4(rn), _g4(rv)
-        rm = _g4(rmask.view(-1, 4))
-        lanes31 = _arange(32, dev, 1)[None, None, :]
-        cand = rp[:, :, None] + lanes31
-        cv = (rm[:, :, None] & (lanes31 < rn[:, :, None]) & (cand >= 0)
-              & (cand < length))
-        qual[torch.where(cv, cand, length).reshape(-1).long()] = (
-            rv[:, :, None].expand(cv.shape).reshape(-1))
-    else:
-        cum_np = _cumsum(npos)
-        slot_start = cum_np - npos
-        c_total = cum_np[-1]
-        # positions covered by token j are pos_first + (k - slot_start) for
-        # slot k: pack that per-token constant with the bin id, scatter
-        # its delta at each token's first slot and fill forward by cumsum
-        a2 = ((pos_first - slot_start + length) << 6) | tok_bin
-        d = a2 - _shift1(a2, 0)
-        sidx = torch.where(valid & (npos >= 1), slot_start.clamp(max=pos_cap),
-                           pos_cap)
-        dslots = torch.zeros(pos_cap + 1, dtype=_I32, device=dev)
-        dslots[sidx.long()] = d
-        a2_k = _cumsum(dslots[:pos_cap])
-        k = _arange(pos_cap, dev)
-        pos_k = (a2_k >> 6) - length + k
-        bin_k = (a2_k & 63).clamp(max=nbins)
-        ok_k = (k < c_total) & (pos_k >= 0) & (pos_k < length)
-        qual[torch.where(ok_k, pos_k, length).long()] = bin_chars[bin_k.long()]
+    qual = torch.full((length,), major, dtype=torch.uint8, device=dev)
+    with _span("dec.qual.fill"):
+        # each token's run, written whole; tokens past the valid ones have
+        # npos 0 and write nothing
+        kernels.fill_runs(qual, pos_first, npos, bin_chars[tok_bin.long()])
     if esc_cap > 0:
-        _scatter_escapes(qual, buf, w32, stream_end, total_len, esc_cap,
-                         length)
-    return qual[:length]
+        # a second launch, so that an escape lands over a stream's write
+        with _span("dec.qual.esc"):
+            _scatter_escapes(qual, buf, w32, stream_end, total_len, esc_cap)
+    return qual
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels of the port, each beside its plain torch
 version; the counterpart of repaq_tpu/ops/pallas_tpu.py, and of the
-run-boundary scans and the PE overlap search that the JAX package left to
-XLA.
+run-boundary scans, the PE overlap search and the decode's masked writes
+that the JAX package left to XLA.
 
 Every wrapper decides by the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (built on
@@ -25,7 +25,8 @@ _G, _A, _T, _C, _N = 71, 65, 84, 67, 78
 launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
             "pack_bases": 0, "unpack_bases": 0, "token_start_mask": 0,
             "run_offsets": 0, "seg_positions": 0, "rans_encode": 0,
-            "rans_layout": 0, "rans_decode": 0, "overlap_pairs": 0}
+            "rans_layout": 0, "rans_decode": 0, "overlap_pairs": 0,
+            "fill_runs": 0}
 _launch_lock = threading.Lock()
 
 
@@ -550,4 +551,97 @@ def overlap_pairs(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
         _launch("overlap_pairs", lib.repaq_overlap_pairs, r1.data_ptr(),
                 r1.stride(0), r1.shape[1], r2.data_ptr(), r2.stride(0),
                 r2.shape[1], p, out.data_ptr(), _stream(dev))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# masked run writes (JAX: XLA's .at[].set(mode="drop") scatters aimed at a
+# dump element, repaq_tpu/ops/device_streams.py:982, :992, :1161, :1197,
+# :1211, :1228, :1242, :1257 and repaq_tpu/codec/device_engine.py:845, :982)
+# ---------------------------------------------------------------------------
+
+_FILL_ENTRIES = {torch.uint8: "repaq_fill_runs_u8",
+                 torch.bool: "repaq_fill_runs_u8",
+                 torch.int32: "repaq_fill_runs_i32"}
+
+
+def _per_entry(x, n: int, dtype, dev) -> torch.Tensor:
+    """x as an (n,) tensor: x itself, or the scalar x repeated."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.full((n,), x, dtype=dtype, device=dev)
+
+
+def fill_runs_plain(out: torch.Tensor, start: torch.Tensor, count, value,
+                    keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain torch version of ``fill_runs``: the kept runs expanded to one
+    index a written element, then one index_put_."""
+    n, dev = start.shape[0], out.device
+    c = _per_entry(count, n, torch.int32, dev).long().clamp(min=0)
+    if keep is not None:
+        c = torch.where(keep, c, 0)
+    entry = torch.repeat_interleave(torch.arange(n, device=dev), c)
+    first = torch.cumsum(c, 0) - c
+    tgt = (start.long()[entry] + torch.arange(entry.shape[0], device=dev)
+           - first[entry])
+    ok = (tgt >= 0) & (tgt < out.shape[0])
+    v = _per_entry(value, n, out.dtype, dev)
+    out[tgt[ok]] = v[entry[ok]]
+    return out
+
+
+def _check_fill(out, start, count, value, keep) -> None:
+    if out.dtype not in _FILL_ENTRIES or out.dim() != 1 or \
+            not out.is_contiguous():
+        raise ValueError("out must be a contiguous 1-D uint8, bool or int32 "
+                         "tensor, got %s %s" % (out.dtype, tuple(out.shape)))
+    if start.dtype != torch.int32 or start.dim() != 1:
+        raise ValueError("start must be a 1-D int32 tensor, got %s %s"
+                         % (start.dtype, tuple(start.shape)))
+    n = start.shape[0]
+    for name, t, dtype in (("count", count, torch.int32),
+                           ("value", value, out.dtype),
+                           ("keep", keep, torch.bool)):
+        if isinstance(t, torch.Tensor) and (t.dtype != dtype
+                                            or t.shape != (n,)):
+            raise ValueError("%s must be a (%d,) %s tensor, got %s %s"
+                             % (name, n, dtype, t.dtype, tuple(t.shape)))
+    if not isinstance(count, torch.Tensor) and not 0 <= int(count) < 2**31:
+        raise ValueError("count must be a non-negative int32, got %r"
+                         % (count,))
+
+
+def fill_runs(out: torch.Tensor, start: torch.Tensor, count, value,
+              keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked run writes into out, in place: for each entry i with keep[i],
+    out[start[i] + j] = value[i] for 0 <= j < count[i], each target kept
+    only inside [0, out.numel()); masked entries and targets outside write
+    nothing, so no spare element is needed. out: contiguous 1-D uint8,
+    bool or int32; start: (n,) int32; count: (n,) int32 or one int for
+    every entry (the decode's runs are at most 32); value: (n,) of out's
+    dtype or one scalar; keep: (n,) bool, or None for every entry. Where
+    two kept entries write one target, either value may land. One launch;
+    returns out."""
+    _check_fill(out, start, count, value, keep)
+    tensors = [t for t in (out, start, count, value, keep)
+               if isinstance(t, torch.Tensor)]
+    if not _on_cuda(*tensors):
+        return fill_runs_plain(out, start, count, value, keep)
+    n = start.shape[0]
+    if n == 0:
+        return out
+    lib = _build.library()
+    start = start.contiguous()
+    cnt = count.contiguous() if isinstance(count, torch.Tensor) else None
+    val = value.contiguous() if isinstance(value, torch.Tensor) else None
+    keep = None if keep is None else keep.contiguous()
+    with torch.cuda.device(out.device):
+        _launch("fill_runs", getattr(lib, _FILL_ENTRIES[out.dtype]),
+                out.data_ptr(), out.numel(), start.data_ptr(),
+                None if cnt is None else cnt.data_ptr(),
+                0 if cnt is not None else int(count),
+                None if val is None else val.data_ptr(),
+                0 if val is not None else int(value),
+                None if keep is None else keep.data_ptr(), n,
+                _stream(out.device))
     return out

@@ -21,13 +21,15 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
-from chip_smoke import (DECODE_CASES, FRONT_CASES, FSM_KINDS, LAYOUT_CASES,
-                        OVERLAP_CASES, PE_BASES, RANS_CASES, RANS_SHAPES,
-                        RUN_KINDS, SEG_KINDS, _decode_case_makers,
-                        decode_case, decode_case_inputs, front_case,
-                        fsm_case, layout_case, one_kernel_a_call,
-                        overlap_case, rans_case, rans_case_inputs,
-                        rans_shape_data, run_case, seg_case)
+from chip_smoke import (DECODE_CASES, FILL_CASES, FILL_DTYPES, FRONT_CASES,
+                        FSM_KINDS, LAYOUT_CASES, OVERLAP_CASES, PE_BASES,
+                        RANS_CASES, RANS_SHAPES, RUN_KINDS, SEG_KINDS,
+                        _decode_case_makers, decode_case,
+                        decode_case_inputs, fill_args, fill_case,
+                        fill_chunk_inputs, fill_loop, front_case, fsm_case,
+                        layout_case, one_kernel_a_call, overlap_case,
+                        rans_case, rans_case_inputs, rans_shape_data,
+                        run_case, seg_case)
 from test_device_engine import _mk_block
 
 
@@ -756,3 +758,44 @@ def test_cli_rfqz_engine_device_matches_host_coder(cuda, fixtures_dir,
             assert eng.stats["device_chunks"] > 1
         assert TK.launches["rans_encode"] > 0
         assert TK.launches["rans_layout"] == TK.launches["rans_encode"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", FILL_DTYPES)
+@pytest.mark.parametrize("name", FILL_CASES)
+def test_fill_runs_edges(cuda, name, dtype):
+    """fill_runs against its plain version and a numpy loop on every
+    FILL_CASES case, one launch each (none for no entries), the elements
+    around the written view left alone."""
+    case = fill_case(name, dtype)
+    buf, out, start, count, value, keep = fill_args(case, cuda)
+    before = TK.launches["fill_runs"]
+    got = TK.fill_runs(out, start, count, value, keep)
+    torch.cuda.synchronize()
+    assert TK.launches["fill_runs"] == before + (start.shape[0] > 0)
+    _b, pout, pstart, pcount, pvalue, pkeep = fill_args(case, cuda)
+    want = TK.fill_runs_plain(pout, pstart, pcount, pvalue, pkeep)
+    assert torch.equal(got, want)
+    off = case[5]
+    assert np.array_equal(got.cpu().numpy(), fill_loop(
+        case[0][off:], case[1], case[2], case[3], case[4]))
+    assert np.array_equal(buf.cpu().numpy()[:off], case[0][:off])
+
+
+@pytest.mark.cuda
+def test_fill_runs_at_the_se_chunk(cuda):
+    """fill_runs on one SE decode chunk's quality writes (FILL_CHUNK)
+    against its plain version, one launch."""
+    out, start, count, value, keep = fill_chunk_inputs(cuda)
+    want = TK.fill_runs_plain(out.clone(), start, count, value, keep)
+    before = TK.launches["fill_runs"]
+    got = TK.fill_runs(out, start, count, value, keep)
+    assert TK.launches["fill_runs"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fill_runs_refuses_a_mix_of_devices(cuda):
+    out = torch.zeros(8, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        TK.fill_runs(out, torch.zeros(2, dtype=torch.int32), 1, 3)

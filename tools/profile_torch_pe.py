@@ -23,10 +23,12 @@ run-boundary kernels' device time and share (the port's kernels of
 csrc/scan.cu, and torch's cummax/cummin kernels should any run), the
 host-device copies, the kernels with the most device time, and the time
 inside each of the engine's named stage ranges (``enc.*`` / ``dec.*``,
-see repaq_tpu_torch/codec/device_engine.py) with the kernels and the
-copies and fills launched inside it. The profiler records the ranges of
-the thread that runs it only, so they show with one worker, where the
-pipeline runs each chunk inline.
+see repaq_tpu_torch/codec/device_engine.py and ops/device_streams.py) with
+the kernels and the copies and fills launched inside it, and every
+``aten::index_put_`` (a scatter) by the range it ran in and by its target
+and value shapes, with its device time and calls. The profiler records
+the ranges of the thread that runs it only, so they show with one worker,
+where the pipeline runs each chunk inline.
 """
 
 from __future__ import annotations
@@ -54,6 +56,48 @@ def _launched_under(e) -> tuple:
         k, cp = _launched_under(c)
         kern, copies = kern + k, copies + cp
     return kern, copies
+
+
+def _kernel_us_under(e) -> float:
+    """Device time (us) of the kernels launched by host event e and the
+    ops below it."""
+    return (sum(k.duration for k in e.kernels if not _is_copy(k.name))
+            + sum(_kernel_us_under(c) for c in e.cpu_children))
+
+
+def _range_of(e) -> str:
+    """The innermost enc.*/dec.* range around host event e, or '-'."""
+    p = e.cpu_parent
+    while p is not None:
+        if p.name.startswith(("enc.", "dec.")):
+            return p.name
+        p = p.cpu_parent
+    return "-"
+
+
+def index_put_report(prof) -> None:
+    """Every aten::index_put_ (a scatter) by the range it ran in and its
+    shapes: device ms, calls, entries written. Shapes are the target's
+    and the values' (a scalar value, [], writes one entry per index)."""
+    sites = {}
+    for e in prof.events():
+        if e.name != "aten::index_put_" or e.cpu_parent is not None and \
+                e.cpu_parent.name == "aten::index_put_":
+            continue
+        shapes = e.input_shapes or []
+        target = tuple(shapes[0]) if shapes else ()
+        values = tuple(shapes[2]) if len(shapes) > 2 else ()
+        key = (_range_of(e), target, values)
+        us, calls = sites.get(key, (0.0, 0))
+        sites[key] = (us + _kernel_us_under(e), calls + 1)
+    total = sum(us for us, _c in sites.values())
+    print("  index_put_: %.3f ms device, %d calls"
+          % (total / 1e3, sum(c for _u, c in sites.values())))
+    for (rng, target, values), (us, calls) in sorted(
+            sites.items(), key=lambda kv: -kv[1][0]):
+        print("    index_put_ in %-15s %8.3f ms %4d calls, target %s, "
+              "values %s" % (rng, us / 1e3, calls, list(target),
+                             list(values)))
 
 
 def report(label: str, prof, wall: float) -> None:
@@ -104,6 +148,7 @@ def report(label: str, prof, wall: float) -> None:
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
         print("  kernel %6.1f ms %5.1f%%  %s"
               % (v / 1e3, 100 * v / max(busy, 1e-9), k[:110]))
+    index_put_report(prof)
 
 
 def main() -> int:
@@ -154,7 +199,8 @@ def main() -> int:
                 raise SystemExit("the CLI failed: %s" % argv)
         for label, argv in (("encode", enc), ("decode", dec)):
             torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.profile(activities=acts,
+                                        record_shapes=True) as prof:
                 t0 = time.perf_counter()
                 if cli.main(argv, engine=eng.config()):
                     raise SystemExit("the CLI failed: %s" % argv)
