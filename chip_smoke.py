@@ -65,7 +65,15 @@ Phases, each of which must pass:
      as the decode passes none), timed beside its bound, beside index_put_ of the same writes as distinct indices,
      and in turns beside the parent's composition of them (the token
      index_put_ and the 73,138,176-entry run grid aimed at a dump byte),
-     and at that chunk's N deltas and N bases;
+     and at that chunk's N deltas and N bases. The stable bucket
+     compaction (bucket_compact) on every COMPACT_CASES case, placed by
+     its built tile (n = 1, tile - 1, tile, tile + 1, past 3,000 tiles,
+     none and all kept, 64 and 256 buckets, a cut at cap, cap past n and
+     0, runs across tiles; against its plain version and a numpy argsort),
+     then at an SE chunk's grouping (12,582,912 bin ids of NovaSeq
+     qualities), its N flags and its decode's 2,359,296 token starts with
+     their windows, each timed beside its bound and, in turns, beside the
+     parent's torch.sort of the same keys with its gather;
      after phase 5 both scans are held and timed again at the
      shapes the two corpora handed them (the SE and PE quality streams and
      coordinate rows, and decode token counts), and after
@@ -89,8 +97,9 @@ Phases, each of which must pass:
      run_offsets 3 times a chunk on compress and never on decompress,
      seg_positions once a chunk on decompress and never on compress (the
      same in phases 7 and 8; overlap_pairs likewise once a PE compress
-     chunk and never elsewhere, fill_runs 3 times a decompress chunk and
-     never on compress), and the shapes they were handed are logged.
+     chunk and never elsewhere, fill_runs 3 times a chunk both ways,
+     bucket_compact 5 times a compress chunk and once a decompress
+     chunk), and the shapes they were handed are logged.
      The round
      trip runs twice: the first (cold) pays torch's lazy setup of each
      operator, the second (warm) is the steady rate. The token FSM is then
@@ -198,7 +207,13 @@ KERNELS = [
     # the decode's masked writes: XLA scatters aimed at a dump element
     ("fill_runs", "repaq_tpu_torch/csrc/fill.cu",
      "repaq_tpu/ops/device_streams.py:982, :992, :1161, :1197, :1211, "
-     ":1228, :1242, :1257; repaq_tpu/codec/device_engine.py:845, :982",
+     ":1228, :1242, :1257; repaq_tpu/codec/device_engine.py:845, :982; "
+     "the emission's layout sorts, repaq_tpu/ops/device_streams.py:67, :76",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+    # the compaction and grouping sorts
+    ("bucket_compact", "repaq_tpu_torch/csrc/compact.cu",
+     "repaq_tpu/ops/device_streams.py:136, :187, :237, :403-419, :502, "
+     ":536, :1094",
      ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
 ]
 
@@ -916,6 +931,246 @@ def fill_kernel_phase(dev) -> dict:
              (pos_t,), fill_moved(seq, pos_t, 1, ord("N")))):
         res["by_shape"][label] = held_and_timed(
             "fill_runs", kern, plain, inputs, label, moved=moved)
+    return res
+
+
+# bucket_compact's edge cases, placed by the built tile: one element, a
+# tile and one either side, past 3,000 tiles (an SE grouping's ids), none
+# and all kept, 64 buckets with ids past them dropped, a cut at cap, a cap
+# past n and a cap of 0, every one of 256 ids in one tile, and runs of one
+# bucket across tile edges; with and without a payload
+COMPACT_CASES = ("n1", "tile-1", "tile", "tile+1", "tiles3001", "none",
+                 "all", "k64", "k64_cut", "cap_past_n", "cap0", "k256_tile",
+                 "runs")
+
+
+def compact_case(name: str, tile: int):
+    """(bucket, nbuckets, cap, fill, payload) numpy arrays of a
+    COMPACT_CASES case for a kernel tile of `tile` elements: bucket bool
+    (one bucket) or uint8 ids, payload int32 or None."""
+    import numpy as np
+
+    rng = np.random.default_rng(1700 + COMPACT_CASES.index(name))
+    n = {"n1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+         "tiles3001": 3001 * tile + 5, "k256_tile": tile,
+         "runs": 5 * tile + 1}.get(name, 3 * tile + 5)
+    payload = rng.integers(-2**31, 2**31, size=n, dtype=np.int64).astype(
+        np.int32)
+    nbuckets, cap, fill = 1, n, -7
+    if name in ("n1", "tile-1", "tile", "tile+1", "cap0"):
+        bucket = rng.random(n) < 0.5
+        cap = 0 if name == "cap0" else n
+    elif name in ("none", "all"):
+        bucket = np.full(n, name == "all")
+        cap = 100 if name == "none" else n
+    elif name == "tiles3001":  # an SE chunk's grouping: 3 bins, escape, major
+        bucket = rng.choice(5, size=n, p=[0.09, 0.04, 0.009, 0.001, 0.86])
+        bucket = bucket.astype(np.uint8)
+        nbuckets, cap, fill, payload = 4, int((bucket < 4).sum()), n, None
+    elif name in ("k64", "k64_cut"):
+        bucket = rng.integers(0, 70, size=n).astype(np.uint8)
+        nbuckets = 64
+        cap = n if name == "k64" else int((bucket < 64).sum()) // 2 + 1
+    elif name == "cap_past_n":
+        bucket = rng.integers(0, 3, size=n).astype(np.uint8)
+        nbuckets, cap = 2, n + 1000
+    elif name == "k256_tile":
+        bucket = rng.permutation(np.arange(n) % 256).astype(np.uint8)
+        nbuckets = 256
+    else:  # runs of one bucket across the tile edges, bucket 4 dropped
+        bucket = ((np.arange(n) + tile // 3) // (tile // 2 + 7) % 5).astype(
+            np.uint8)
+        nbuckets, payload = 4, None
+    return bucket, nbuckets, cap, fill, payload
+
+
+def compact_ref(bucket, nbuckets: int, cap: int, fill: int, payload=None):
+    """bucket_compact by numpy: a stable argsort by bucket id, cut to cap
+    and padded with fill (payload 0 there); (idx, pay, counts)."""
+    import numpy as np
+
+    ids = ((~bucket).astype(np.int64) if bucket.dtype == bool
+           else bucket.astype(np.int64))
+    order = np.argsort(ids, kind="stable")
+    order = order[ids[order] < nbuckets][:cap]
+    idx = np.full(cap, fill, np.int32)
+    idx[:order.shape[0]] = order
+    pay = None
+    if payload is not None:
+        pay = np.zeros(cap, np.int32)
+        pay[:order.shape[0]] = payload[order]
+    counts = np.bincount(ids[ids < nbuckets], minlength=nbuckets)
+    return idx, pay, counts[:nbuckets].astype(np.int32)
+
+
+def compact_seeded(n: int, nbuckets: int, cap_kind: str, payload: bool):
+    """A seeded bucket_compact case of n elements: a bool mask for one
+    bucket, else uint8 ids up to nbuckets + 2 (some dropped); cap below
+    ("below"), at or above the kept count; an int32 payload or None. The
+    same tuple as compact_case."""
+    import numpy as np
+
+    rng = np.random.default_rng(n + 7 * nbuckets + len(cap_kind) + payload)
+    if nbuckets == 1:
+        bucket = rng.random(n) < 0.4
+        kept = int(bucket.sum())
+    else:
+        bucket = rng.integers(0, nbuckets + 3, size=n).astype(np.uint8)
+        kept = int((bucket < nbuckets).sum())
+    cap = {"below": kept // 2, "at": kept, "above": kept + 9}[cap_kind]
+    pay = (rng.integers(-2**31, 2**31, size=n, dtype=np.int64)
+           .astype(np.int32) if payload else None)
+    return bucket, nbuckets, cap, -3, pay
+
+
+def compact_args(case, dev):
+    """compact_case's arrays as bucket_compact's arguments on dev."""
+    import torch
+
+    bucket, nbuckets, cap, fill, payload = case
+    return (torch.from_numpy(bucket).to(dev), nbuckets, cap, fill,
+            None if payload is None else torch.from_numpy(payload).to(dev))
+
+
+def compact_moved(bucket, nbuckets: int, cap: int, payload, kept: int) -> int:
+    """The bytes bucket_compact must move: every bucket byte read, the
+    payload read where an element is kept within cap, idx (and pay) written
+    over all of cap, and the counts."""
+    k = min(kept, cap)
+    return (bucket.shape[0] + 4 * cap + 4 * nbuckets
+            + (0 if payload is None else 4 * k + 4 * cap))
+
+
+def compact_edge_cases(dev) -> int:
+    """bucket_compact exact against its plain version and compact_ref on
+    every COMPACT_CASES case, placed by the built tile, one launch each;
+    returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    tile = TK.compact_tile()
+    for name in COMPACT_CASES:
+        case = compact_case(name, tile)
+        args = compact_args(case, dev)
+        before = TK.launches["bucket_compact"]
+        got = TK.bucket_compact(*args)
+        torch.cuda.synchronize()
+        check(TK.launches["bucket_compact"] == before + 1,
+              "bucket_compact launched %d times on %s"
+              % (TK.launches["bucket_compact"] - before, name))
+        want = TK.bucket_compact_plain(*args)
+        ref = compact_ref(*case)
+        for g, w, r in zip(got, want, ref):
+            check((g is None) == (w is None) == (r is None)
+                  and (g is None or (torch.equal(g, w) and np.array_equal(
+                      g.cpu().numpy(), r))),
+                  "bucket_compact differs from its plain version on %s "
+                  "(tile %d)" % (name, tile))
+    return len(COMPACT_CASES)
+
+
+def compact_shapes(dev, seed: int = 1703) -> list:
+    """(label, bucket, nbuckets, cap, fill, payload, parent) at the main
+    path's shapes: an SE chunk's grouping (12,582,912 meta bytes of phase
+    4's NovaSeq qualities masked to bin ids, its nonmajor cap), its N flags
+    (0.1% N, its np_cap) and its decode's 2,359,296 token starts with
+    their windows as payload (FILL_CHUNK's 1,680,349 tokens). parent: the
+    parent's sort of the same keys with its gather, one call each."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.codec.device_engine import _bucket
+
+    rng = np.random.default_rng(seed)
+    n = FILL_CHUNK["length"]
+    qual = rng.choice(np.frombuffer(NOVA_QUALS, np.uint8), size=n, p=NOVA_P)
+    lut = np.full(256, 3, np.uint8)
+    lut[np.frombuffer(b"#,:", np.uint8)] = np.arange(3)
+    lut[ord("F")] = 4
+    nflag = rng.random(n) < 0.001
+    meta = torch.from_numpy(lut[qual] | (nflag.astype(np.uint8) << 7)).to(
+        dev)
+    bid = meta & 0x7F
+    nm_cap = _bucket(int((bid <= 3).sum()))
+    i32 = torch.arange(n, dtype=torch.int32, device=dev)
+    keys_g = torch.where(bid <= 3, (bid.to(torch.int32) << 24) | i32,
+                         2**31 - 1)
+    flag = meta >= 0x80
+    np_cap = _bucket(int(flag.sum()), lo=8)
+    keys_n = torch.where(flag, i32, n)
+    m = FILL_CHUNK["tok_cap"]
+    starts = torch.zeros(m, dtype=torch.bool, device=dev)
+    starts[torch.from_numpy(rng.choice(m, size=FILL_CHUNK["tokens"],
+                                       replace=False)).to(dev)] = True
+    w32 = torch.from_numpy(rng.integers(-2**31, 2**31, size=m,
+                                        dtype=np.int64).astype(np.int32)).to(
+        dev)
+    keys_t = torch.where(starts, torch.arange(m, dtype=torch.int32,
+                                              device=dev), 2**31 - 1)
+
+    def sort_pay():
+        sk, order = torch.sort(keys_t, stable=True)
+        return sk, w32[order]
+
+    return [
+        ("SE grouping: %d bin ids, 4 buckets, cap %d" % (n, nm_cap), bid, 4,
+         nm_cap, n, None, lambda: torch.sort(keys_g).values[:nm_cap]),
+        ("SE N flags: %d flags, %d set, cap %d" % (n, int(flag.sum()),
+                                                    np_cap),
+         flag, 1, np_cap, n, None,
+         lambda: torch.sort(keys_n).values[:np_cap]),
+        ("SE decode tokens: %d starts, %d set, windows riding"
+         % (m, FILL_CHUNK["tokens"]), starts, 1, m, 2**31 - 1, w32,
+         sort_pay),
+    ]
+
+
+def compact_kernel_phase(dev) -> dict:
+    """bucket_compact on its edge cases, then at the main path's shapes
+    (compact_shapes) exact against its plain version, timed beside its
+    bound (compact_moved) and beside the parent's sort of the same keys
+    (the library call), the two in turns (sort, kernel, kernel, sort)."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    log("kernel bucket_compact exact on %d edge cases (COMPACT_CASES at "
+        "tile %d: n = 1, tile - 1, tile, tile + 1, past 3,000 tiles, none "
+        "and all kept, 64 and 256 buckets, a cut at cap, cap past n and 0, "
+        "runs across tiles), one launch each"
+        % (compact_edge_cases(dev), TK.compact_tile()))
+    res = None
+    for label, bucket, k, cap, fill, payload, parent in compact_shapes(dev):
+        kept = int(TK.bucket_compact_plain(bucket, k, 0, fill)[2].sum())
+
+        def kern():
+            return tuple(t for t in TK.bucket_compact(bucket, k, cap, fill,
+                                                      payload)
+                         if t is not None)
+
+        def plain():
+            return tuple(t for t in TK.bucket_compact_plain(
+                bucket, k, cap, fill, payload) if t is not None)
+
+        r = held_and_timed("bucket_compact", kern, plain, (bucket, payload),
+                           label, moved=compact_moved(bucket, k, cap,
+                                                      payload, kept),
+                           library=parent)
+        turns = {"sort": [], "bucket_compact": []}
+        for name, fn in (("sort", parent), ("bucket_compact", kern),
+                         ("bucket_compact", kern), ("sort", parent)):
+            turns[name].append(cuda_ms(fn))
+        r["in_turns_ms"] = turns
+        log("kernel bucket_compact at %s, in turns with the parent's sort: "
+            "sort %s ms, bucket_compact %s ms" % (
+                label, ", ".join("%.4f" % t for t in turns["sort"]),
+                ", ".join("%.4f" % t for t in turns["bucket_compact"])))
+        if res is None:
+            res = dict(r)
+            res["by_shape"] = {}
+        res["by_shape"][label] = r
     return res
 
 
@@ -2277,12 +2532,16 @@ def main_path_boundary_shapes(shapes: list, cut: int) -> dict:
 def per_chunk(what: str, pe: bool) -> dict:
     """The launches a chunk of the kernels whose count a chunk fixes, on
     compress or decompress: run_offsets 3 an encode, seg_positions 1 a
-    decode, overlap_pairs 1 a PE encode, fill_runs 3 a decode (the quality
-    runs, the N positions' deltas, the N bases); none in the other
-    direction."""
+    decode, overlap_pairs 1 a PE encode (none in the other direction);
+    fill_runs 3 either way (encode: the quality, N-position and
+    coordinate streams' bytes; decode: the quality runs, the N positions'
+    deltas, the N bases); bucket_compact 5 an encode (the grouping by bin,
+    the quality and N streams' multi-byte tokens, the N flags, the
+    coordinates' multi-byte values) and 1 a decode (the quality tokens)."""
     enc = what == "compress"
     return {"run_offsets": 3 * enc, "seg_positions": int(not enc),
-            "overlap_pairs": int(enc and pe), "fill_runs": 3 * (not enc)}
+            "overlap_pairs": int(enc and pe), "fill_runs": 3,
+            "bucket_compact": 5 if enc else 1}
 
 
 def check_chunk_launches(where: str, what: str, launches: dict,
@@ -2383,8 +2642,8 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
     for what, counts in (("compress", enc), ("decompress", dec)):
         check_chunk_launches(tag, what, counts, len(chunks), pe)
     counted = per_chunk("compress", pe)
-    log("corpus %s: run-boundary, overlap and fill launches, compress %s, "
-        "decompress %s, for %d chunks"
+    log("corpus %s: run-boundary, overlap, fill and compaction launches, "
+        "compress %s, decompress %s, for %d chunks"
         % (tag, {k: enc[k] for k in counted}, {k: dec[k] for k in counted},
            len(chunks)))
     res = {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
@@ -2740,9 +2999,11 @@ print(json.dumps({"wall_s": time.perf_counter() - t0, "timings": timings,
 RANK_TIMEOUT_S = 300
 
 # the kernels each direction of a shard must launch in every rank
-SHARD_KERNELS = {"compress": ("encode_frontend", "run_offsets"),
+SHARD_KERNELS = {"compress": ("encode_frontend", "run_offsets",
+                              "bucket_compact", "fill_runs"),
                  "decompress": ("unpack_bases", "token_start_mask",
-                                "seg_positions", "fill_runs")}
+                                "seg_positions", "fill_runs",
+                                "bucket_compact")}
 
 
 def rank_env(rank: int, per_card: bool) -> dict:
@@ -2947,6 +3208,7 @@ def main() -> int:
         kres = kernel_phase(torch.device("cuda:0"))
         kres["overlap_pairs"] = overlap_kernel_phase(torch.device("cuda:0"))
         kres["fill_runs"] = fill_kernel_phase(torch.device("cuda:0"))
+        kres["bucket_compact"] = compact_kernel_phase(torch.device("cuda:0"))
         kres.update(rans_kernel_phase(torch.device("cuda:0")))
         golden_phase()
         cres = {"se": corpus_phase("cuda:0", pe=False),

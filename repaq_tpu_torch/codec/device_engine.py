@@ -52,9 +52,10 @@ _N = ord("N")
 _span = torch.profiler.record_function
 
 # the chunk-size window of the JAX engine (device_engine.py:51-52), kept so
-# that chunks route as they do there: 12 Mbase stays inside the encode's
-# int32 bid<<24|pos key packing after bucketing (the JAX decode's
-# (pos+len)<<6 packing, which the port's decode no longer has, set it too)
+# that chunks route as they do there: 12 Mbase stays inside JAX's int32
+# bid<<24|pos grouping keys after bucketing (the JAX decode's (pos+len)<<6
+# packing set it too); the port packs neither, its compaction and decode
+# take any int32 size
 _MAX_DEVICE_BASES = 12 << 20
 _MIN_DEVICE_BASES = 128 << 10
 # the frontend takes B <= 63 (the bin id in 6 bits of its meta byte), and
@@ -304,7 +305,8 @@ class DeviceEngine:
         b = block.n
         n_cap = _bucket(n, lo=4096)
         if n_cap >= (1 << 24):
-            return None  # past the bid<<24|pos grouping-key packing
+            return None  # routed as the JAX engine routes it (its bid<<24|pos
+            # grouping keys); the port has no such packing
         caps = self._stream_caps(header, block, n_cap)
         bins, major = self._palette_for(header)
         b_cap = _bucket(b, lo=256)
@@ -405,7 +407,8 @@ class DeviceEngine:
         p_cap = b_cap // 2
         n_cap = b_cap * L
         if n_cap >= (1 << 24):
-            return None  # past the bid<<24|pos grouping-key packing
+            return None  # routed as the JAX engine routes it (its bid<<24|pos
+            # grouping keys); the port has no such packing
         caps = self._stream_caps(header, block, n_cap)
         bins, major = self._palette_for(header)
         has_xy = header.has_x()
@@ -577,7 +580,8 @@ class DeviceEngine:
         host route."""
         if n_cap >= (1 << 24):
             return None  # routed as the JAX engine routes it (its decode
-            # packs (pos + length) << 6 into int32)
+            # packs (pos + length) << 6 into int32); the port has no such
+            # packing
         nbins = int(header.normal_qual_bins())
         qual_len = len(chunk.qual_buf)
         npos_len = len(chunk.npos_buf) if header.encode_n_pos() else 0

@@ -158,6 +158,13 @@ def _bind(path: str) -> ctypes.CDLL:
     for entry in (lib.repaq_fill_runs_u8, lib.repaq_fill_runs_i32):
         entry.argtypes = [vp, ll, vp, vp, ci, vp, ci, vp, ll, vp]
         entry.restype = ci
+    lib.repaq_bucket_compact.argtypes = [vp, ci, ll, ci, ll, ci, vp, vp, vp,
+                                         vp, vp, vp]
+    lib.repaq_bucket_compact.restype = ci
+    lib.repaq_bucket_compact_scratch_words.argtypes = [ll, ci]
+    lib.repaq_bucket_compact_scratch_words.restype = ll
+    lib.repaq_bucket_compact_tile.argtypes = []
+    lib.repaq_bucket_compact_tile.restype = ll
     return lib
 
 

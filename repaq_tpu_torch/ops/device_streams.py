@@ -13,9 +13,16 @@ it and with repaq_tpu.codec.kernels_np. What differs from JAX:
   entries and targets out of range write nothing, and a token's run is
   written whole, so neither the spare element nor JAX's (run_cap, 4, 31)
   run grid is needed.
-- ``lax.sort((keys, payload), num_keys=1)`` is a stable ``torch.sort`` of
-  the keys and a gather of the payload by the returned order. Keys repeat
-  only at the sentinel fill, whose payloads are masked afterwards.
+- JAX's sorts either compact (the elements whose key is not the fill, in
+  index order) or group (by bin id, then index); here both are
+  ``kernels.bucket_compact``, one stable bucket compaction that also
+  gathers a payload and counts each bucket. The payload is 0 past the kept
+  elements, where JAX's rides its fill keys; every caller masks it there.
+- JAX's layout sort, which places each candidate byte at its rank among
+  the offsets, is a direct write of each byte at its offset
+  (``kernels.fill_runs`` with count 1): the offsets are distinct and cover
+  the stream, so rank and offset agree, and the coordinates need no filler
+  keys.
 - ``torch.cumsum`` is asked for int32 explicitly (it defaults to int64).
 - The overlap search is ``kernels.overlap_pairs``, exact where JAX
   hashes: the CUDA kernel for CUDA tensors, its plain version for CPU
@@ -42,13 +49,6 @@ _INF = 2**31 - 1
 # named ranges of the decode's writes in a torch.profiler trace (a flag
 # test when no profiler runs); tools/profile_torch_pe.py reads them
 _span = torch.profiler.record_function
-
-# emission layout-sort strategy threshold: outputs below this pack
-# (offset << 8 | byte) into one int32 key; at or above it the offsets ride
-# a sort with the byte as payload (tests lower it to reach that path on
-# small inputs)
-_WIDE_THRESHOLD = 1 << 23
-
 
 def _arange(n: int, device, start: int = 0) -> torch.Tensor:
     return torch.arange(start, n, dtype=_I32, device=device)
@@ -80,9 +80,12 @@ def _gather1(arr: torch.Tensor, idx: torch.Tensor, fill=0) -> torch.Tensor:
     return ext[idx.long()]
 
 
-def _sort_pay(keys: torch.Tensor, payload: torch.Tensor):
-    skeys, order = torch.sort(keys, stable=True)
-    return skeys, payload[order]
+def _compact(mask: torch.Tensor, cap: int, fill: int,
+             payload: torch.Tensor | None = None):
+    """(idx, pay): the indices where the (n,) bool mask is set, ascending,
+    cut to cap and filled with fill, and payload at them (0 past them)."""
+    idx, pay, _counts = kernels.bucket_compact(mask, 1, cap, fill, payload)
+    return idx, pay
 
 
 # ---------------------------------------------------------------------------
@@ -90,40 +93,29 @@ def _sort_pay(keys: torch.Tensor, payload: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _sorted_stream(offs: list, bytes_: list, out_size: int, total,
-                   wide: bool):
-    """Lay candidate bytes out by destination offset with one sort and
-    slice the stream prefix. offs/bytes_: matching lists of int32 offset /
-    byte arrays (invalid lanes carry offset INT32_MAX)."""
-    dev = offs[0].device
+def _write_stream(offs: list, bytes_: list, out_size: int, total):
+    """Lay candidate bytes out at their destination offsets in a zeroed
+    (out_size,) buffer, one write each. offs/bytes_: matching lists of
+    int32 offset / byte arrays; invalid lanes carry offset INT32_MAX, which
+    is past out_size and so writes nothing, as do valid offsets past it."""
     all_off = torch.cat(offs) if len(offs) > 1 else offs[0]
     all_b = torch.cat(bytes_) if len(bytes_) > 1 else bytes_[0]
-    if not wide:
-        keys = torch.where(all_off == _INF, _INF, (all_off << 8) | all_b)
-        vals, fill = torch.sort(keys).values, _INF
-    else:
-        _so, vals = _sort_pay(all_off, all_b)
-        fill = 0
-    if vals.shape[0] < out_size:
-        vals = torch.cat([vals, torch.full((out_size - vals.shape[0],), fill,
-                                           dtype=_I32, device=dev)])
-    vals = vals[:out_size] & 0xFF
-    k = _arange(out_size, dev)
-    return torch.where(k < total, vals, 0).to(torch.uint8), total
+    out = torch.zeros(out_size, dtype=torch.uint8, device=all_off.device)
+    kernels.fill_runs(out, all_off, 1, all_b.to(torch.uint8))
+    return out, total
 
 
 def _emit_sort(planes: torch.Tensor, counts: torch.Tensor, out_size: int,
                offsets: torch.Tensor | None = None, total=None,
                multi_cap: int | None = None,
                extra_keys: torch.Tensor | None = None):
-    """Sort-based stream compaction of (n, W) candidate byte planes with
-    per-element byte counts; every element contributes its first byte as a
-    dense key and the <= multi_cap elements emitting >= 2 bytes their
-    other lanes. extra_keys: pre-built (offset << 8 | byte) keys to
-    interleave. Returns (out, total_len)."""
+    """Stream emission of (n, W) candidate byte planes with per-element
+    byte counts; every element contributes its first byte and the <=
+    multi_cap elements emitting >= 2 bytes their other lanes. extra_keys:
+    pre-built (offset << 8 | byte) keys to interleave. Returns (out,
+    total_len)."""
     n, w = planes.shape
     dev = planes.device
-    wide = out_size >= _WIDE_THRESHOLD
     assert out_size < (1 << 30), "emission output beyond int32 offsets"
     explicit_total = total is not None
     if offsets is None:
@@ -137,8 +129,7 @@ def _emit_sort(planes: torch.Tensor, counts: torch.Tensor, out_size: int,
     bytes_ = [planes[:, 0].to(_I32)]
     multi_cap = n if multi_cap is None else min(multi_cap, n)
     if w > 1 and multi_cap > 0:
-        i_n = _arange(n, dev)
-        midx = torch.sort(torch.where(counts >= 2, i_n, n)).values[:multi_cap]
+        midx, _p = _compact(counts >= 2, multi_cap, n)
         mcounts = _gather1(counts, midx)
         moff = _gather1(offsets, midx)
         mplanes = torch.cat([planes, planes.new_zeros((1, w))])[midx.long()]
@@ -152,7 +143,7 @@ def _emit_sort(planes: torch.Tensor, counts: torch.Tensor, out_size: int,
         bytes_.append(extra_keys & 0xFF)
         if not explicit_total:
             total = total + extra_keys.shape[0]
-    return _sorted_stream(offs, bytes_, out_size, total, wide)
+    return _write_stream(offs, bytes_, out_size, total)
 
 
 def _emit_sort_pay(b0: torch.Tensor, counts: torch.Tensor, out_size: int,
@@ -161,18 +152,18 @@ def _emit_sort_pay(b0: torch.Tensor, counts: torch.Tensor, out_size: int,
                    first_mask: torch.Tensor | None = None):
     """Emission for gap/run streams: the multi-byte token fields
     ((delta << 2) | ttype, ttype 0/1/2 = 1/2/4-byte token) ride the
-    compaction sort as payload, and their tail bytes are elementwise
-    functions of the sorted pair. No escape tokens (see _emit_sort_lazy).
+    compaction as payload, and their tail bytes are elementwise functions
+    of the compacted pair. No escape tokens (see _emit_sort_lazy).
     extra: optional (offsets, bytes) to interleave."""
-    wide = out_size >= _WIDE_THRESHOLD
     assert out_size < (1 << 30), "emission output beyond int32 offsets"
     dev = b0.device
     n = b0.shape[0]
     multi_cap = max(1, min(multi_cap, n))
     first = counts >= 1 if first_mask is None else first_mask
-    skey, sfield = _sort_pay(torch.where(counts >= 2, offsets, _INF), fields)
-    skey = skey[:multi_cap]
-    sfield = sfield[:multi_cap]
+    # the offsets ascend with i, so the multi-byte elements in index order
+    # are JAX's (offset, field) pairs sorted by offset
+    midx, sfield = _compact(counts >= 2, multi_cap, n, fields)
+    skey = _gather1(offsets, midx, fill=_INF)
     svalid = skey < _INF
     st = sfield & 3
     v = (sfield >> 2) - 1
@@ -190,7 +181,7 @@ def _emit_sort_pay(b0: torch.Tensor, counts: torch.Tensor, out_size: int,
     if extra is not None:
         offs.insert(0, extra[0])
         bytes_.insert(0, extra[1])
-    return _sorted_stream(offs, bytes_, out_size, total, wide)
+    return _write_stream(offs, bytes_, out_size, total)
 
 
 def _emit_sort_lazy(b0: torch.Tensor, counts: torch.Tensor, out_size: int,
@@ -203,12 +194,10 @@ def _emit_sort_lazy(b0: torch.Tensor, counts: torch.Tensor, out_size: int,
     (offsets, bytes) to interleave (length tables, escape records)."""
     n = b0.shape[0]
     dev = b0.device
-    wide = out_size >= _WIDE_THRESHOLD
     assert out_size < (1 << 30), "emission output beyond int32 offsets"
     first = counts >= 1 if first_mask is None else first_mask
     multi_cap = max(1, min(multi_cap, n))
-    i_n = _arange(n, dev)
-    midx = torch.sort(torch.where(counts >= 2, i_n, n)).values[:multi_cap]
+    midx, _p = _compact(counts >= 2, multi_cap, n)
     mcounts = _gather1(counts, midx)
     moff = _gather1(offsets, midx)
     tail = tail_fn(midx)
@@ -220,7 +209,7 @@ def _emit_sort_lazy(b0: torch.Tensor, counts: torch.Tensor, out_size: int,
     if extra is not None:
         offs.insert(0, extra[0])
         bytes_.insert(0, extra[1])
-    return _sorted_stream(offs, bytes_, out_size, total, wide)
+    return _write_stream(offs, bytes_, out_size, total)
 
 
 # ---------------------------------------------------------------------------
@@ -283,26 +272,12 @@ def _positions_from_gpos(g_pos: torch.Tensor, n: int, out_size: int,
     )
 
 
-def _flag_positions(flag: torch.Tensor, n: int, pos_cap: int,
-                    group: int) -> torch.Tensor:
+def _flag_positions(flag: torch.Tensor, n: int,
+                    pos_cap: int) -> torch.Tensor:
     """The ascending (pos_cap,) int32 positions < n where flag is set,
-    filled with n. group > 1 (the flags are sparse): compact whole groups
-    of `group` flags first, so the sort that orders the positions runs
-    over group * pos_cap keys instead of n; groups holding a flag number
-    <= pos_cap, so a pos_cap-group slice drops none."""
-    dev = flag.device
-    if group > 1:
-        ng = flag.shape[0] // group
-        fg = flag.view(ng, group)
-        gidx = torch.sort(torch.where(fg.any(dim=1), _arange(ng, dev),
-                                      ng)).values[:pos_cap]
-        mg = torch.cat([fg, fg.new_zeros((1, group))])[gidx.long()]
-        cand = gidx[:, None] * group + _arange(group, dev)[None, :]
-        keys = torch.where(mg & (cand < n), cand, n).reshape(-1)
-    else:
-        i = _arange(flag.shape[0], dev)
-        keys = torch.where(flag & (i < n), i, n)
-    return torch.sort(keys).values[:pos_cap]
+    filled with n (JAX compacts groups of flags first when they are
+    sparse, then sorts; one compaction gives the same positions)."""
+    return _compact(flag[:n], pos_cap, n)[0]
 
 
 def encode_positions_from_meta(meta: torch.Tensor, n: int, out_size: int,
@@ -312,9 +287,7 @@ def encode_positions_from_meta(meta: torch.Tensor, n: int, out_size: int,
     encode_positions_from_meta32. pos_cap: upper bound on the number of
     Ns (the engine knows it exactly). Returns (out (out_size,) u8, len)."""
     pos_cap = max(1, min(n if pos_cap is None else pos_cap, n))
-    # 16-byte groups when sparse, as JAX's 4-word groups
-    sparse = meta.shape[0] % 16 == 0 and 32 * pos_cap < n
-    g_pos = _flag_positions(meta >= 0x80, n, pos_cap, 16 if sparse else 1)
+    g_pos = _flag_positions(meta[:n] >= 0x80, n, pos_cap)
     return _positions_from_gpos(g_pos, n, out_size, pos_cap)
 
 
@@ -326,9 +299,7 @@ def encode_positions_from_mask(mask: torch.Tensor, out_size: int,
     Returns (out (out_size,) u8, length)."""
     n = mask.shape[0]
     pos_cap = max(1, min(n if pos_cap is None else pos_cap, n))
-    # 4-byte words when sparse, as JAX compacts them
-    sparse = n % 4 == 0 and pos_cap * 8 < n
-    g_pos = _flag_positions(mask, n, pos_cap, 4 if sparse else 1)
+    g_pos = _flag_positions(mask, n, pos_cap)
     return _positions_from_gpos(g_pos, n, out_size, pos_cap)
 
 
@@ -358,17 +329,22 @@ def qualcol_encode_device(meta: torch.Tensor | None, qual: torch.Tensor,
         esc_cap = n
     nonmajor_cap = max(1, min(n if nonmajor_cap is None else nonmajor_cap,
                               n))
-    if not (n < (1 << 24) and nbins + 2 < 127):
-        raise ValueError("qualcol device path needs n < 2^24 (the "
-                         "bid<<24|pos key packing) and B < 125")
+    if not nbins + 2 < 127:
+        raise ValueError("qualcol device path needs B < 125")
     m = nonmajor_cap
-    # one sort groups the emitting positions by bin and drops the major
-    # ones: key = bid << 24 | pos, major at +inf
-    bid = (meta & 0x7F if bid is None else bid).to(_I32)
-    keys_g = torch.where(bid <= nbins, (bid << 24) | _arange(n, dev), _INF)
-    grouped = torch.sort(keys_g).values[:m]
-    g_bid = grouped >> 24  # fill entries -> > nbins
-    g_pos = grouped & ((1 << 24) - 1)
+    # one compaction groups the emitting positions by bin (the streams,
+    # then the escapes, bucket B) and drops the major ones (B + 1); JAX
+    # sorts the keys bid << 24 | pos for the same order
+    bid = meta & 0x7F if bid is None else bid.to(torch.uint8)
+    g_pos, _p, bin_counts = kernels.bucket_compact(bid, nbins + 1, m, n)
+    # each grouped element's bin: one step up at each bin's end (the fill
+    # past the kept ones reads B + 1, as JAX's fill keys do)
+    bin_start = torch.cat([torch.zeros(1, dtype=_I32, device=dev),
+                           _cumsum(bin_counts)])
+    step = torch.zeros(m + 1, dtype=_I32, device=dev).index_add_(
+        0, bin_start[1:].clamp(max=m).long(),
+        torch.ones(nbins + 1, dtype=_I32, device=dev))
+    g_bid = _cumsum(step[:m])
     is_stream = g_bid < nbins
     is_esc = g_bid == nbins
 
@@ -391,10 +367,12 @@ def qualcol_encode_device(meta: torch.Tensor | None, qual: torch.Tensor,
         esc_off = torch.zeros(0, dtype=_I32, device=dev)
         esc_byte = torch.zeros(0, dtype=_I32, device=dev)
     else:
-        i_m = _arange(m, dev)
-        eidx = torch.sort(torch.where(is_esc, i_m, m)).values[
-            : max(1, min(esc_cap, m))
-        ]
+        # the grouping put the escapes in one run of g from the escape
+        # bucket's start: JAX compacts them with a sort, here they are
+        # indexed (m past the run, as JAX's fill)
+        e = _arange(max(1, min(esc_cap, m)), dev) + bin_start[nbins]
+        eidx = torch.where(e < torch.clamp(bin_start[nbins + 1], max=m), e,
+                           m)
         e_pos = _gather1(g_pos, eidx, fill=0)
         e_dest = _gather1(dest, eidx, fill=-1)
         e_valid = _gather1(is_esc.to(_I32), eidx) == 1
@@ -415,10 +393,10 @@ def qualcol_encode_device(meta: torch.Tensor | None, qual: torch.Tensor,
         b4 = torch.where(t == 3, (p >> 24) & 0xFF, 0)
         return torch.stack([b1, b2, b3, b4], dim=1).to(_I32)
 
-    # per-bin byte lengths for the u32le table: g_bid is sorted, so each
-    # bin is a contiguous run and its length a difference of the counts
-    # prefix sum at the run boundaries
-    bounds = torch.searchsorted(g_bid, _arange(nbins + 1, dev), side="left")
+    # per-bin byte lengths for the u32le table: each bin is a contiguous
+    # run of g, cut at m, and its length a difference of the counts prefix
+    # sum at the run boundaries
+    bounds = bin_start[:nbins + 1].clamp(max=m).long()
     cumz = torch.cat([torch.zeros(1, dtype=_I32, device=dev), cum])
     lens = cumz[bounds[1:]] - cumz[bounds[:-1]]
     hdr = torch.stack([lens & 0xFF, (lens >> 8) & 0xFF, (lens >> 16) & 0xFF,
@@ -500,15 +478,11 @@ def coords_encode2_device(values2: torch.Tensor, out_cap: int,
     offsets = row_base + cum - counts
     planes = (torch.stack([first_b, second_b, third_b], dim=2) & 0xFF).to(
         torch.uint8).reshape(R * n, 3)
-    # the layout sort places bytes by rank, which equals the offset only
-    # when every slot below the total is covered: fill each row's tail
-    # [total_row, out_cap) with zero-byte filler keys
-    kk2 = _arange(out_cap, dev)[None, :]
-    filler = torch.where(kk2 >= totals[:, None], (row_base + kk2) << 8,
-                         _INF).reshape(-1)
+    # each row's bytes land at their offsets; its tail [total_row, out_cap)
+    # stays zero
     out, _ = _emit_sort(
         planes, counts.reshape(-1), R * out_cap,
-        offsets=offsets.reshape(-1), total=R * out_cap, extra_keys=filler,
+        offsets=offsets.reshape(-1), total=R * out_cap,
     )
     assert R == 2
     return out, totals[0], totals[1]
@@ -624,8 +598,8 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
                           run_cap: int | None = None) -> torch.Tensor:
     """By-column quality decode (reference rfqcodec.cpp:1009-1047) in
     compact token space: one token-FSM pass over the concatenated per-bin
-    streams (stream boundaries force restarts), token compaction by a sort
-    carrying each token's 4-byte window, per-token gap/run arithmetic, then
+    streams (stream boundaries force restarts), token compaction
+    (``kernels.bucket_compact``) carrying each token's 4-byte window, per-token gap/run arithmetic, then
     the writes of each token's run of (position -> bin char), then of the
     escape records, into the major-filled output (``kernels.fill_runs``).
 
@@ -660,11 +634,9 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
     lens_dev = torch.where(in_streams, _stream_lens_device(buf), 1)
     starts = kernels.token_start_mask(lens_dev, force) & in_streams
 
-    # each token's 4-byte window rides the compaction sort as payload
+    # each token's 4-byte window rides the compaction as payload
     w32 = _window32(buf)
-    tok_i, tok_w = _sort_pay(torch.where(starts, idx, _INF), w32)
-    tok_i = tok_i[:tok_cap]
-    tok_w = tok_w[:tok_cap]
+    tok_i, tok_w = _compact(starts, tok_cap, _INF, w32)
     valid = tok_i < _INF
 
     b0 = tok_w & 0xFF

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels of the port, each beside its plain torch
 version; the counterpart of repaq_tpu/ops/pallas_tpu.py, and of the
-run-boundary scans, the PE overlap search and the decode's masked writes
-that the JAX package left to XLA.
+run-boundary scans, the PE overlap search, the decode's masked writes and
+the stream coders' compaction sorts that the JAX package left to XLA.
 
 Every wrapper decides by the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (built on
@@ -26,7 +26,7 @@ launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
             "pack_bases": 0, "unpack_bases": 0, "token_start_mask": 0,
             "run_offsets": 0, "seg_positions": 0, "rans_encode": 0,
             "rans_layout": 0, "rans_decode": 0, "overlap_pairs": 0,
-            "fill_runs": 0}
+            "fill_runs": 0, "bucket_compact": 0}
 _launch_lock = threading.Lock()
 
 
@@ -645,3 +645,105 @@ def fill_runs(out: torch.Tensor, start: torch.Tensor, count, value,
                 None if keep is None else keep.data_ptr(), n,
                 _stream(out.device))
     return out
+
+
+# ---------------------------------------------------------------------------
+# stable bucket compaction (JAX: XLA's sorts that compact or group by key,
+# repaq_tpu/ops/device_streams.py:136, :187, :237, :403-419, :502, :536,
+# :1094)
+# ---------------------------------------------------------------------------
+
+_COMPACT_MAX_BUCKETS = 256
+
+
+def compact_tile() -> int:
+    """Elements per tile of the bucket_compact kernels, as the built
+    library reports it; the card tests and chip_smoke.py place edge cases
+    by it."""
+    return int(_build.library().repaq_bucket_compact_tile())
+
+
+def bucket_compact_plain(bucket: torch.Tensor, nbuckets: int, cap: int,
+                         fill: int, payload: torch.Tensor | None = None):
+    """Plain torch version of ``bucket_compact``: one stable sort of the
+    int64 keys bucket * n + i (the dropped elements after every bucket),
+    then the payload gather."""
+    n, dev = bucket.shape[0], bucket.device
+    # a bool mask's True is bucket 0, its False bucket 1 (dropped)
+    b = (~bucket if bucket.dtype == torch.bool else bucket).long()
+    i = torch.arange(n, dtype=torch.long, device=dev)
+    kept = b < nbuckets
+    keys = torch.where(kept, b * n + i, nbuckets * n)
+    skeys = torch.sort(keys, stable=True).values[:cap]
+    pad = cap - skeys.shape[0]
+    if pad > 0:
+        skeys = torch.cat([skeys, torch.full((pad,), nbuckets * n,
+                                             dtype=torch.long, device=dev)])
+    ok = skeys < nbuckets * n
+    src = torch.where(ok, skeys % max(n, 1), 0)
+    idx = torch.where(ok, src, fill).to(torch.int32)
+    pay = None
+    if payload is not None:
+        pay = torch.where(ok, payload[src] if n else 0, 0).to(torch.int32)
+    counts = torch.bincount(b[kept], minlength=nbuckets)[:nbuckets]
+    return idx, pay, counts.to(torch.int32)
+
+
+def _check_compact(bucket, nbuckets, cap, fill, payload) -> None:
+    if bucket.dim() != 1 or bucket.dtype not in (torch.bool, torch.uint8):
+        raise ValueError("bucket must be a 1-D bool or uint8 tensor, got %s "
+                         "%s" % (bucket.dtype, tuple(bucket.shape)))
+    if bucket.dtype == torch.bool and nbuckets != 1:
+        raise ValueError("a bool mask is one bucket, got nbuckets %d"
+                         % nbuckets)
+    if not 1 <= nbuckets <= _COMPACT_MAX_BUCKETS:
+        raise ValueError("nbuckets must be in 1..%d, got %d"
+                         % (_COMPACT_MAX_BUCKETS, nbuckets))
+    if not 0 <= cap < 2**31 or bucket.shape[0] >= 2**31 or \
+            not -2**31 <= fill < 2**31:
+        raise ValueError("n and cap must be below 2^31 and fill an int32 "
+                         "(n %d, cap %d, fill %d)"
+                         % (bucket.shape[0], cap, fill))
+    if payload is not None and (payload.dtype != torch.int32
+                                or payload.shape != bucket.shape):
+        raise ValueError("payload must be an int32 tensor of bucket's "
+                         "shape, got %s %s" % (payload.dtype,
+                                                tuple(payload.shape)))
+
+
+def bucket_compact(bucket: torch.Tensor, nbuckets: int, cap: int, fill: int,
+                   payload: torch.Tensor | None = None):
+    """Stable compaction of the elements by bucket: bucket is an (n,) bool
+    mask (nbuckets 1, True kept) or uint8 bucket ids (ids >= nbuckets
+    dropped), nbuckets <= 256. Returns (idx, pay, counts): idx (cap,)
+    int32, the kept i ordered by (bucket id, i), cut to cap, fill past the
+    kept ones; pay (cap,) int32, payload[idx] and 0 past the kept ones
+    (None without a payload, an (n,) int32 tensor); counts (nbuckets,)
+    int32, each bucket's full count, not cut by cap. n < 2^31. One launch
+    of the kernel's three passes, counted once."""
+    _check_compact(bucket, nbuckets, cap, fill, payload)
+    tensors = (bucket,) if payload is None else (bucket, payload)
+    if not _on_cuda(*tensors):
+        return bucket_compact_plain(bucket, nbuckets, cap, fill, payload)
+    dev, n = bucket.device, bucket.shape[0]
+    idx = torch.empty(cap, dtype=torch.int32, device=dev)
+    pay = None if payload is None else torch.empty(cap, dtype=torch.int32,
+                                                   device=dev)
+    counts = torch.empty(nbuckets, dtype=torch.int32, device=dev)
+    if n == 0:
+        idx.fill_(fill)
+        counts.zero_()
+        return idx, None if pay is None else pay.zero_(), counts
+    lib = _build.library()
+    bucket = _aligned(bucket)
+    payload = None if payload is None else payload.contiguous()
+    scratch = torch.empty(lib.repaq_bucket_compact_scratch_words(n, nbuckets),
+                          dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("bucket_compact", lib.repaq_bucket_compact,
+                bucket.data_ptr(), int(bucket.dtype == torch.bool), n,
+                nbuckets, cap, int(fill),
+                None if payload is None else payload.data_ptr(),
+                idx.data_ptr(), None if pay is None else pay.data_ptr(),
+                counts.data_ptr(), scratch.data_ptr(), _stream(dev))
+    return idx, pay, counts

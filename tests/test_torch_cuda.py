@@ -21,10 +21,13 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
-from chip_smoke import (DECODE_CASES, FILL_CASES, FILL_DTYPES, FRONT_CASES,
-                        FSM_KINDS, LAYOUT_CASES, OVERLAP_CASES, PE_BASES,
+from chip_smoke import (COMPACT_CASES, DECODE_CASES, FILL_CASES,
+                        FILL_DTYPES, FRONT_CASES, FSM_KINDS, LAYOUT_CASES,
+                        OVERLAP_CASES, PE_BASES,
                         RANS_CASES, RANS_SHAPES, RUN_KINDS, SEG_KINDS,
-                        _decode_case_makers, decode_case,
+                        _decode_case_makers, compact_args, compact_case,
+                        compact_ref, compact_seeded, compact_shapes,
+                        decode_case,
                         decode_case_inputs, fill_args, fill_case,
                         fill_chunk_inputs, fill_loop, front_case, fsm_case,
                         layout_case, one_kernel_a_call, overlap_case,
@@ -481,14 +484,25 @@ def test_overlap_edge_cases_on_cuda(cuda, name):
 @pytest.mark.parametrize("wide", [False, True])
 def test_stream_coders_on_cuda_match_cpu(cuda, monkeypatch, wide):
     """The stream coders give the same bytes on the card as on the CPU:
-    the spare-slot scatters, sorts and int32 scans behave alike."""
+    the compactions, layout writes and int32 scans behave alike, and no
+    CUDA tensor reaches a kernel's plain version. wide: a length that is
+    no multiple of the kernels' tiles (JAX's wide emission layout, which
+    this parameter once switched, has no counterpart in the port)."""
     from repaq_tpu_torch.codec import kernels_np as K
     from repaq_tpu_torch.ops import device_streams as T
 
-    if wide:
-        monkeypatch.setattr(T, "_WIDE_THRESHOLD", 64)
+    def on_cpu_only(plain):
+        def run(*args, **kw):
+            tensors = [a for a in (*args, *kw.values())
+                       if isinstance(a, torch.Tensor)]
+            assert all(t.device.type == "cpu" for t in tensors)
+            return plain(*args, **kw)
+        return run
+
+    for name in ("bucket_compact_plain", "fill_runs_plain"):
+        monkeypatch.setattr(TK, name, on_cpu_only(getattr(TK, name)))
     rng = np.random.default_rng(5)
-    n = 1 << 16
+    n = (1 << 16) + (13 if wide else 0)
     table = np.array([35, 44, 58], dtype=np.uint8)
     qual = rng.choice(np.concatenate([table, np.full(9, 70, np.uint8)]),
                       size=n).astype(np.uint8)
@@ -792,6 +806,77 @@ def test_fill_runs_at_the_se_chunk(cuda):
     got = TK.fill_runs(out, start, count, value, keep)
     assert TK.launches["fill_runs"] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", COMPACT_CASES)
+def test_bucket_compact_edges(cuda, name):
+    """bucket_compact against its plain version and compact_ref on
+    chip_smoke's edge cases, placed by the built tile, one launch each."""
+    case = compact_case(name, TK.compact_tile())
+    args = compact_args(case, cuda)
+    before = TK.launches["bucket_compact"]
+    got = TK.bucket_compact(*args)
+    torch.cuda.synchronize()
+    assert TK.launches["bucket_compact"] == before + 1
+    want = TK.bucket_compact_plain(*args)
+    for g, w, r in zip(got, want, compact_ref(*case)):
+        assert (g is None) == (w is None) == (r is None)
+        if g is not None:
+            assert torch.equal(g, w)
+            assert np.array_equal(g.cpu().numpy(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", [False, True])
+@pytest.mark.parametrize("cap_kind", ["below", "at", "above"])
+@pytest.mark.parametrize("nbuckets", [1, 2, 4, 64])
+@pytest.mark.parametrize("n", [1, 777])
+def test_bucket_compact_seeded(cuda, n, nbuckets, cap_kind, payload):
+    """The CPU tests' seeded cases (tests/test_torch_compact.py) on the
+    card: the kernel against its plain version and compact_ref."""
+    case = compact_seeded(n, nbuckets, cap_kind, payload)
+    args = compact_args(case, cuda)
+    got = TK.bucket_compact(*args)
+    want = TK.bucket_compact_plain(*args)
+    for g, w, r in zip(got, want, compact_ref(*case)):
+        assert (g is None) == (w is None) == (r is None)
+        if g is not None:
+            assert torch.equal(g, w)
+            assert np.array_equal(g.cpu().numpy(), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(3))
+def test_bucket_compact_at_main_path_shapes(cuda, index):
+    """At an SE chunk's grouping, N flags and decode tokens
+    (chip_smoke.compact_shapes): the kernel against its plain version, and
+    its indices against the parent's sort of the same keys."""
+    label, bucket, k, cap, fill, payload, parent = compact_shapes(cuda)[index]
+    got = TK.bucket_compact(bucket, k, cap, fill, payload)
+    want = TK.bucket_compact_plain(bucket, k, cap, fill, payload)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert torch.equal(g, w), label
+    sort = parent()
+    if index == 0:  # the grouping keys: bid << 24 | pos
+        assert torch.equal(got[0], torch.where(sort < 2**31 - 1,
+                                               sort & 0xFFFFFF, fill))
+    elif index == 1:
+        assert torch.equal(got[0], sort)
+    else:  # the token keys and their windows
+        keys, windows = sort
+        assert torch.equal(got[0], keys[:cap])
+        assert torch.equal(got[1], torch.where(keys[:cap] < 2**31 - 1,
+                                               windows[:cap], 0))
+
+
+@pytest.mark.cuda
+def test_bucket_compact_refuses_a_mix_of_devices(cuda):
+    bucket = torch.zeros(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        TK.bucket_compact(bucket, 1, 8, 0, torch.zeros(8, dtype=torch.int32))
 
 
 @pytest.mark.cuda

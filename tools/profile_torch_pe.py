@@ -20,13 +20,16 @@ For each worker count and direction it prints the wall time, the device
 time (kernels and copies, summed), the device's idle share of the wall,
 the launches on the device (kernels, then copies and fills), the
 run-boundary kernels' device time and share (the port's kernels of
-csrc/scan.cu, and torch's cummax/cummin kernels should any run), the
+csrc/scan.cu, and torch's cummax/cummin kernels should any run), and so
+for the overlap, compaction and run-write kernels, the
 host-device copies, the kernels with the most device time, and the time
 inside each of the engine's named stage ranges (``enc.*`` / ``dec.*``,
 see repaq_tpu_torch/codec/device_engine.py and ops/device_streams.py) with
-the kernels and the copies and fills launched inside it, and every
+the kernels and the copies and fills launched inside it, every
 ``aten::index_put_`` (a scatter) by the range it ran in and by its target
-and value shapes, with its device time and calls. The profiler records
+and value shapes, with its device time and calls, the sort kernels'
+device time and launches, and every ``aten::sort`` by the range it ran in
+and by its keys' shape. The profiler records
 the ranges of the thread that runs it only, so they show with one worker,
 where the pipeline runs each chunk inline.
 """
@@ -131,7 +134,9 @@ def report(label: str, prof, wall: float) -> None:
                                        "seg_positions_kernel",
                                        "run_boundary_scan")),
                        ("torch's cummax/cummin", ("with_indices",)),
-                       ("the port's overlap", ("overlap_kernel",))):
+                       ("the port's overlap", ("overlap_kernel",)),
+                       ("the port's compaction", ("bucket_compact",)),
+                       ("the port's run writes", ("fill_runs_kernel",))):
         hit = [k for k in kernels if any(key in k for key in keys)]
         us = sum(kernels[k] for k in hit)
         print("  kernels (%s) %.3f ms, %.2f%% of the device "
@@ -149,6 +154,37 @@ def report(label: str, prof, wall: float) -> None:
         print("  kernel %6.1f ms %5.1f%%  %s"
               % (v / 1e3, 100 * v / max(busy, 1e-9), k[:110]))
     index_put_report(prof)
+    sort_report(prof, kernels, counts, busy)
+
+
+def _is_sort(name: str) -> bool:
+    """A sort's device kernel (cub's radix sort passes, torch's bitonic
+    and segmented sorts); searchsorted is a search."""
+    low = name.lower()
+    return "sort" in low and "searchsorted" not in low and not _is_copy(name)
+
+
+def sort_report(prof, kernels: dict, counts: dict, busy: float) -> None:
+    """The sort kernels' device time and launches, then every aten::sort by
+    the range it ran in and by its input's shape: device ms and calls."""
+    hit = [k for k in kernels if _is_sort(k)]
+    us = sum(kernels[k] for k in hit)
+    print("  sort kernels %.3f ms, %.2f%% of the device time, %d launches"
+          % (us / 1e3, 100 * us / max(busy, 1e-9),
+             sum(counts[k] for k in hit)))
+    sites = {}
+    for e in prof.events():
+        if e.name != "aten::sort" or e.cpu_parent is not None and \
+                e.cpu_parent.name == "aten::sort":
+            continue
+        shapes = e.input_shapes or []
+        key = (_range_of(e), tuple(shapes[0]) if shapes else ())
+        t, calls = sites.get(key, (0.0, 0))
+        sites[key] = (t + _kernel_us_under(e), calls + 1)
+    for (rng, shape), (t, calls) in sorted(sites.items(),
+                                           key=lambda kv: -kv[1][0]):
+        print("    sort in %-15s %8.3f ms %4d calls, keys %s"
+              % (rng, t / 1e3, calls, list(shape)))
 
 
 def main() -> int:
