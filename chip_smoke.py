@@ -67,13 +67,17 @@ Phases, each of which must pass:
      index_put_ and the 73,138,176-entry run grid aimed at a dump byte),
      and at that chunk's N deltas and N bases. The stable bucket
      compaction (bucket_compact) on every COMPACT_CASES case, placed by
-     its built tile (n = 1, tile - 1, tile, tile + 1, past 3,000 tiles,
-     none and all kept, 64 and 256 buckets, a cut at cap, cap past n and
-     0, runs across tiles; against its plain version and a numpy argsort),
-     then at an SE chunk's grouping (12,582,912 bin ids of NovaSeq
-     qualities), its N flags and its decode's 2,359,296 token starts with
-     their windows, each timed beside its bound and, in turns, beside the
-     parent's torch.sort of the same keys with its gather;
+     the built tile of its form's route (n = 1, tile - 1, tile, tile + 1,
+     past 3,000 tiles and past one wave of blocks, none and all kept, all
+     kept cut at cap, a dense head, 8, 9, 64 and 256 buckets, a cut at
+     cap, cap past n and 0, runs across tiles; against its plain version
+     and a numpy argsort), then at every call of one SE chunk of phase 4's
+     corpus, as the device path makes them (compact_shapes: the grouping
+     of 12,582,912 bin ids, the N flags, the decode's token starts with
+     their windows and the emission's three count >= 2 compactions), each
+     timed beside its bound, its device kernels a call counted under
+     torch.profiler (one for a mask, two for ids), and timed in turns
+     beside the parent's torch.sort of the same keys with its gather;
      after phase 5 both scans are held and timed again at the
      shapes the two corpora handed them (the SE and PE quality streams and
      coordinate rows, and decode token counts), and after
@@ -934,53 +938,84 @@ def fill_kernel_phase(dev) -> dict:
     return res
 
 
-# bucket_compact's edge cases, placed by the built tile: one element, a
-# tile and one either side, past 3,000 tiles (an SE grouping's ids), none
-# and all kept, 64 buckets with ids past them dropped, a cut at cap, a cap
-# past n and a cap of 0, every one of 256 ids in one tile, and runs of one
-# bucket across tile edges; with and without a payload
-COMPACT_CASES = ("n1", "tile-1", "tile", "tile+1", "tiles3001", "none",
-                 "all", "k64", "k64_cut", "cap_past_n", "cap0", "k256_tile",
-                 "runs")
+# bucket_compact's edge cases, each placed by the tile of the route its
+# form takes (a mask; ids up to 8 buckets; more): one element, a tile and
+# one either side, past 3,000 tiles (an SE grouping's ids; a mask with a
+# payload, and past 5,000, more than one wave of its large tiles), more
+# tiles than one wave either way, a mask at the
+# most small tiles (the switch) and one element past it, where its tiles
+# grow (kernels.compact_mask_switch), none and all kept, 8
+# buckets (the register route's most) and 9 (the match route), 64 buckets
+# with ids past them dropped, a cut at cap, a cap past n and a cap of 0,
+# every one of 256 ids in one tile, runs of one bucket across tile edges,
+# a mask all kept and cut at cap inside a load step, and a mask laid out
+# as a real chunk's decode tokens (a head of 512-element steps all kept or
+# 98% kept, then an empty tail); with and without a payload. name ->
+# (is_mask, nbuckets)
+COMPACT_FORMS = {"n1": (True, 1), "tile-1": (True, 1), "tile": (True, 1),
+                 "tile+1": (True, 1), "tiles3001": (False, 4),
+                 "mask_tiles3001": (True, 1), "none": (True, 1),
+                 "all": (True, 1), "k8": (False, 8), "k9": (False, 9),
+                 "k64": (False, 64), "k64_cut": (False, 64),
+                 "cap_past_n": (False, 2), "cap0": (True, 1),
+                 "k256_tile": (False, 256), "runs": (False, 4),
+                 "all_cut": (True, 1), "dense_head": (True, 1),
+                 "mask_switch": (True, 1), "mask_switch+1": (True, 1),
+                 "mask_tiles5001": (True, 1)}
+COMPACT_CASES = tuple(COMPACT_FORMS)
+# cases with more tiles than one wave of the mask and register routes' blocks
+COMPACT_PAST_WAVE = ("tiles3001", "mask_tiles5001")
 
 
-def compact_case(name: str, tile: int):
+def compact_case(name: str, tile: int, switch: int = 1024):
     """(bucket, nbuckets, cap, fill, payload) numpy arrays of a
-    COMPACT_CASES case for a kernel tile of `tile` elements: bucket bool
-    (one bucket) or uint8 ids, payload int32 or None."""
+    COMPACT_CASES case, for a kernel tile of `tile` elements in the route
+    of its form (COMPACT_FORMS; a mask's tile below its switch, the most
+    such tiles a call takes): bucket bool (one bucket) or uint8 ids,
+    payload int32 or None."""
     import numpy as np
 
     rng = np.random.default_rng(1700 + COMPACT_CASES.index(name))
     n = {"n1": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
-         "tiles3001": 3001 * tile + 5, "k256_tile": tile,
-         "runs": 5 * tile + 1}.get(name, 3 * tile + 5)
+         "tiles3001": 3001 * tile + 5, "mask_tiles3001": 3001 * tile + 5,
+         "mask_tiles5001": 5001 * tile + 5,
+         "mask_switch": switch * tile, "mask_switch+1": switch * tile + 1,
+         "k256_tile": tile, "runs": 5 * tile + 1}.get(name, 3 * tile + 5)
     payload = rng.integers(-2**31, 2**31, size=n, dtype=np.int64).astype(
         np.int32)
-    nbuckets, cap, fill = 1, n, -7
-    if name in ("n1", "tile-1", "tile", "tile+1", "cap0"):
+    is_mask, nbuckets = COMPACT_FORMS[name]
+    cap, fill = n, -7
+    if name in ("n1", "tile-1", "tile", "tile+1", "cap0", "mask_tiles3001",
+                "mask_tiles5001", "mask_switch", "mask_switch+1"):
         bucket = rng.random(n) < 0.5
         cap = 0 if name == "cap0" else n
-    elif name in ("none", "all"):
-        bucket = np.full(n, name == "all")
-        cap = 100 if name == "none" else n
+    elif name in ("none", "all", "all_cut"):
+        bucket = np.full(n, name != "none")
+        cap = {"none": 100, "all": n, "all_cut": 3 * tile // 2 + 37}[name]
+    elif name == "dense_head":
+        bucket = np.zeros(n, bool)
+        head = 2 * n // 3
+        bucket[:head] = rng.random(head) < 0.98
+        full = (np.arange(head) // 512) % 2 == 0
+        bucket[:head][full] = True
     elif name == "tiles3001":  # an SE chunk's grouping: 3 bins, escape, major
         bucket = rng.choice(5, size=n, p=[0.09, 0.04, 0.009, 0.001, 0.86])
         bucket = bucket.astype(np.uint8)
-        nbuckets, cap, fill, payload = 4, int((bucket < 4).sum()), n, None
-    elif name in ("k64", "k64_cut"):
-        bucket = rng.integers(0, 70, size=n).astype(np.uint8)
-        nbuckets = 64
-        cap = n if name == "k64" else int((bucket < 64).sum()) // 2 + 1
+        cap, fill, payload = int((bucket < 4).sum()), n, None
+    elif name in ("k8", "k9", "k64", "k64_cut"):
+        bucket = rng.integers(0, nbuckets + 6, size=n).astype(np.uint8)
+        if name == "k64_cut":
+            cap = int((bucket < 64).sum()) // 2 + 1
     elif name == "cap_past_n":
         bucket = rng.integers(0, 3, size=n).astype(np.uint8)
-        nbuckets, cap = 2, n + 1000
+        cap = n + 1000
     elif name == "k256_tile":
         bucket = rng.permutation(np.arange(n) % 256).astype(np.uint8)
-        nbuckets = 256
     else:  # runs of one bucket across the tile edges, bucket 4 dropped
         bucket = ((np.arange(n) + tile // 3) // (tile // 2 + 7) % 5).astype(
             np.uint8)
-        nbuckets, payload = 4, None
+        payload = None
+    assert (bucket.dtype == bool) == is_mask
     return bucket, nbuckets, cap, fill, payload
 
 
@@ -1003,11 +1038,16 @@ def compact_ref(bucket, nbuckets: int, cap: int, fill: int, payload=None):
     return idx, pay, counts[:nbuckets].astype(np.int32)
 
 
+# the caps of compact_seeded: below, at and above the kept count, 0, and
+# past n
+COMPACT_CAPS = ("below", "at", "above", "zero", "past_n")
+
+
 def compact_seeded(n: int, nbuckets: int, cap_kind: str, payload: bool):
     """A seeded bucket_compact case of n elements: a bool mask for one
-    bucket, else uint8 ids up to nbuckets + 2 (some dropped); cap below
-    ("below"), at or above the kept count; an int32 payload or None. The
-    same tuple as compact_case."""
+    bucket, else uint8 ids up to nbuckets + 2 (some dropped); a cap of a
+    COMPACT_CAPS kind; an int32 payload or None. The same tuple as
+    compact_case."""
     import numpy as np
 
     rng = np.random.default_rng(n + 7 * nbuckets + len(cap_kind) + payload)
@@ -1017,7 +1057,8 @@ def compact_seeded(n: int, nbuckets: int, cap_kind: str, payload: bool):
     else:
         bucket = rng.integers(0, nbuckets + 3, size=n).astype(np.uint8)
         kept = int((bucket < nbuckets).sum())
-    cap = {"below": kept // 2, "at": kept, "above": kept + 9}[cap_kind]
+    cap = {"below": kept // 2, "at": kept, "above": kept + 9, "zero": 0,
+           "past_n": n + 100}[cap_kind]
     pay = (rng.integers(-2**31, 2**31, size=n, dtype=np.int64)
            .astype(np.int32) if payload else None)
     return bucket, nbuckets, cap, -3, pay
@@ -1050,9 +1091,20 @@ def compact_edge_cases(dev) -> int:
 
     from repaq_tpu_torch.ops import kernels as TK
 
-    tile = TK.compact_tile()
     for name in COMPACT_CASES:
-        case = compact_case(name, tile)
+        form = COMPACT_FORMS[name]
+        case = compact_case(name, TK.compact_tile(*form),
+                            TK.compact_mask_switch())
+        n = case[0].shape[0]
+        if name in COMPACT_PAST_WAVE:
+            tiles = -(-n // TK.compact_tile(*form, n))
+            check(tiles > TK.compact_wave(*form, n),
+                  "bucket_compact's %s case has %d tiles, not more than one "
+                  "wave (%d)" % (name, tiles, TK.compact_wave(*form, n)))
+        if name.startswith("mask_switch"):
+            check((TK.compact_tile(*form, n) > TK.compact_tile(*form))
+                  == name.endswith("+1"), "bucket_compact's %s case is on "
+                  "the wrong side of the mask's switch" % name)
         args = compact_args(case, dev)
         before = TK.launches["bucket_compact"]
         got = TK.bucket_compact(*args)
@@ -1067,82 +1119,175 @@ def compact_edge_cases(dev) -> int:
                   and (g is None or (torch.equal(g, w) and np.array_equal(
                       g.cpu().numpy(), r))),
                   "bucket_compact differs from its plain version on %s "
-                  "(tile %d)" % (name, tile))
+                  "(tile %d)" % (name, TK.compact_tile(*form, n)))
+        del case, args, got, want, ref
     return len(COMPACT_CASES)
 
 
-def compact_shapes(dev, seed: int = 1703) -> list:
-    """(label, bucket, nbuckets, cap, fill, payload, parent) at the main
-    path's shapes: an SE chunk's grouping (12,582,912 meta bytes of phase
-    4's NovaSeq qualities masked to bin ids, its nonmajor cap), its N flags
-    (0.1% N, its np_cap) and its decode's 2,359,296 token starts with
-    their windows as payload (FILL_CHUNK's 1,680,349 tokens). parent: the
-    parent's sort of the same keys with its gather, one call each."""
-    import numpy as np
+# the bucket_compact calls of one SE chunk, in the order the device path
+# makes them: the compress's five, then the decompress's one
+COMPACT_CALLS = ("grouping", "quality count >= 2", "N flags",
+                 "N count >= 2", "coordinates count >= 2", "decode tokens")
+_COMPACT_CHUNK: dict = {}
+
+
+def chunk_compactions(dev, reads: int = 80_000) -> list:
+    """The arguments (bucket, nbuckets, cap, fill, payload) of every
+    bucket_compact call of one SE chunk, cloned as the device path makes
+    them (COMPACT_CALLS order): `reads` reads of phase 4's corpus
+    (make_corpus, seed 96; 80,000 reads of 150 bp are one -k 12000 chunk)
+    compressed and decompressed through repaq_tpu_torch.cli.main with the
+    device engine on dev. Made once a device and size."""
     import torch
 
-    from repaq_tpu_torch.codec.device_engine import _bucket
+    from repaq_tpu_torch import cli
+    from repaq_tpu_torch.codec.device_engine import DeviceEngine
+    from repaq_tpu_torch.ops import kernels as TK
 
-    rng = np.random.default_rng(seed)
-    n = FILL_CHUNK["length"]
-    qual = rng.choice(np.frombuffer(NOVA_QUALS, np.uint8), size=n, p=NOVA_P)
-    lut = np.full(256, 3, np.uint8)
-    lut[np.frombuffer(b"#,:", np.uint8)] = np.arange(3)
-    lut[ord("F")] = 4
-    nflag = rng.random(n) < 0.001
-    meta = torch.from_numpy(lut[qual] | (nflag.astype(np.uint8) << 7)).to(
-        dev)
-    bid = meta & 0x7F
-    nm_cap = _bucket(int((bid <= 3).sum()))
-    i32 = torch.arange(n, dtype=torch.int32, device=dev)
-    keys_g = torch.where(bid <= 3, (bid.to(torch.int32) << 24) | i32,
-                         2**31 - 1)
-    flag = meta >= 0x80
-    np_cap = _bucket(int(flag.sum()), lo=8)
-    keys_n = torch.where(flag, i32, n)
-    m = FILL_CHUNK["tok_cap"]
-    starts = torch.zeros(m, dtype=torch.bool, device=dev)
-    starts[torch.from_numpy(rng.choice(m, size=FILL_CHUNK["tokens"],
-                                       replace=False)).to(dev)] = True
-    w32 = torch.from_numpy(rng.integers(-2**31, 2**31, size=m,
-                                        dtype=np.int64).astype(np.int32)).to(
-        dev)
-    keys_t = torch.where(starts, torch.arange(m, dtype=torch.int32,
-                                              device=dev), 2**31 - 1)
+    key = (str(torch.device(dev)), reads)
+    if key in _COMPACT_CHUNK:
+        return _COMPACT_CHUNK[key]
+    work = os.path.join(WORK, "compact_chunk")
+    os.makedirs(work, exist_ok=True)
+    fq, rfq, back = (os.path.join(work, f)
+                     for f in ("se.fq", "se.rfq", "se.back.fq"))
+    calls = []
+    kernel = TK.bucket_compact
 
-    def sort_pay():
-        sk, order = torch.sort(keys_t, stable=True)
-        return sk, w32[order]
+    def recording(bucket, nbuckets, cap, fill, payload=None):
+        calls.append((bucket.clone(), nbuckets, cap, fill,
+                      None if payload is None else payload.clone()))
+        return kernel(bucket, nbuckets, cap, fill, payload)
 
-    return [
-        ("SE grouping: %d bin ids, 4 buckets, cap %d" % (n, nm_cap), bid, 4,
-         nm_cap, n, None, lambda: torch.sort(keys_g).values[:nm_cap]),
-        ("SE N flags: %d flags, %d set, cap %d" % (n, int(flag.sum()),
-                                                    np_cap),
-         flag, 1, np_cap, n, None,
-         lambda: torch.sort(keys_n).values[:np_cap]),
-        ("SE decode tokens: %d starts, %d set, windows riding"
-         % (m, FILL_CHUNK["tokens"]), starts, 1, m, 2**31 - 1, w32,
-         sort_pay),
-    ]
+    eng = DeviceEngine(dev)
+    TK.bucket_compact = recording
+    try:
+        make_corpus([fq], reads, 150, seed=96)
+        for argv in (["-c", "-i", fq, "-o", rfq, "-k", "12000"],
+                     ["-d", "-i", rfq, "-o", back]):
+            rc = cli.main(argv + ["--engine", "device"], engine=eng.config())
+            check(rc == 0, "the chunk's %s exited %d" % (argv[0], rc))
+    finally:
+        TK.bucket_compact = kernel
+        shutil.rmtree(work, ignore_errors=True)
+    check(eng.stats["device_chunks"] == 1 == eng.stats["device_decodes"],
+          "the compaction chunk took another path: %s" % eng.stats)
+    forms = [c[0].dtype == torch.bool for c in calls]
+    check(forms == [False] + [True] * 5, "the chunk's bucket_compact calls "
+          "are not COMPACT_CALLS' ids and five masks: %s" % forms)
+    _COMPACT_CHUNK[key] = calls
+    return calls
+
+
+def compact_library(bucket, nbuckets: int, cap: int, fill: int,
+                    payload=None):
+    """The parent's torch.sort of the same keys, as a function of no
+    arguments: ids keyed bid << 24 | i (dropped ones INT32_MAX), the sorted
+    keys cut to cap; a mask keyed i (fill where unset, fill >= n), the
+    sorted keys cut to cap, or with a payload the stable sort's keys and
+    the payload gathered by its order."""
+    import torch
+
+    n = bucket.shape[0]
+    i32 = torch.arange(n, dtype=torch.int32, device=bucket.device)
+    if bucket.dtype != torch.bool:
+        keys = torch.where(bucket < nbuckets,
+                           (bucket.to(torch.int32) << 24) | i32, 2**31 - 1)
+        return lambda: torch.sort(keys).values[:cap]
+    keys = torch.where(bucket, i32, fill)
+    if payload is None:
+        return lambda: torch.sort(keys).values[:cap]
+
+    def run():
+        sk, order = torch.sort(keys, stable=True)
+        return sk, payload[order]
+    return run
+
+
+def compact_shapes(dev, reads: int = 80_000) -> list:
+    """(label, bucket, nbuckets, cap, fill, payload, parent) of each of
+    chunk_compactions' calls: an SE chunk's grouping by bin, the quality
+    stream's count >= 2 with its token fields riding, its N flags, the N
+    stream's and the coordinates' count >= 2, and the decode's token
+    starts with their windows riding (a dense head, then the buffer's
+    empty tail); parent: compact_library's sort of the same keys."""
+    import torch
+
+    out = []
+    for what, (bucket, k, cap, fill, payload) in zip(
+            COMPACT_CALLS, chunk_compactions(dev, reads)):
+        if bucket.dtype == torch.bool:
+            form = "%d of %d set" % (int(bucket.sum()), bucket.shape[0])
+        else:
+            form = "%d ids, %d buckets" % (bucket.shape[0], k)
+        label = "SE %s: %s, cap %d%s" % (
+            what, form, cap, "" if payload is None else ", payload riding")
+        out.append((label, bucket, k, cap, fill, payload,
+                    compact_library(bucket, k, cap, fill, payload)))
+    return out
+
+
+# traces bucket_compact calls in a process of its own (compact_traced)
+_TRACE_COMPACT = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from repaq_tpu_torch.ops import kernels as TK
+dev = torch.device("cuda:0")
+if sys.argv[2] == "shapes":
+    calls = cs.chunk_compactions(dev)
+else:
+    calls = [cs.compact_args(cs.compact_seeded(
+        3 * TK.compact_tile(*form) + 5, form[1], "at", True), dev)
+        for form in json.loads(sys.argv[2])]
+print(json.dumps([cs.one_kernel_a_call(lambda a=a: TK.bucket_compact(*a))
+                  for a in calls]))
+"""
+
+
+def compact_traced(what) -> list:
+    """The device kernels of one bucket_compact call under torch.profiler,
+    at each of compact_shapes (what = "shapes") or at 3 tiles + 5
+    elements of each form in what, a list of (is_mask, nbuckets); in a
+    process of its own, since a trace taken after this process's earlier
+    phases showed none of the card's kernels."""
+    r = subprocess.run(
+        [sys.executable, "-c", _TRACE_COMPACT, ROOT,
+         what if isinstance(what, str) else json.dumps(what)],
+        capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, "tracing bucket_compact failed (rc %d): %s"
+          % (r.returncode, r.stderr.strip()[-2000:]))
+    return json.loads(r.stdout.strip().splitlines()[-1])
 
 
 def compact_kernel_phase(dev) -> dict:
-    """bucket_compact on its edge cases, then at the main path's shapes
+    """bucket_compact on its edge cases, then at one SE chunk's calls
     (compact_shapes) exact against its plain version, timed beside its
     bound (compact_moved) and beside the parent's sort of the same keys
-    (the library call), the two in turns (sort, kernel, kernel, sort)."""
+    (the library call); its device kernels a call counted under
+    torch.profiler (compact_traced: one for a mask, two for ids); then
+    timed in turns with the sort: sort, kernel, kernel, sort."""
     import torch
 
     from repaq_tpu_torch.ops import kernels as TK
 
+    big = (TK.compact_mask_switch() + 1) * TK.compact_tile(True, 1)
     log("kernel bucket_compact exact on %d edge cases (COMPACT_CASES at "
-        "tile %d: n = 1, tile - 1, tile, tile + 1, past 3,000 tiles, none "
-        "and all kept, 64 and 256 buckets, a cut at cap, cap past n and 0, "
-        "runs across tiles), one launch each"
-        % (compact_edge_cases(dev), TK.compact_tile()))
+        "the tiles of their routes, mask %d (%d past %d tiles), ids %d, "
+        "over 8 ids %d: n = 1, tile - 1, tile, tile + 1, past 3,000 tiles "
+        "and past one wave (%d large mask tiles, %d id tiles), at the "
+        "mask's switch and one past, none and all kept, all kept cut at "
+        "cap, a dense head, 8, 9, 64 and 256 buckets, a cut at cap, cap "
+        "past n and 0, runs across tiles), one launch each"
+        % (compact_edge_cases(dev), TK.compact_tile(True, 1),
+           TK.compact_tile(True, 1, big), TK.compact_mask_switch(),
+           TK.compact_tile(False, 4), TK.compact_tile(False, 9),
+           TK.compact_wave(True, 1, big), TK.compact_wave(False, 4)))
     res = None
-    for label, bucket, k, cap, fill, payload, parent in compact_shapes(dev):
+    traced = compact_traced("shapes")
+    for (label, bucket, k, cap, fill, payload, parent), kernels in zip(
+            compact_shapes(dev), traced):
         kept = int(TK.bucket_compact_plain(bucket, k, 0, fill)[2].sum())
 
         def kern():
@@ -1158,15 +1303,20 @@ def compact_kernel_phase(dev) -> dict:
                            label, moved=compact_moved(bucket, k, cap,
                                                       payload, kept),
                            library=parent)
-        turns = {"sort": [], "bucket_compact": []}
-        for name, fn in (("sort", parent), ("bucket_compact", kern),
-                         ("bucket_compact", kern), ("sort", parent)):
+        want = 1 if bucket.dtype == torch.bool else 2
+        check(len(kernels) == want, "bucket_compact ran %d device kernels "
+              "a call at %s, not %d: %s" % (len(kernels), label, want,
+                                            kernels))
+        r["device_kernels"] = len(kernels)
+        fns = [("sort", parent), ("bucket_compact", kern)]
+        turns = {name: [] for name, _fn in fns}
+        for name, fn in fns + fns[::-1]:
             turns[name].append(cuda_ms(fn))
         r["in_turns_ms"] = turns
-        log("kernel bucket_compact at %s, in turns with the parent's sort: "
-            "sort %s ms, bucket_compact %s ms" % (
-                label, ", ".join("%.4f" % t for t in turns["sort"]),
-                ", ".join("%.4f" % t for t in turns["bucket_compact"])))
+        log("kernel bucket_compact at %s, %d device kernel(s) a call; in "
+            "turns: %s" % (label, len(kernels), "; ".join(
+                "%s %s ms" % (name, ", ".join("%.4f" % t for t in ts))
+                for name, ts in turns.items())))
         if res is None:
             res = dict(r)
             res["by_shape"] = {}

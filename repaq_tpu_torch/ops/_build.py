@@ -159,12 +159,18 @@ def _bind(path: str) -> ctypes.CDLL:
         entry.argtypes = [vp, ll, vp, vp, ci, vp, ci, vp, ll, vp]
         entry.restype = ci
     lib.repaq_bucket_compact.argtypes = [vp, ci, ll, ci, ll, ci, vp, vp, vp,
-                                         vp, vp, vp]
+                                         vp, vp, vp, vp]
     lib.repaq_bucket_compact.restype = ci
-    lib.repaq_bucket_compact_scratch_words.argtypes = [ll, ci]
-    lib.repaq_bucket_compact_scratch_words.restype = ll
-    lib.repaq_bucket_compact_tile.argtypes = []
-    lib.repaq_bucket_compact_tile.restype = ll
+    for entry in (lib.repaq_bucket_compact_scratch_words,
+                  lib.repaq_bucket_compact_status_words):
+        entry.argtypes = [ll, ci, ci]
+        entry.restype = ll
+    for entry in (lib.repaq_bucket_compact_tile,
+                  lib.repaq_bucket_compact_wave):
+        entry.argtypes = [ci, ci, ll]
+        entry.restype = ll
+    lib.repaq_bucket_compact_mask_switch.argtypes = []
+    lib.repaq_bucket_compact_mask_switch.restype = ll
     return lib
 
 

@@ -373,9 +373,10 @@ def run_tiles() -> tuple:
             int(lib.repaq_seg_positions_tile()))
 
 
-# one buffer of status words for the run-boundary kernels per (device,
-# CUDA stream): zeroed once, and left zeroed by every launch, whose last
-# tile clears what the launch used; launches on one stream run in order
+# one buffer of status words for the run-boundary and compaction kernels
+# per (device, CUDA stream): zeroed once, and left zeroed by every launch,
+# whose last block clears what the launch used; launches on one stream run
+# in order
 _run_status: dict = {}
 
 
@@ -656,11 +657,30 @@ def fill_runs(out: torch.Tensor, start: torch.Tensor, count, value,
 _COMPACT_MAX_BUCKETS = 256
 
 
-def compact_tile() -> int:
-    """Elements per tile of the bucket_compact kernels, as the built
+def compact_tile(is_mask: bool, nbuckets: int, n: int = 1) -> int:
+    """Elements per tile of the route a bucket_compact call of this form
+    and n elements takes (a mask, its tile growing past
+    compact_mask_switch() tiles; ids up to 8 buckets; more), as the built
     library reports it; the card tests and chip_smoke.py place edge cases
     by it."""
-    return int(_build.library().repaq_bucket_compact_tile())
+    return int(_build.library().repaq_bucket_compact_tile(int(is_mask),
+                                                          nbuckets, n))
+
+
+def compact_mask_switch() -> int:
+    """The most tiles of compact_tile(True, 1) a mask call takes; a
+    larger call takes larger tiles."""
+    return int(_build.library().repaq_bucket_compact_mask_switch())
+
+
+def compact_wave(is_mask: bool, nbuckets: int, n: int = 1) -> int:
+    """Tiles one wave of resident blocks takes at once in the route of a
+    bucket_compact call of this form and n elements on the current CUDA
+    device (its blocks take tiles until none is left), 0 where a block
+    takes one tile; the card tests give the kernel more tiles than
+    this."""
+    return int(_build.library().repaq_bucket_compact_wave(int(is_mask),
+                                                          nbuckets, n))
 
 
 def bucket_compact_plain(bucket: torch.Tensor, nbuckets: int, cap: int,
@@ -719,8 +739,9 @@ def bucket_compact(bucket: torch.Tensor, nbuckets: int, cap: int, fill: int,
     int32, the kept i ordered by (bucket id, i), cut to cap, fill past the
     kept ones; pay (cap,) int32, payload[idx] and 0 past the kept ones
     (None without a payload, an (n,) int32 tensor); counts (nbuckets,)
-    int32, each bucket's full count, not cut by cap. n < 2^31. One launch
-    of the kernel's three passes, counted once."""
+    int32, each bucket's full count, not cut by cap. n < 2^31. A call is
+    counted as one launch: one kernel for a mask, two for ids up to 8
+    buckets, three above."""
     _check_compact(bucket, nbuckets, cap, fill, payload)
     tensors = (bucket,) if payload is None else (bucket, payload)
     if not _on_cuda(*tensors):
@@ -736,14 +757,21 @@ def bucket_compact(bucket: torch.Tensor, nbuckets: int, cap: int, fill: int,
         return idx, None if pay is None else pay.zero_(), counts
     lib = _build.library()
     bucket = _aligned(bucket)
-    payload = None if payload is None else payload.contiguous()
-    scratch = torch.empty(lib.repaq_bucket_compact_scratch_words(n, nbuckets),
-                          dtype=torch.int32, device=dev)
+    payload = None if payload is None else _aligned(payload)
+    is_mask = int(bucket.dtype == torch.bool)
+    words = lib.repaq_bucket_compact_scratch_words(n, nbuckets, is_mask)
+    scratch = (torch.empty(words, dtype=torch.int32, device=dev) if words
+               else None)
     with torch.cuda.device(dev):
+        stream = _stream(dev)
+        status = _status_words(dev, stream,
+                               lib.repaq_bucket_compact_status_words(
+                                   n, nbuckets, is_mask))
         _launch("bucket_compact", lib.repaq_bucket_compact,
-                bucket.data_ptr(), int(bucket.dtype == torch.bool), n,
-                nbuckets, cap, int(fill),
+                bucket.data_ptr(), is_mask, n, nbuckets, cap, int(fill),
                 None if payload is None else payload.data_ptr(),
                 idx.data_ptr(), None if pay is None else pay.data_ptr(),
-                counts.data_ptr(), scratch.data_ptr(), _stream(dev))
+                counts.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                status.data_ptr(), stream)
     return idx, pay, counts

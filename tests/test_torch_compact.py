@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (COMPACT_CASES, compact_args, compact_case,
-                        compact_moved, compact_ref, compact_seeded)
+from chip_smoke import (COMPACT_CALLS, COMPACT_CAPS, COMPACT_CASES,
+                        COMPACT_FORMS, compact_args, compact_case,
+                        compact_moved, compact_ref, compact_seeded,
+                        compact_shapes)
 from repaq_tpu.codec import kernels_np as K
 from repaq_tpu.format.header import RfqHeader
 from repaq_tpu.ops import device_streams as D
@@ -49,6 +51,7 @@ def test_compact_cases_at_a_small_tile(name):
     tile is the built library's), through the wrapper on CPU tensors: its
     plain version, no launch."""
     case = compact_case(name, 64)
+    assert (case[0].dtype == bool, case[1]) == COMPACT_FORMS[name]
     before = dict(TK.launches)
     got = TK.bucket_compact(*compact_args(case, "cpu"))
     assert TK.launches == before
@@ -56,13 +59,95 @@ def test_compact_cases_at_a_small_tile(name):
 
 
 @pytest.mark.parametrize("payload", [False, True])
-@pytest.mark.parametrize("cap_kind", ["below", "at", "above"])
-@pytest.mark.parametrize("nbuckets", [1, 2, 4, 64])
-@pytest.mark.parametrize("n", [0, 1, 777])
+@pytest.mark.parametrize("cap_kind", COMPACT_CAPS)
+@pytest.mark.parametrize("nbuckets", [1, 2, 3, 4, 8, 9, 64])
+@pytest.mark.parametrize("n", [0, 1, 777, 100_003])
 def test_compact_plain_matches_numpy(n, nbuckets, cap_kind, payload):
+    """Masks and ids on each side of the register route's most (8 buckets;
+    9 takes the match route on a card), n not a multiple of 16, and every
+    cap kind: below, at and above the kept count, 0 and past n."""
     case = compact_seeded(n, nbuckets, cap_kind, payload)
     got = TK.bucket_compact_plain(*compact_args(case, "cpu"))
     _same_compact(got, compact_ref(*case))
+
+
+@pytest.mark.parametrize("cap_kind", ["below", "at", "above", "zero"])
+@pytest.mark.parametrize("form", ["mask", "mask_payload", "ids4", "ids8",
+                                  "ids9"])
+@pytest.mark.parametrize("n", [777, 100_003])
+def test_compact_matches_jax_sorts(n, form, cap_kind):
+    """bucket_compact against the sorts it replaces in the JAX package, on
+    the same numpy inputs: the count >= 2 compaction's sort-slice of
+    where(mask, i, n) (repaq_tpu/ops/device_streams.py:136), the token
+    compaction's sort of (where(start, i, INF), window) pairs (:1094) and
+    the grouping's sort of bid << 24 | i (:502), each cut to cap."""
+    nbuckets = {"ids4": 4, "ids8": 8, "ids9": 9}.get(form, 1)
+    bucket, _k, cap, _f, payload = compact_seeded(n, nbuckets, cap_kind,
+                                                  form == "mask_payload")
+    i_n = jnp.arange(n, dtype=jnp.int32)
+    inf = jnp.int32(2**31 - 1)
+    if form == "mask":
+        fill = n
+        want = jax.jit(lambda m: jnp.sort(jnp.where(m, i_n, n))[:cap])(
+            jnp.asarray(bucket))
+        want_pay = None
+    elif form == "mask_payload":
+        fill = 2**31 - 1
+        want, want_pay = jax.jit(lambda m, w: tuple(
+            x[:cap] for x in jax.lax.sort((jnp.where(m, i_n, inf), w),
+                                          num_keys=1)))(
+            jnp.asarray(bucket), jnp.asarray(payload))
+        want_pay = jnp.where(want < inf, want_pay, 0)
+    else:
+        fill = n
+        grouped = jax.jit(lambda b: jnp.sort(jnp.where(
+            b < nbuckets, (b.astype(jnp.int32) << 24) | i_n, inf))[:cap])(
+            jnp.asarray(bucket))
+        want = jnp.where(grouped < inf, grouped & 0xFFFFFF, fill)
+        want_pay = None
+    idx, pay, counts = TK.bucket_compact(_t(bucket), nbuckets, cap, fill,
+                                         None if payload is None
+                                         else _t(payload))
+    assert np.array_equal(idx.numpy(), np.asarray(want))
+    assert (pay is None) == (want_pay is None)
+    if pay is not None:
+        assert np.array_equal(pay.numpy(), np.asarray(want_pay))
+    ids = (~bucket).astype(np.int64) if bucket.dtype == bool else bucket
+    assert np.array_equal(counts.numpy(), np.bincount(
+        ids[ids < nbuckets], minlength=nbuckets)[:nbuckets])
+
+
+@pytest.mark.parametrize("index", range(len(COMPACT_CALLS)))
+def test_compact_shapes_of_a_chunk(index):
+    """chip_smoke.compact_shapes on the CPU at 2,000 reads of phase 4's
+    corpus (one chunk): each call of the device path recorded in its form
+    (the grouping's ids, then masks; a payload riding the quality count
+    >= 2 and the decode tokens), the plain version equal to compact_ref
+    and to the parent's sort of the same keys (compact_library), as the
+    card test holds the kernel at the full chunk."""
+    label, bucket, k, cap, fill, payload, parent = compact_shapes(
+        "cpu", reads=2000)[index]
+    what = COMPACT_CALLS[index]
+    assert label.startswith("SE %s: " % what)
+    assert (bucket.dtype == torch.bool) == (what != "grouping")
+    if what in ("quality count >= 2", "decode tokens"):
+        assert payload is not None
+    got = TK.bucket_compact(bucket, k, cap, fill, payload)
+    _same_compact(got, compact_ref(bucket.numpy(), k, cap, fill,
+                                   None if payload is None
+                                   else payload.numpy()))
+    sort = parent()
+    if bucket.dtype != torch.bool:  # the grouping keys: bid << 24 | pos
+        assert torch.equal(got[0], torch.where(sort < 2**31 - 1,
+                                               sort & 0xFFFFFF, fill))
+    elif payload is None:
+        assert torch.equal(got[0], sort)
+    else:
+        keys, riding = sort
+        assert torch.equal(got[0], keys[:cap])
+        assert torch.equal(got[1], torch.where(keys[:cap] != fill,
+                                               riding[:cap], 0))
+    assert int(got[2].sum()) > 0
 
 
 def test_compact_every_id_in_one_tile():
@@ -142,11 +227,12 @@ def _palette_case(n, nbins, esc, n_frac, seed):
 
 
 @pytest.mark.parametrize("esc", [False, True])
-@pytest.mark.parametrize("nbins", [1, 3, 17, 63])
+@pytest.mark.parametrize("nbins", [1, 3, 7, 8, 17, 63])
 def test_qualcol_encode_matches_jax(nbins, esc):
-    """The grouping by bin (nbins + 1 buckets), the escapes indexed in
-    the escape bucket's run (esc_cap 0 without escapes) and the direct
-    layout writes against JAX's sorts."""
+    """The grouping by bin (nbins + 1 buckets: 8 for 7 bins, the register
+    route's most on a card, and 9 for 8 bins, the match route's least),
+    the escapes indexed in the escape bucket's run (esc_cap 0 without
+    escapes) and the direct layout writes against JAX's sorts."""
     n = 12288
     meta, qual, table, major = _palette_case(n, nbins, esc, 0.01, nbins)
     n_esc = int((meta & 0x7F == nbins).sum())

@@ -21,12 +21,15 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
-from chip_smoke import (COMPACT_CASES, DECODE_CASES, FILL_CASES,
+from chip_smoke import (COMPACT_CALLS, COMPACT_CAPS, COMPACT_CASES,
+                        COMPACT_FORMS,
+                        COMPACT_PAST_WAVE, DECODE_CASES, FILL_CASES,
                         FILL_DTYPES, FRONT_CASES, FSM_KINDS, LAYOUT_CASES,
                         OVERLAP_CASES, PE_BASES,
                         RANS_CASES, RANS_SHAPES, RUN_KINDS, SEG_KINDS,
                         _decode_case_makers, compact_args, compact_case,
                         compact_ref, compact_seeded, compact_shapes,
+                        compact_traced,
                         decode_case,
                         decode_case_inputs, fill_args, fill_case,
                         fill_chunk_inputs, fill_loop, front_case, fsm_case,
@@ -808,68 +811,161 @@ def test_fill_runs_at_the_se_chunk(cuda):
     assert torch.equal(got, want)
 
 
+def _same_as_plain(got, args, ref=None):
+    want = TK.bucket_compact_plain(*args)
+    for g, w, r in zip(got, want, ref if ref is not None else want):
+        assert (g is None) == (w is None) == (r is None)
+        if g is not None:
+            assert torch.equal(g, w)
+            if ref is not None:
+                assert np.array_equal(g.cpu().numpy(), r)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", COMPACT_CASES)
 def test_bucket_compact_edges(cuda, name):
     """bucket_compact against its plain version and compact_ref on
-    chip_smoke's edge cases, placed by the built tile, one launch each."""
-    case = compact_case(name, TK.compact_tile())
+    chip_smoke's edge cases, placed by the tile of their form's route, one
+    launch each; the past-wave cases hold more tiles than one wave of the
+    route's blocks."""
+    form = COMPACT_FORMS[name]
+    tile = TK.compact_tile(*form)
+    case = compact_case(name, tile, TK.compact_mask_switch())
+    n = case[0].shape[0]
+    if name in COMPACT_PAST_WAVE:
+        assert -(-n // TK.compact_tile(*form, n)) > TK.compact_wave(*form,
+                                                                    n) > 0
+    if name.startswith("mask_switch"):  # the last small tiles, then larger
+        assert (TK.compact_tile(*form, n) > tile) == name.endswith("+1")
     args = compact_args(case, cuda)
     before = TK.launches["bucket_compact"]
     got = TK.bucket_compact(*args)
     torch.cuda.synchronize()
     assert TK.launches["bucket_compact"] == before + 1
-    want = TK.bucket_compact_plain(*args)
-    for g, w, r in zip(got, want, compact_ref(*case)):
-        assert (g is None) == (w is None) == (r is None)
-        if g is not None:
-            assert torch.equal(g, w)
-            assert np.array_equal(g.cpu().numpy(), r)
+    _same_as_plain(got, args, compact_ref(*case))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("payload", [False, True])
-@pytest.mark.parametrize("cap_kind", ["below", "at", "above"])
-@pytest.mark.parametrize("nbuckets", [1, 2, 4, 64])
-@pytest.mark.parametrize("n", [1, 777])
+@pytest.mark.parametrize("cap_kind", COMPACT_CAPS)
+@pytest.mark.parametrize("nbuckets", [1, 2, 3, 4, 8, 9, 64])
+@pytest.mark.parametrize("n", [1, 777, 100_003])
 def test_bucket_compact_seeded(cuda, n, nbuckets, cap_kind, payload):
     """The CPU tests' seeded cases (tests/test_torch_compact.py) on the
-    card: the kernel against its plain version and compact_ref."""
+    card: the kernel against its plain version and compact_ref, 8 buckets
+    on the register route and 9 on the match route."""
     case = compact_seeded(n, nbuckets, cap_kind, payload)
     args = compact_args(case, cuda)
-    got = TK.bucket_compact(*args)
-    want = TK.bucket_compact_plain(*args)
-    for g, w, r in zip(got, want, compact_ref(*case)):
-        assert (g is None) == (w is None) == (r is None)
-        if g is not None:
-            assert torch.equal(g, w)
-            assert np.array_equal(g.cpu().numpy(), r)
+    _same_as_plain(TK.bucket_compact(*args), args, compact_ref(*case))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("index", range(3))
+@pytest.mark.parametrize("index", range(len(COMPACT_CALLS)))
 def test_bucket_compact_at_main_path_shapes(cuda, index):
-    """At an SE chunk's grouping, N flags and decode tokens
-    (chip_smoke.compact_shapes): the kernel against its plain version, and
-    its indices against the parent's sort of the same keys."""
+    """At every call of one SE chunk of phase 4's corpus, as the device
+    path makes them (chip_smoke.compact_shapes: the grouping, the quality
+    stream's count >= 2, the N flags, the N stream's and the coordinates'
+    count >= 2, the decode tokens): the kernel against its plain version,
+    and its indices against the parent's sort of the same keys."""
     label, bucket, k, cap, fill, payload, parent = compact_shapes(cuda)[index]
     got = TK.bucket_compact(bucket, k, cap, fill, payload)
-    want = TK.bucket_compact_plain(bucket, k, cap, fill, payload)
-    for g, w in zip(got, want):
-        assert (g is None) == (w is None)
-        if g is not None:
-            assert torch.equal(g, w), label
+    _same_as_plain(got, (bucket, k, cap, fill, payload))
     sort = parent()
-    if index == 0:  # the grouping keys: bid << 24 | pos
+    if bucket.dtype != torch.bool:  # the grouping keys: bid << 24 | pos
         assert torch.equal(got[0], torch.where(sort < 2**31 - 1,
                                                sort & 0xFFFFFF, fill))
-    elif index == 1:
-        assert torch.equal(got[0], sort)
-    else:  # the token keys and their windows
-        keys, windows = sort
+    elif payload is None:
+        assert torch.equal(got[0], sort), label
+    else:  # the keys and their payload
+        keys, riding = sort
         assert torch.equal(got[0], keys[:cap])
-        assert torch.equal(got[1], torch.where(keys[:cap] < 2**31 - 1,
-                                               windows[:cap], 0))
+        assert torch.equal(got[1], torch.where(keys[:cap] != fill,
+                                               riding[:cap], 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", [(True, 1), (False, 4), (False, 8),
+                                  (False, 9)])
+def test_bucket_compact_device_kernels(cuda, form):
+    """A call's device kernels under torch.profiler (chip_smoke's
+    compact_traced, in a process of its own): one for a mask, two for ids
+    up to 8 buckets, three (the match route) above."""
+    (kernels,) = compact_traced([form])
+    assert len(kernels) == (1 if form[0] else 2 if form[1] <= 8 else 3), \
+        kernels
+
+
+@pytest.mark.cuda
+def test_bucket_compact_back_to_back(cuda):
+    """50 launches in a row on one stream, masks and ids in turn over
+    several sizes, none synchronised: each equals its plain version, and
+    the stream's status words are all zero again after them."""
+    cases = [compact_seeded(n, k, cap, True)
+             for n in (777, 100_003, 1_000_003)
+             for k, cap in ((1, "at"), (4, "below"), (8, "past_n"))]
+    got = []
+    for i in range(50):
+        args = compact_args(cases[i % len(cases)], cuda)
+        got.append((args, TK.bucket_compact(*args)))
+    torch.cuda.synchronize()
+    for args, out in got:
+        _same_as_plain(out, args)
+    status = TK._status_words(cuda, torch.cuda.current_stream(cuda)
+                              .cuda_stream, 1)
+    assert int(torch.count_nonzero(status)) == 0
+
+
+@pytest.mark.cuda
+def test_bucket_compact_from_threads(cuda):
+    """Calls from 8 threads at once on one stream, masks and ids in turn
+    (another call's launches may fall between the two launches of a call
+    with ids): each equals its plain version, and the stream's status
+    words are all zero after them."""
+    import threading
+
+    cases = [compact_args(compact_seeded(n, k, "at", True), cuda)
+             for n in (100_003, 1_000_003) for k in (1, 3, 4, 8, 9)]
+    outs = [[] for _ in range(8)]
+
+    def work(t):
+        for i in range(20):
+            j = (t + i) % len(cases)
+            outs[t].append((j, TK.bucket_compact(*cases[j])))
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    for out in outs:
+        assert len(out) == 20
+        for j, got in out:
+            _same_as_plain(got, cases[j])
+    status = TK._status_words(cuda, torch.cuda.current_stream(cuda)
+                              .cuda_stream, 1)
+    assert int(torch.count_nonzero(status)) == 0
+
+
+@pytest.mark.cuda
+def test_bucket_compact_on_two_streams(cuda):
+    """Launches on two streams at once, each with its own status words:
+    each equals its plain version, and both buffers are zero after."""
+    streams = [torch.cuda.Stream(cuda) for _ in range(2)]
+    cases = [compact_seeded(2_000_003, k, "at", True) for k in (1, 4)]
+    args = [compact_args(c, cuda) for c in cases]
+    torch.cuda.synchronize()
+    outs = []
+    for rep in range(4):
+        for st, a in zip(streams, args if rep % 2 else args[::-1]):
+            with torch.cuda.stream(st):
+                outs.append((a, TK.bucket_compact(*a)))
+    torch.cuda.synchronize()
+    for a, out in outs:
+        _same_as_plain(out, a)
+    for st in streams:
+        assert int(torch.count_nonzero(TK._status_words(
+            cuda, st.cuda_stream, 1))) == 0
 
 
 @pytest.mark.cuda

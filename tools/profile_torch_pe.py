@@ -135,7 +135,9 @@ def report(label: str, prof, wall: float) -> None:
                                        "run_boundary_scan")),
                        ("torch's cummax/cummin", ("with_indices",)),
                        ("the port's overlap", ("overlap_kernel",)),
-                       ("the port's compaction", ("bucket_compact",)),
+                       ("the port's compaction", ("bucket_compact",
+                                                  "compact_mask_kernel",
+                                                  "compact_reg_")),
                        ("the port's run writes", ("fill_runs_kernel",))):
         hit = [k for k in kernels if any(key in k for key in keys)]
         us = sum(kernels[k] for k in hit)
