@@ -65,7 +65,16 @@ Phases, each of which must pass:
      as the decode passes none), timed beside its bound, beside index_put_ of the same writes as distinct indices,
      and in turns beside the parent's composition of them (the token
      index_put_ and the 73,138,176-entry run grid aimed at a dump byte),
-     and at that chunk's N deltas and N bases. The stable bucket
+     and at that chunk's N deltas and N bases. The output-stationary
+     run writes of the same source, fill_sorted_runs and concat_row_spans,
+     on every RUNS_CASES and CONCAT_CASES input placed by the built tile
+     (against their plain versions and numpy references, one launch
+     each), then at one real SE decode chunk's quality call and one real
+     PE encode chunk's elision, recorded through repaq_tpu_torch.cli.main
+     (chunk_calls, pe_chunk_elision), each timed beside its bound, beside
+     one torch.take of precomputed indices and, in turns, beside the
+     parent's composition (torch.full, the value gather and fill_runs; the
+     elision's index_put_ into a dump slot). The stable bucket
      compaction (bucket_compact) on every COMPACT_CASES case, placed by
      the built tile of its form's route (n = 1, tile - 1, tile, tile + 1,
      past 3,000 tiles and past one wave of blocks, none and all kept, all
@@ -101,7 +110,9 @@ Phases, each of which must pass:
      run_offsets 3 times a chunk on compress and never on decompress,
      seg_positions once a chunk on decompress and never on compress (the
      same in phases 7 and 8; overlap_pairs likewise once a PE compress
-     chunk and never elsewhere, fill_runs 3 times a chunk both ways,
+     chunk and never elsewhere, fill_runs 3 times a compress chunk and
+     twice a decompress chunk, fill_sorted_runs once a decompress chunk,
+     concat_row_spans once a PE compress chunk,
      bucket_compact 5 times a compress chunk and once a decompress
      chunk), and the shapes they were handed are logged.
      The round
@@ -210,10 +221,19 @@ KERNELS = [
      "repaq_tpu/ops/device_streams.py:1369", ("pe", "mesh_pe", "shard_pe")),
     # the decode's masked writes: XLA scatters aimed at a dump element
     ("fill_runs", "repaq_tpu_torch/csrc/fill.cu",
-     "repaq_tpu/ops/device_streams.py:982, :992, :1161, :1197, :1211, "
-     ":1228, :1242, :1257; repaq_tpu/codec/device_engine.py:845, :982; "
+     "repaq_tpu/ops/device_streams.py:982, :992, :1211, :1228, :1257; "
+     "repaq_tpu/codec/device_engine.py:845, :982; "
      "the emission's layout sorts, repaq_tpu/ops/device_streams.py:67, :76",
      ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+    # the output-stationary route of the same source: the decode's quality
+    # writes (full fill, token scatter and run grid, or the slot space)
+    # and the PE elision's sort by destination
+    ("fill_sorted_runs", "repaq_tpu_torch/csrc/fill.cu",
+     "repaq_tpu/ops/device_streams.py:1160-1161, :1197, :1241-1242",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+    ("concat_row_spans", "repaq_tpu_torch/csrc/fill.cu",
+     "repaq_tpu/codec/device_engine.py:606-618",
+     ("pe", "mesh_pe", "shard_pe")),
     # the compaction and grouping sorts
     ("bucket_compact", "repaq_tpu_torch/csrc/compact.cu",
      "repaq_tpu/ops/device_streams.py:136, :187, :237, :403-419, :502, "
@@ -938,6 +958,626 @@ def fill_kernel_phase(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# sorted runs (fill_sorted_runs, concat_row_spans): csrc/fill.cu's
+# output-stationary route
+# ---------------------------------------------------------------------------
+
+# fill_sorted_runs' edge cases, placed by the built tile T: no entries, no
+# segments, empty segments among full ones, runs across, ending at and
+# starting at every tile edge, runs clipped at the end (an end past 2^31)
+# and below 0 (a start at -2^31), count-0 and negative-count entries
+# between runs (in order) and inside one (out of order: read whole), one
+# segment of every entry at the decode's density, a length that is no
+# multiple of 16, a segment whose int32 positions wrap (read whole) in
+# check blocks it shares with clean segments, a later segment over an
+# earlier one's bytes, offsets out of order and out of range, entries past
+# the last offset (never read), 63 and 256 segments, runs longer than a
+# tile, and 1,100 tiles (more than one wave of blocks)
+RUNS_CASES = ("empty", "no_segments", "empty_segments", "straddle",
+              "clip_end", "neg_start", "count0", "count0_inside",
+              "one_segment", "len_not16", "wrap", "later_wins",
+              "offsets_unsorted", "tail", "segments63", "segments256",
+              "long_runs", "tiles1100")
+
+
+def _ordered_runs(rng, n: int, first: int = 0, gap: int = 8,
+                  p_run: float = 0.006, max_count: int = 32):
+    """(start, count) int64 of n runs in order, each ending before the
+    next one starts: counts 1 (2..max_count at rate p_run), gaps 0..gap-1,
+    the first at `first`."""
+    import numpy as np
+
+    count = np.ones(n, np.int64)
+    runs = rng.random(n) < p_run
+    count[runs] = rng.integers(2, max_count + 1, size=int(runs.sum()))
+    st = first + np.cumsum(count + rng.integers(0, gap, size=n)) - count
+    return st, count
+
+
+def _segments(parts: list):
+    """start, count (int32) and seg_off of (start, count) parts, one
+    segment a part."""
+    import numpy as np
+
+    sizes = [len(p[0]) for p in parts]
+    cat = [np.concatenate([p[i] for p in parts]) if parts
+           else np.zeros(0, np.int64) for i in (0, 1)]
+    return (cat[0].astype(np.int32), cat[1].astype(np.int32),
+            np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32))
+
+
+def runs_case(name: str, tile: int):
+    """(length, background, start, count, seg_off, seg_value) of a
+    RUNS_CASES case at a tile of `tile` output bytes: numpy int32 start,
+    count and seg_off, uint8 seg_value."""
+    import numpy as np
+
+    rng = np.random.default_rng(1900 + RUNS_CASES.index(name))
+    T = tile
+    length = 4 * T + 5
+    parts = []
+    if name == "empty":
+        parts = [(np.zeros(0, np.int64),) * 2] * 2
+    elif name == "no_segments":
+        parts = []
+    elif name == "empty_segments":
+        full = [_ordered_runs(rng, T // 3, gap=12) for _ in range(2)]
+        e = (np.zeros(0, np.int64),) * 2
+        parts = [e, full[0], e, e, full[1], e]
+    elif name == "straddle":
+        length = 6 * T + 7
+        edges = np.arange(1, 7) * T
+        a = (np.stack([edges - 20, edges - 3, edges + 6], 1).ravel(),
+             np.tile([4, 8, 32], 6))
+        b = (np.stack([edges - 10, edges], 1).ravel(), np.full(12, 10))
+        parts = [a, b]
+    elif name == "clip_end":
+        length = 3 * T + 9
+        st, c = _ordered_runs(rng, T // 4, first=length - T // 2, gap=10)
+        st, c = st[st + c <= length - 5], c[st + c <= length - 5]
+        parts = [(np.concatenate([st, [length - 5, length, length + 7,
+                                       2**31 - 10]]),
+                  np.concatenate([c, [3, 5, 40, 100]]))]
+    elif name == "neg_start":
+        st, c = _ordered_runs(rng, T // 4, first=5)
+        parts = [(np.concatenate([[-2**31, -40, -1], st]),
+                  np.concatenate([[5, 32, 3], c]))]
+    elif name in ("count0", "count0_inside"):
+        st, c = _ordered_runs(rng, T, gap=10, p_run=0.2)
+        zero = rng.random(T) < 0.2
+        c[zero] = np.where(rng.random(int(zero.sum())) < 0.5, 0, -7)
+        if name == "count0_inside":
+            # a count-0 entry starting inside the run before it
+            i = int(np.flatnonzero(c[:-1] > 3)[5])
+            st[i + 1], c[i + 1] = st[i] + 2, 0
+        parts = [(st, c)]
+    elif name == "one_segment":
+        parts = [_ordered_runs(rng, (length * 2) // 15, gap=14)]
+    elif name == "len_not16":
+        length = 5 * T + 13
+        st, c = _ordered_runs(rng, length // 5, gap=8)
+        keep = st + c <= length - 16
+        parts = [(np.concatenate([st[keep], [length - 13, length - 3]]),
+                  np.concatenate([c[keep], [7, 3]]))]
+    elif name == "wrap":
+        # segment 1 rises past 2^31 - 1, wraps to -2^31 and comes back
+        # into the output over its own bytes, in the check block of 2,048
+        # entries it shares with segment 2 (read whole with it); segment 0
+        # shares its clean first block, segment 3 starts in a clean one
+        length = 3 * T + 1
+        a = _ordered_runs(rng, 100)
+        up, cu = _ordered_runs(rng, 2500, gap=3)
+        back, cb = _ordered_runs(rng, 300, first=40, gap=3)
+        wrap = np.array([2**31 - 300, 2**31 - 100, -2**31 + 7, -2**31 + 500,
+                         -9000])
+        b = (np.concatenate([up, wrap, back]),
+             np.concatenate([cu, [5, 80, 5, 3, 4], cb]))
+        parts = [a, b, _ordered_runs(rng, 1400, gap=3),
+                 _ordered_runs(rng, 5000, gap=1)]
+    elif name == "later_wins":
+        parts = [_ordered_runs(rng, length // (4 + 2 * s), gap=4 + 4 * s,
+                               p_run=0.1) for s in range(3)]
+    elif name == "offsets_unsorted":
+        st, c = _ordered_runs(rng, 2 * T // 3, gap=10)
+        n = st.shape[0]
+        seg_off = np.array([-5, 300, 200, n + 100, 50, n], np.int32)
+        return (length, 70, st.astype(np.int32), c.astype(np.int32),
+                seg_off, rng.integers(0, 256, size=5).astype(np.uint8))
+    elif name == "tail":
+        st, c = _ordered_runs(rng, T, gap=10)
+        junk = rng.integers(-T, 2 * length, size=T // 2)
+        start, count, seg_off = _segments([(st, c)])
+        return (length, 70,
+                np.concatenate([start, junk.astype(np.int32)]),
+                np.concatenate([count, rng.integers(-5, 40, size=T // 2)
+                                .astype(np.int32)]),
+                seg_off, np.array([66], np.uint8))
+    elif name in ("segments63", "segments256"):
+        k = 63 if name == "segments63" else 256
+        parts = [_ordered_runs(rng, int(rng.integers(0, 4 * length // k)),
+                               first=int(rng.integers(-50, length)),
+                               gap=30) for _ in range(k)]
+    elif name == "long_runs":
+        length = 8 * T + 3
+        parts = [(np.array([5, T + 9, 3 * T + 9, 6 * T + 4, 7 * T + 2]),
+                  np.array([T, 2 * T, 3 * T - 5, 7, 4 * T]))]
+    elif name == "tiles1100":
+        length = 1100 * T
+        parts = [_ordered_runs(rng, length // (9 + 5 * s), gap=9 + 10 * s)
+                 for s in range(3)]
+    start, count, seg_off = _segments(parts)
+    values = rng.permutation(np.arange(33, 127))
+    values = np.resize(values, len(parts)).astype(np.uint8)
+    return length, 70, start, count, seg_off, values
+
+
+def runs_ref(length, background, start, count, seg_off, seg_value):
+    """The generic composition of fill_sorted_runs in numpy: a filled
+    buffer, then each segment's runs (as kernels.segment_bounds reads the
+    offsets), clipped to it, segment by segment."""
+    import numpy as np
+
+    out = np.full(length, background, np.uint8)
+    n, top, bounds = start.shape[0], 0, []
+    for v in seg_off.tolist():
+        top = max(top, min(max(int(v), 0), n))
+        bounds.append(top)
+    for s in range(seg_value.shape[0]):
+        a, z = bounds[s], bounds[s + 1]
+        lo = np.maximum(start[a:z].astype(np.int64), 0)
+        hi = np.minimum(start[a:z].astype(np.int64)
+                        + np.maximum(count[a:z], 0), length)
+        w = np.maximum(hi - lo, 0)
+        first = np.repeat(lo - (np.cumsum(w) - w), w)
+        out[first + np.arange(int(w.sum()))] = seg_value[s]
+    return out
+
+
+def runs_args(case, dev):
+    """runs_case's arrays as fill_sorted_runs' arguments on dev."""
+    import torch
+
+    length, bg, start, count, seg_off, seg_value = case
+    return (length, bg) + tuple(torch.from_numpy(a.copy()).to(dev)
+                                for a in (start, count, seg_off, seg_value))
+
+
+# concat_row_spans' edge cases: the elision's rows (elide_args) of a PE
+# grid of 150-byte reads at ov = 0, +127 and -127 on every pair, mixed,
+# an odd read count, no reads, pad rows, and 40-byte reads overlapping
+# whole (spans of 0 among full ones); then source rows a view with a
+# longer stride, spans of 1-3 bytes (more rows a tile than the gather
+# stages), source columns clipped both sides, destinations clipped both
+# sides, rows whose destinations fall out of order (read whole), a
+# length that is no multiple of 16, and 1,100 tiles
+CONCAT_CASES = ("ov0", "fwd127", "bwd127", "mixed", "odd_reads",
+                "no_reads", "pad_rows", "full_overlap", "strided",
+                "short_spans", "src_clip", "dest_clip", "unordered",
+                "len_not16", "tiles1100")
+
+
+def elide_case(kind: str, seed: int = 0):
+    """(tseq, ov, n_reads) of a PE grid: tseq (b_cap, L) u8 bases, ov
+    (b_cap / 2,) int32 overlaps with the encode's shift clamp applied."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 20 * CONCAT_CASES.index(kind))
+    L, b_cap = (40, 96) if kind == "full_overlap" else (150, 192)
+    n_reads = {"odd_reads": 177, "no_reads": 0, "pad_rows": 130}.get(kind,
+                                                                     b_cap)
+    p = b_cap // 2
+    ov = {"ov0": np.zeros(p), "fwd127": np.full(p, 127),
+          "bwd127": np.full(p, -127),
+          "full_overlap": rng.choice([-L, 0, 12, L], size=p)}.get(
+        kind, rng.integers(-L, L + 1, size=p) * (rng.random(p) < 0.7))
+    ov = np.where(np.arange(p) < n_reads // 2, ov, 0).astype(np.int32)
+    tseq = rng.choice(np.frombuffer(b"ACGTN", np.uint8), size=(b_cap, L))
+    return tseq, ov, n_reads
+
+
+def elide_args(tseq, ov, n_reads: int):
+    """concat_row_spans' arguments (numpy) for the elision of a PE grid,
+    as codec/device_engine.py's _elide makes them: the valid rows, each
+    odd row's span past (forward) or before (backward) its overlap."""
+    import numpy as np
+
+    b_cap, L = tseq.shape
+    drop = np.stack([np.zeros_like(ov), np.abs(ov)], 1).ravel()
+    first = np.stack([np.zeros_like(ov), np.maximum(ov, 0)], 1).ravel()
+    stored = np.where(np.arange(b_cap) < n_reads, L - drop, 0)
+    dest = np.cumsum(stored) - stored
+    return (tseq[:n_reads], first[:n_reads].astype(np.int32),
+            stored[:n_reads].astype(np.int32),
+            dest[:n_reads].astype(np.int32), b_cap * L, ord("G"))
+
+
+def elide_sort_ref(tseq, ov, n_reads: int):
+    """(seq_concat, total_stored) of JAX's elision in numpy
+    (repaq_tpu/codec/device_engine.py:594-618): each kept byte keyed by its
+    destination, the rest by INT32_MAX, a stable sort of keys and bytes,
+    'G' past the stored count."""
+    import numpy as np
+
+    b_cap, L = tseq.shape
+    aov = np.abs(ov)
+    fwd = np.maximum(ov, 0)
+    zeros = np.zeros_like(ov)
+    drop_row = np.stack([zeros, aov], 1).reshape(-1)
+    start_row = np.stack([zeros, fwd], 1).reshape(-1)
+    stored_row = np.where(np.arange(b_cap) < n_reads, L - drop_row, 0)
+    cum = np.cumsum(stored_row)
+    dest_off = cum - stored_row
+    total = int(cum[-1])
+    i = np.arange(L)[None, :]
+    keep = (i >= start_row[:, None]) & (i < (start_row + stored_row)[:, None])
+    dest = dest_off[:, None] + i - start_row[:, None]
+    keys = np.where(keep, dest, 2**31 - 1).reshape(-1)
+    sv = tseq.reshape(-1)[np.argsort(keys, kind="stable")]
+    return np.where(np.arange(b_cap * L) < total, sv, ord("G")), total
+
+
+def concat_case(name: str, tile: int):
+    """(src, src_start, span, dest_off, length, background) numpy
+    arguments of a CONCAT_CASES case (src possibly a strided view) at a
+    tile of `tile` output bytes."""
+    import numpy as np
+
+    if name in ("ov0", "fwd127", "bwd127", "mixed", "odd_reads",
+                "no_reads", "pad_rows", "full_overlap"):
+        return elide_args(*elide_case(name))
+    rng = np.random.default_rng(2000 + CONCAT_CASES.index(name))
+    width = 150
+    rows = {"short_spans": 3 * tile // 2, "tiles1100": 1100 * tile // 120
+            }.get(name, 3 * tile // 100)
+    buf = rng.integers(0, 256, size=(rows, width + 10), dtype=np.uint8)
+    src = buf[:, :width] if name == "strided" else buf[:, 3:width + 3].copy()
+    src_start = rng.integers(0, 30, size=rows)
+    span = width - src_start - rng.integers(0, 30, size=rows)
+    if name == "short_spans":
+        src_start = rng.integers(0, 5, size=rows)
+        span = rng.integers(0, 4, size=rows)
+    if name == "src_clip":
+        src_start = rng.integers(-12, width + 12, size=rows)
+        span = rng.integers(-3, width + 25, size=rows)
+    dest = np.cumsum(np.maximum(span, 0)) - np.maximum(span, 0)
+    length = int(dest[-1] + max(span[-1], 0)) + 21
+    if name == "dest_clip":
+        dest -= 500
+        length = int(dest[-1]) - 300
+    if name == "unordered":
+        # blocks of rows moved out of order, their spans still disjoint
+        moved, at = np.empty(rows, np.int64), 0
+        blocks = np.array_split(np.arange(rows), 7)
+        for k in rng.permutation(len(blocks)):
+            b = blocks[k]
+            w = np.maximum(span[b], 0)
+            moved[b] = at + np.cumsum(w) - w
+            at += int(w.sum())
+        dest = moved
+    if name == "len_not16":
+        length = 16 * (int(dest[-1] + span[-1]) // 16) + 13
+    return (src, src_start.astype(np.int32), span.astype(np.int32),
+            dest.astype(np.int32), length, ord("G"))
+
+
+def concat_ref(src, src_start, span, dest_off, length, background):
+    """concat_row_spans in numpy, a row at a time: each source column in
+    [0, width) that the row's span keeps, at its destination inside
+    [0, length)."""
+    import numpy as np
+
+    out = np.full(length, background, np.uint8)
+    width = src.shape[1]
+    for r in range(src.shape[0]):
+        j = np.arange(max(int(span[r]), 0))
+        col = src_start[r] + j
+        dst = dest_off[r] + j
+        ok = (col >= 0) & (col < width) & (dst >= 0) & (dst < length)
+        out[dst[ok]] = src[r, col[ok]]
+    return out
+
+
+def concat_args(case, dev):
+    """concat_case's arrays as concat_row_spans' arguments on dev, src
+    keeping its row stride."""
+    import numpy as np
+    import torch
+
+    src, src_start, span, dest_off, length, bg = case
+    if src.flags.c_contiguous:
+        t = torch.from_numpy(src.copy()).to(dev)
+    else:  # a view of the first columns of a wider buffer
+        t = torch.from_numpy(src.base.copy()).to(dev)[:, :src.shape[1]]
+    return (t,) + tuple(torch.from_numpy(a.copy()).to(dev)
+                        for a in (src_start, span, dest_off)) + (length, bg)
+
+
+def runs_moved(length: int, start, seg_off, seg_value) -> int:
+    """The bytes fill_sorted_runs must move: the output written once, start
+    and count of every entry inside the segments read once, and the
+    offsets and values."""
+    from repaq_tpu_torch.ops import kernels as TK
+
+    b = TK.segment_bounds(seg_off, start.shape[0])
+    return (length + 8 * (b[-1] - b[0]) + 4 * seg_off.shape[0]
+            + seg_value.shape[0])
+
+
+def concat_moved(src, src_start, span, dest_off, length: int) -> int:
+    """The bytes concat_row_spans must move: the output written once, the
+    source bytes it copies and three int32 a row read once."""
+    import torch
+
+    width = src.shape[1]
+    rel = torch.arange(width, device=src.device)[None, :] - \
+        src_start.long()[:, None]
+    dest = dest_off.long()[:, None] + rel
+    kept = ((rel >= 0) & (rel < span.long()[:, None]) & (dest >= 0)
+            & (dest < length))
+    return length + int(kept.sum()) + 12 * src.shape[0]
+
+
+def parent_qual_write(length, background, start, count, seg_off, seg_value):
+    """The parent's quality write of the same call, as a function of no
+    arguments: torch.full of the output, the bin chars with the major
+    appended, the per-token value gather by bin id and fill_runs of every
+    token (tokens past the segments are bin S - 1 with count 0, as the
+    parent's were)."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    dev, n = start.device, start.shape[0]
+    b = TK.segment_bounds(seg_off, n)
+    tok_bin = torch.full((n,), max(seg_value.shape[0] - 1, 0),
+                         dtype=torch.int32, device=dev)
+    for s in range(seg_value.shape[0]):
+        tok_bin[b[s]:b[s + 1]] = s
+
+    def run():
+        bin_chars = torch.cat([seg_value, torch.full(
+            (1,), background, dtype=torch.uint8, device=dev)])
+        qual = torch.full((length,), background, dtype=torch.uint8,
+                          device=dev)
+        return TK.fill_runs(qual, start, count, bin_chars[tok_bin.long()])
+    return run
+
+
+def parent_elide(tseq, ov, n_reads: int):
+    """The parent's _elide: the stored bases of a (b_cap, L) PE grid
+    aimed at their destinations, the dropped ones and the pad rows' at a
+    spare last byte, in one index_put_ into a 'G'-filled buffer; returns
+    (seq_concat, total_stored)."""
+    import torch
+
+    dev = tseq.device
+    b_cap, L = tseq.shape
+    n_cap = b_cap * L
+    zeros_p = torch.zeros_like(ov)
+    drop_row = torch.stack([zeros_p, ov.abs()], dim=1).reshape(-1)
+    start_row = torch.stack([zeros_p, ov.clamp(min=0)], dim=1).reshape(-1)
+    rvalid = torch.arange(b_cap, device=dev) < n_reads
+    stored_row = torch.where(rvalid, L - drop_row, 0).to(torch.int32)
+    cum = torch.cumsum(stored_row, 0, dtype=torch.int32)
+    rel = torch.arange(L, dtype=torch.int32, device=dev)[None, :] \
+        - start_row[:, None]
+    keep = (rel >= 0) & (rel < stored_row[:, None])
+    dest = torch.where(keep, (cum - stored_row)[:, None] + rel, n_cap)
+    out = torch.full((n_cap + 1,), ord("G"), dtype=torch.uint8, device=dev)
+    out[dest.reshape(-1).long()] = tseq.reshape(-1)
+    return out[:n_cap], cum[-1]
+
+
+def take_library(writes, background: int, length: int, dev):
+    """(vals, idx) of one torch.take(vals, idx) that computes a sorted-run
+    output: vals the written bytes in write order and the background last,
+    idx a precomputed int64 source index for every output byte (a later
+    write's over an earlier one's). The library call timed as a
+    yardstick. writes: [(targets, values)] in write order."""
+    import torch
+
+    vals = torch.cat([v for _t, v in writes] + [torch.full(
+        (1,), background, dtype=torch.uint8, device=dev)])
+    idx = torch.full((length,), vals.shape[0] - 1, dtype=torch.long,
+                     device=dev)
+    at = 0
+    for t, v in writes:
+        idx[t] = at + torch.arange(v.shape[0], device=dev)
+        at += v.shape[0]
+    return vals, idx
+
+
+def runs_writes(length, start, count, seg_off, seg_value):
+    """[(targets, values)] of fill_sorted_runs' writes, segment by segment:
+    int64 targets inside [0, length) and their uint8 values."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    b = TK.segment_bounds(seg_off, start.shape[0])
+    out = []
+    for s in range(seg_value.shape[0]):
+        st = start[b[s]:b[s + 1]].long()
+        lo = st.clamp(min=0)
+        hi = (st + count[b[s]:b[s + 1]].long().clamp(min=0)).clamp(
+            max=length)
+        w = (hi - lo).clamp(min=0)
+        first = torch.repeat_interleave(lo - (torch.cumsum(w, 0) - w), w)
+        t = first + torch.arange(first.shape[0], device=start.device)
+        out.append((t, seg_value[s].expand(t.shape[0])))
+    return out
+
+
+def concat_writes(src, src_start, span, dest_off, length):
+    """[(targets, values)] of concat_row_spans' writes."""
+    import torch
+
+    width = src.shape[1]
+    rel = torch.arange(width, device=src.device)[None, :] - \
+        src_start.long()[:, None]
+    dest = dest_off.long()[:, None] + rel
+    kept = ((rel >= 0) & (rel < span.long()[:, None]) & (dest >= 0)
+            & (dest < length))
+    return [(dest[kept], src[kept])]
+
+
+def pe_chunk_elision(dev, pairs: int = 40_000) -> dict:
+    """_elide's inputs (tseq, ov, n_reads) and its concat_row_spans
+    call's arguments in one PE chunk as the device path makes them:
+    `pairs` pairs of phase 5's corpus (make_pe_corpus, seed 97; 40,000
+    pairs of 150 bp are one -k 12000 chunk, b_cap 98,304) compressed
+    through repaq_tpu_torch.cli.main with the device engine on dev."""
+    from repaq_tpu_torch import cli
+    from repaq_tpu_torch.codec import device_engine as DE
+    from repaq_tpu_torch.ops import kernels as TK
+
+    work = os.path.join(WORK, "elide_chunk.%d" % os.getpid())
+    os.makedirs(work, exist_ok=True)
+    fqs = [os.path.join(work, "pe%d.fq" % m) for m in (1, 2)]
+    rec = {"elide": [], "concat_row_spans": []}
+    elide, concat = DE._elide, TK.concat_row_spans
+
+    def rec_elide(tseq, ov, n_reads):
+        rec["elide"].append((tseq.clone(), ov.clone(), n_reads))
+        return elide(tseq, ov, n_reads)
+
+    def rec_concat(*args):
+        rec["concat_row_spans"].append(tuple(_clone(a) for a in args))
+        return concat(*args)
+
+    eng = DE.DeviceEngine(dev)
+    DE._elide, TK.concat_row_spans = rec_elide, rec_concat
+    try:
+        make_pe_corpus(fqs, pairs, 150, seed=97)
+        rc = cli.main(["-c", "-i", fqs[0], "-I", fqs[1], "-o",
+                       os.path.join(work, "pe.rfq"), "-k", "12000",
+                       "--engine", "device"], engine=eng.config())
+        check(rc == 0, "the PE chunk's compress exited %d" % rc)
+    finally:
+        DE._elide, TK.concat_row_spans = elide, concat
+        shutil.rmtree(work, ignore_errors=True)
+    check(eng.stats["device_chunks"] == 1 and len(rec["elide"]) == 1
+          == len(rec["concat_row_spans"]), "the PE chunk took another path "
+          "or called the elision %d times: %s" % (len(rec["elide"]),
+                                                  eng.stats))
+    return {k: v[0] for k, v in rec.items()}
+
+
+def sorted_runs_edge_cases(dev) -> int:
+    """fill_sorted_runs on every RUNS_CASES case and concat_row_spans on
+    every CONCAT_CASES case, placed by the built tile, exact against their
+    plain versions and the numpy references, one launch each; returns the
+    number of cases."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    tile = TK.sorted_runs_tile()
+    done = 0
+    for kind, names, make, args_of, ref, kern, plain in (
+            ("fill_sorted_runs", RUNS_CASES, runs_case, runs_args, runs_ref,
+             TK.fill_sorted_runs, TK.fill_sorted_runs_plain),
+            ("concat_row_spans", CONCAT_CASES, concat_case, concat_args,
+             concat_ref, TK.concat_row_spans, TK.concat_row_spans_plain)):
+        for name in names:
+            case = make(name, tile)
+            args = args_of(case, dev)
+            before = TK.launches[kind]
+            got = kern(*args)
+            torch.cuda.synchronize()
+            check(TK.launches[kind] == before + 1, "%s launched %d times on "
+                  "%s" % (kind, TK.launches[kind] - before, name))
+            check(torch.equal(got, plain(*args))
+                  and (got.cpu().numpy() == ref(*case)).all(),
+                  "%s differs from its plain version on %s" % (kind, name))
+            done += 1
+    return done
+
+
+def sorted_runs_phase(dev) -> dict:
+    """fill_sorted_runs and concat_row_spans on their edge cases, then at
+    one real SE decode chunk's quality call (chunk_calls) and one real PE
+    encode chunk's elision (pe_chunk_elision), exact against their plain
+    versions, each timed beside its bound (runs_moved, concat_moved),
+    beside one torch.take of precomputed indices (the library call) and,
+    in turns, beside the parent's composition (parent_qual_write: torch.full,
+    the value gather and fill_runs; parent_elide: the index_put_ into a
+    dump slot, timed as the whole elision against the new _elide)."""
+    import torch
+
+    from repaq_tpu_torch.codec import device_engine as DE
+    from repaq_tpu_torch.ops import kernels as TK
+
+    log("kernels fill_sorted_runs and concat_row_spans exact on %d edge "
+        "cases (RUNS_CASES and CONCAT_CASES at %d-byte tiles: no entries or "
+        "segments, empty segments, runs across, at and from every tile "
+        "edge, clipped both ends, count 0 in and out of order, a length "
+        "off 16, a wrapping segment, a later segment over an earlier one, "
+        "offsets out of order, entries past the segments, 63 and 256 "
+        "segments, runs past a tile, 1,100 tiles; the elision's rows at ov "
+        "0, +-127, mixed, odd, none and pad rows, whole overlaps, strided "
+        "rows, 1-3 byte spans, clipped columns and destinations, rows out "
+        "of order), one launch each"
+        % (sorted_runs_edge_cases(dev), TK.sorted_runs_tile()))
+    res = {}
+    length, bg, start, count, seg_off, seg_value = chunk_calls(dev)[
+        "fill_sorted_runs"][0]
+    b = TK.segment_bounds(seg_off, start.shape[0])
+    label = ("SE decode chunk: %d entries (%d in %d segments), %d bytes"
+             % (start.shape[0], b[-1] - b[0], seg_value.shape[0], length))
+    vals, idx = take_library(runs_writes(length, start, count, seg_off,
+                                         seg_value), bg, length, dev)
+    args = (length, bg, start, count, seg_off, seg_value)
+    r = held_and_timed(
+        "fill_sorted_runs", lambda: TK.fill_sorted_runs(*args),
+        lambda: TK.fill_sorted_runs_plain(*args), (), label, plain_runs=3,
+        moved=runs_moved(length, start, seg_off, seg_value),
+        library=lambda: torch.take(vals, idx))
+    del vals, idx
+    parent = parent_qual_write(*args)
+    check(torch.equal(parent(), TK.fill_sorted_runs(*args)),
+          "fill_sorted_runs differs from the parent's composition at %s"
+          % label)
+    r["in_turns_ms"] = in_turns([("parent", parent), (
+        "fill_sorted_runs", lambda: TK.fill_sorted_runs(*args))], label)
+    res["fill_sorted_runs"] = dict(r, by_shape={label: r})
+
+    rec = pe_chunk_elision(dev)
+    tseq, ov, n_reads = rec["elide"]
+    cargs = rec["concat_row_spans"]
+    src, src_start, span, dest_off, length, bg = cargs
+    label = ("PE encode chunk: %d of %d rows of %d bytes, %d bytes"
+             % (src.shape[0], tseq.shape[0], tseq.shape[1], length))
+    vals, idx = take_library(concat_writes(*cargs[:5]), bg, length, dev)
+    r = held_and_timed(
+        "concat_row_spans", lambda: TK.concat_row_spans(*cargs),
+        lambda: TK.concat_row_spans_plain(*cargs), (), label, plain_runs=3,
+        moved=concat_moved(*cargs[:5]),
+        library=lambda: torch.take(vals, idx))
+    del vals, idx
+    check(all(torch.equal(x, y) for x, y in zip(
+        parent_elide(tseq, ov, n_reads), DE._elide(tseq, ov, n_reads))),
+        "_elide differs from the parent's at %s" % label)
+    r["in_turns_ms"] = in_turns([("parent _elide", lambda: parent_elide(
+        tseq, ov, n_reads)), ("_elide", lambda: DE._elide(tseq, ov,
+                                                           n_reads))], label)
+    res["concat_row_spans"] = dict(r, by_shape={label: r})
+    return res
+
+
+def in_turns(fns: list, label: str) -> dict:
+    """{name: [ms, ms]} of the functions timed by cuda_ms in turns, A B B
+    A, logged."""
+    turns = {name: [] for name, _fn in fns}
+    for name, fn in fns + fns[::-1]:
+        turns[name].append(cuda_ms(fn))
+    log("in turns at %s: %s" % (label, "; ".join(
+        "%s %s ms" % (name, ", ".join("%.4f" % t for t in ts))
+        for name, ts in turns.items())))
+    return turns
+
+
 # bucket_compact's edge cases, each placed by the tile of the route its
 # form takes (a mask; ids up to 8 buckets; more): one element, a tile and
 # one either side, past 3,000 tiles (an SE grouping's ids; a mask with a
@@ -1128,16 +1768,22 @@ def compact_edge_cases(dev) -> int:
 # makes them: the compress's five, then the decompress's one
 COMPACT_CALLS = ("grouping", "quality count >= 2", "N flags",
                  "N count >= 2", "coordinates count >= 2", "decode tokens")
-_COMPACT_CHUNK: dict = {}
+_CHUNK_CALLS: dict = {}
+# the kernels whose calls chunk_calls records
+RECORDED = ("bucket_compact", "fill_sorted_runs")
 
 
-def chunk_compactions(dev, reads: int = 80_000) -> list:
-    """The arguments (bucket, nbuckets, cap, fill, payload) of every
-    bucket_compact call of one SE chunk, cloned as the device path makes
-    them (COMPACT_CALLS order): `reads` reads of phase 4's corpus
-    (make_corpus, seed 96; 80,000 reads of 150 bp are one -k 12000 chunk)
-    compressed and decompressed through repaq_tpu_torch.cli.main with the
-    device engine on dev. Made once a device and size."""
+def _clone(a):
+    return a.clone() if hasattr(a, "clone") else a
+
+
+def chunk_calls(dev, reads: int = 80_000) -> dict:
+    """{kernel: [its arguments, cloned, call by call]} of the RECORDED
+    kernels in one SE chunk as the device path makes them: `reads` reads
+    of phase 4's corpus (make_corpus, seed 96; 80,000 reads of 150 bp are
+    one -k 12000 chunk) compressed and decompressed through
+    repaq_tpu_torch.cli.main with the device engine on dev. Made once a
+    device and size."""
     import torch
 
     from repaq_tpu_torch import cli
@@ -1145,22 +1791,25 @@ def chunk_compactions(dev, reads: int = 80_000) -> list:
     from repaq_tpu_torch.ops import kernels as TK
 
     key = (str(torch.device(dev)), reads)
-    if key in _COMPACT_CHUNK:
-        return _COMPACT_CHUNK[key]
-    work = os.path.join(WORK, "compact_chunk")
+    if key in _CHUNK_CALLS:
+        return _CHUNK_CALLS[key]
+    # a directory of this process's own: test processes record in parallel
+    work = os.path.join(WORK, "compact_chunk.%d" % os.getpid())
     os.makedirs(work, exist_ok=True)
     fq, rfq, back = (os.path.join(work, f)
                      for f in ("se.fq", "se.rfq", "se.back.fq"))
-    calls = []
-    kernel = TK.bucket_compact
+    calls = {name: [] for name in RECORDED}
+    saved = {name: getattr(TK, name) for name in RECORDED}
 
-    def recording(bucket, nbuckets, cap, fill, payload=None):
-        calls.append((bucket.clone(), nbuckets, cap, fill,
-                      None if payload is None else payload.clone()))
-        return kernel(bucket, nbuckets, cap, fill, payload)
+    def recording(name):
+        def kernel(*args):
+            calls[name].append(tuple(_clone(a) for a in args))
+            return saved[name](*args)
+        return kernel
 
     eng = DeviceEngine(dev)
-    TK.bucket_compact = recording
+    for name in RECORDED:
+        setattr(TK, name, recording(name))
     try:
         make_corpus([fq], reads, 150, seed=96)
         for argv in (["-c", "-i", fq, "-o", rfq, "-k", "12000"],
@@ -1168,14 +1817,29 @@ def chunk_compactions(dev, reads: int = 80_000) -> list:
             rc = cli.main(argv + ["--engine", "device"], engine=eng.config())
             check(rc == 0, "the chunk's %s exited %d" % (argv[0], rc))
     finally:
-        TK.bucket_compact = kernel
+        for name, fn in saved.items():
+            setattr(TK, name, fn)
         shutil.rmtree(work, ignore_errors=True)
     check(eng.stats["device_chunks"] == 1 == eng.stats["device_decodes"],
-          "the compaction chunk took another path: %s" % eng.stats)
+          "the recorded chunk took another path: %s" % eng.stats)
+    check(len(calls["fill_sorted_runs"]) == 1, "the chunk's decode called "
+          "fill_sorted_runs %d times, not once"
+          % len(calls["fill_sorted_runs"]))
+    _CHUNK_CALLS[key] = calls
+    return calls
+
+
+def chunk_compactions(dev, reads: int = 80_000) -> list:
+    """The arguments (bucket, nbuckets, cap, fill, payload) of every
+    bucket_compact call of chunk_calls' SE chunk, in COMPACT_CALLS
+    order."""
+    import torch
+
+    calls = [(c + (None,))[:5] for c in chunk_calls(dev, reads)[
+        "bucket_compact"]]
     forms = [c[0].dtype == torch.bool for c in calls]
     check(forms == [False] + [True] * 5, "the chunk's bucket_compact calls "
           "are not COMPACT_CALLS' ids and five masks: %s" % forms)
-    _COMPACT_CHUNK[key] = calls
     return calls
 
 
@@ -2683,14 +3347,17 @@ def per_chunk(what: str, pe: bool) -> dict:
     """The launches a chunk of the kernels whose count a chunk fixes, on
     compress or decompress: run_offsets 3 an encode, seg_positions 1 a
     decode, overlap_pairs 1 a PE encode (none in the other direction);
-    fill_runs 3 either way (encode: the quality, N-position and
-    coordinate streams' bytes; decode: the quality runs, the N positions'
-    deltas, the N bases); bucket_compact 5 an encode (the grouping by bin,
-    the quality and N streams' multi-byte tokens, the N flags, the
+    fill_runs 3 an encode (the quality, N-position and coordinate
+    streams' bytes) and 2 a decode (the N positions' deltas, the N bases);
+    fill_sorted_runs 1 a decode (the quality runs), concat_row_spans 1 a
+    PE encode (the elision); bucket_compact 5 an encode (the grouping by
+    bin, the quality and N streams' multi-byte tokens, the N flags, the
     coordinates' multi-byte values) and 1 a decode (the quality tokens)."""
     enc = what == "compress"
     return {"run_offsets": 3 * enc, "seg_positions": int(not enc),
-            "overlap_pairs": int(enc and pe), "fill_runs": 3,
+            "overlap_pairs": int(enc and pe), "fill_runs": 3 if enc else 2,
+            "fill_sorted_runs": int(not enc),
+            "concat_row_spans": int(enc and pe),
             "bucket_compact": 5 if enc else 1}
 
 
@@ -3153,7 +3820,7 @@ SHARD_KERNELS = {"compress": ("encode_frontend", "run_offsets",
                               "bucket_compact", "fill_runs"),
                  "decompress": ("unpack_bases", "token_start_mask",
                                 "seg_positions", "fill_runs",
-                                "bucket_compact")}
+                                "fill_sorted_runs", "bucket_compact")}
 
 
 def rank_env(rank: int, per_card: bool) -> dict:
@@ -3358,6 +4025,7 @@ def main() -> int:
         kres = kernel_phase(torch.device("cuda:0"))
         kres["overlap_pairs"] = overlap_kernel_phase(torch.device("cuda:0"))
         kres["fill_runs"] = fill_kernel_phase(torch.device("cuda:0"))
+        kres.update(sorted_runs_phase(torch.device("cuda:0")))
         kres["bucket_compact"] = compact_kernel_phase(torch.device("cuda:0"))
         kres.update(rans_kernel_phase(torch.device("cuda:0")))
         golden_phase()

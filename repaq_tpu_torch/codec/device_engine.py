@@ -111,23 +111,20 @@ def _elide(tseq: torch.Tensor, ov: torch.Tensor, n_reads: int):
     front for a forward one."""
     dev = tseq.device
     b_cap, L = tseq.shape
-    n_cap = b_cap * L
     zeros_p = torch.zeros_like(ov)
     drop_row = torch.stack([zeros_p, ov.abs()], dim=1).reshape(-1)
     start_row = torch.stack([zeros_p, ov.clamp(min=0)], dim=1).reshape(-1)
     rvalid = torch.arange(b_cap, device=dev) < n_reads
     stored_row = torch.where(rvalid, L - drop_row, 0).to(torch.int32)
     cum = torch.cumsum(stored_row, 0, dtype=torch.int32)
-    # the kept bases have unique destinations in row order, so one scatter
-    # into a 'G'-filled buffer (its spare last slot takes the dropped ones)
-    # gives the bytes of JAX's sort by destination
-    rel = torch.arange(L, dtype=torch.int32, device=dev)[None, :] \
-        - start_row[:, None]
-    keep = (rel >= 0) & (rel < stored_row[:, None])
-    dest = torch.where(keep, (cum - stored_row)[:, None] + rel, n_cap)
-    out = torch.full((n_cap + 1,), _G, dtype=torch.uint8, device=dev)
-    out[dest.reshape(-1).long()] = tseq.reshape(-1)
-    return out[:n_cap], cum[-1]
+    # each valid row's span at its offset in the concatenation, the rest
+    # 'G': JAX's sort by destination as one gather (the pad rows, which
+    # store nothing, are left out of it)
+    out = kernels.concat_row_spans(tseq[:n_reads], start_row[:n_reads],
+                                   stored_row[:n_reads],
+                                   (cum - stored_row)[:n_reads], b_cap * L,
+                                   _G)
+    return out, cum[-1]
 
 
 def _expand(seq: torch.Tensor, tables: torch.Tensor, L: int):

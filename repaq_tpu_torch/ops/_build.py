@@ -158,6 +158,16 @@ def _bind(path: str) -> ctypes.CDLL:
     for entry in (lib.repaq_fill_runs_u8, lib.repaq_fill_runs_i32):
         entry.argtypes = [vp, ll, vp, vp, ci, vp, ci, vp, ll, vp]
         entry.restype = ci
+    lib.repaq_sorted_runs_tile.argtypes = []
+    lib.repaq_sorted_runs_tile.restype = ll
+    lib.repaq_sorted_runs_scratch_words.argtypes = [ll, ci, ll]
+    lib.repaq_sorted_runs_scratch_words.restype = ll
+    lib.repaq_fill_sorted_runs.argtypes = [vp, ll, ci, vp, vp, ll, vp, vp, ci,
+                                           vp, vp]
+    lib.repaq_fill_sorted_runs.restype = ci
+    lib.repaq_concat_row_spans.argtypes = [vp, ll, ci, vp, ll, ll, vp, vp, vp,
+                                           ll, vp, vp]
+    lib.repaq_concat_row_spans.restype = ci
     lib.repaq_bucket_compact.argtypes = [vp, ci, ll, ci, ll, ci, vp, vp, vp,
                                          vp, vp, vp, vp]
     lib.repaq_bucket_compact.restype = ci

@@ -600,8 +600,9 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
     compact token space: one token-FSM pass over the concatenated per-bin
     streams (stream boundaries force restarts), token compaction
     (``kernels.bucket_compact``) carrying each token's 4-byte window, per-token gap/run arithmetic, then
-    the writes of each token's run of (position -> bin char), then of the
-    escape records, into the major-filled output (``kernels.fill_runs``).
+    the writes of each token's run of (position -> bin char) over the
+    major, the bins as sorted segments (``kernels.fill_sorted_runs``), then
+    of the escape records (``kernels.fill_runs``).
 
     buf: (m,) u8 padded with >= 5 zero bytes; total_len: true qual_buf
     size. tok_cap / esc_cap: upper bounds on token and escape-record
@@ -636,7 +637,8 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
 
     # each token's 4-byte window rides the compaction as payload
     w32 = _window32(buf)
-    tok_i, tok_w = _compact(starts, tok_cap, _INF, w32)
+    tok_i, tok_w, n_tok = kernels.bucket_compact(starts, 1, tok_cap, _INF,
+                                                 w32)
     valid = tok_i < _INF
 
     b0 = tok_w & 0xFF
@@ -653,16 +655,18 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
                            tok_bin[1:] != tok_bin[:-1]])
     pos_end = kernels.seg_positions(adv, seg_start)
     pos_first = pos_end - npos + 1
-    # bin chars with the major appended: out-of-range bin ids gather it
-    bin_chars = torch.cat([bins.to(torch.uint8),
-                           torch.full((1,), major, dtype=torch.uint8,
-                                      device=dev)])
 
-    qual = torch.full((length,), major, dtype=torch.uint8, device=dev)
     with _span("dec.qual.fill"):
-        # each token's run, written whole; tokens past the valid ones have
-        # npos 0 and write nothing
-        kernels.fill_runs(qual, pos_first, npos, bin_chars[tok_bin.long()])
+        # the bins are the segments, in token order: tok_bin never falls
+        # (tok_i rises and a binary search's answer rises with its query,
+        # sorted table or not), so bin s is the tokens from the first with
+        # tok_bin >= s, and the valid count ends the last
+        seg_off = torch.minimum(
+            torch.searchsorted(tok_bin, _arange(nbins + 1, dev),
+                               out_int32=True),
+            n_tok.clamp(max=tok_cap))
+        qual = kernels.fill_sorted_runs(length, major, pos_first, npos,
+                                        seg_off, bins.to(torch.uint8))
     if esc_cap > 0:
         # a second launch, so that an escape lands over a stream's write
         with _span("dec.qual.esc"):

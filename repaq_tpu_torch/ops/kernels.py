@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of the port, each beside its plain torch
 version; the counterpart of repaq_tpu/ops/pallas_tpu.py, and of the
 run-boundary scans, the PE overlap search, the decode's masked writes and
-the stream coders' compaction sorts that the JAX package left to XLA.
+the stream coders' compaction sorts that the JAX package left to XLA,
+and of the PE encode's elision sort.
 
 Every wrapper decides by the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (built on
@@ -26,7 +27,8 @@ launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
             "pack_bases": 0, "unpack_bases": 0, "token_start_mask": 0,
             "run_offsets": 0, "seg_positions": 0, "rans_encode": 0,
             "rans_layout": 0, "rans_decode": 0, "overlap_pairs": 0,
-            "fill_runs": 0, "bucket_compact": 0}
+            "fill_runs": 0, "fill_sorted_runs": 0, "concat_row_spans": 0,
+            "bucket_compact": 0}
 _launch_lock = threading.Lock()
 
 
@@ -521,7 +523,7 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.uint8 or t.dim() != 2:
         raise ValueError("%s must be a 2-D uint8 tensor, got %s %s"
                          % (name, t.dtype, tuple(t.shape)))
-    if t.stride(1) != 1 and t.shape[1] > 1:
+    if t.stride(1) != 1 and t.shape[1] > 1 and t.shape[0] > 0:
         raise ValueError("%s's rows must be contiguous (stride(1) == 1), "
                          "got strides %s" % (name, t.stride()))
 
@@ -645,6 +647,173 @@ def fill_runs(out: torch.Tensor, start: torch.Tensor, count, value,
                 0 if val is not None else int(value),
                 None if keep is None else keep.data_ptr(), n,
                 _stream(out.device))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sorted runs, written a tile of the output at a time (JAX: the decode's
+# quality writes, repaq_tpu/ops/device_streams.py:1160-1161, :1197,
+# :1241-1242, and the PE elision's sort by destination,
+# repaq_tpu/codec/device_engine.py:606-618)
+# ---------------------------------------------------------------------------
+
+_RUNS_MAX_SEGMENTS = 256
+
+
+def sorted_runs_tile() -> int:
+    """Output bytes a tile of the sorted-run kernels (fill_sorted_runs,
+    concat_row_spans), as the built library reports it; the card tests and
+    chip_smoke.py place edge cases by it."""
+    return int(_build.library().repaq_sorted_runs_tile())
+
+
+def segment_bounds(seg_off: torch.Tensor, n: int) -> list:
+    """The segments' entry bounds as the kernels read seg_off: each offset
+    clamped to [0, n] and raised to the largest before it, so segment s is
+    [b[s], b[s + 1]) and the segments are disjoint and in order."""
+    bounds, top = [], 0
+    for v in seg_off.tolist():
+        top = max(top, min(max(int(v), 0), n))
+        bounds.append(top)
+    return bounds
+
+
+def fill_sorted_runs_plain(length: int, background: int,
+                           start: torch.Tensor, count: torch.Tensor,
+                           seg_off: torch.Tensor,
+                           seg_value: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of ``fill_sorted_runs``: torch.full, then
+    fill_runs_plain of each segment's entries, segment by segment."""
+    out = torch.full((length,), background, dtype=torch.uint8,
+                     device=start.device)
+    b = segment_bounds(seg_off, start.shape[0])
+    for s, v in enumerate(seg_value.tolist()):
+        if b[s] < b[s + 1]:
+            fill_runs_plain(out, start[b[s]:b[s + 1]],
+                            count[b[s]:b[s + 1]], int(v))
+    return out
+
+
+def _check_size(name: str, v: int) -> None:
+    if not 0 <= v < 2**31:
+        raise ValueError("%s must be in [0, 2^31), got %d" % (name, v))
+
+
+def _check_entries(names: tuple, tensors: tuple, n: int) -> None:
+    for name, t in zip(names, tensors):
+        if t.dtype != torch.int32 or t.shape != (n,):
+            raise ValueError("%s must be a (%d,) int32 tensor, got %s %s"
+                             % (name, n, t.dtype, tuple(t.shape)))
+
+
+def _check_sorted_runs(length, background, start, count, seg_off,
+                       seg_value) -> None:
+    _check_size("length", length)
+    if not 0 <= background < 256:
+        raise ValueError("background must be a byte, got %d" % background)
+    n = start.shape[0] if start.dim() == 1 else -1
+    _check_entries(("start", "count"), (start, count), n)
+    _check_size("the entries", n)
+    if seg_value.dtype != torch.uint8 or seg_value.dim() != 1 or \
+            seg_value.shape[0] > _RUNS_MAX_SEGMENTS:
+        raise ValueError("seg_value must be a 1-D uint8 tensor of at most %d "
+                         "segments, got %s %s" % (_RUNS_MAX_SEGMENTS,
+                                                  seg_value.dtype,
+                                                  tuple(seg_value.shape)))
+    _check_entries(("seg_off",), (seg_off,), seg_value.shape[0] + 1)
+
+
+def fill_sorted_runs(length: int, background: int, start: torch.Tensor,
+                     count: torch.Tensor, seg_off: torch.Tensor,
+                     seg_value: torch.Tensor) -> torch.Tensor:
+    """A new (length,) uint8 tensor: background everywhere but where a run
+    writes. For each segment s and entry i in [seg_off[s], seg_off[s + 1]),
+    out[start[i] + j] = seg_value[s] for 0 <= j < count[i], each target
+    kept only inside [0, length); a later segment's byte lands over an
+    earlier one's. start, count: (n,) int32; seg_off: (S + 1,) int32, read
+    as segment_bounds reads it; seg_value: (S,) uint8, S <= 256. Exact as
+    fill_sorted_runs_plain on any input; fastest where, within a segment,
+    each run ends at or before the next one's start (the decode's tokens:
+    a segment that breaks it is read whole by every tile). One call is
+    counted as one launch: two kernels, an order check and the tiles."""
+    _check_sorted_runs(length, background, start, count, seg_off, seg_value)
+    if not _on_cuda(start, count, seg_off, seg_value):
+        return fill_sorted_runs_plain(length, background, start, count,
+                                      seg_off, seg_value)
+    dev, n, nseg = start.device, start.shape[0], seg_value.shape[0]
+    out = torch.empty(length, dtype=torch.uint8, device=dev)
+    if length == 0:
+        return out
+    lib = _build.library()
+    start, count = _aligned(start), _aligned(count)
+    seg_off, seg_value = seg_off.contiguous(), seg_value.contiguous()
+    scratch = torch.empty(lib.repaq_sorted_runs_scratch_words(n, nseg,
+                                                              length),
+                          dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("fill_sorted_runs", lib.repaq_fill_sorted_runs,
+                out.data_ptr(), length, background, start.data_ptr(),
+                count.data_ptr(), n, seg_off.data_ptr(), seg_value.data_ptr(),
+                nseg, scratch.data_ptr(), _stream(dev))
+    return out
+
+
+def concat_row_spans_plain(src: torch.Tensor, src_start: torch.Tensor,
+                           span: torch.Tensor, dest_off: torch.Tensor,
+                           length: int, background: int) -> torch.Tensor:
+    """Plain torch version of ``concat_row_spans``: every source byte's
+    destination, the ones no span keeps aimed at a spare last byte, then
+    one index_put_ into a background-filled buffer."""
+    dev, width = src.device, src.shape[1]
+    rel = (torch.arange(width, device=dev)[None, :]
+           - src_start.long()[:, None])
+    dest = dest_off.long()[:, None] + rel
+    keep = ((rel >= 0) & (rel < span.long()[:, None]) & (dest >= 0)
+            & (dest < length))
+    out = torch.full((length + 1,), background, dtype=torch.uint8,
+                     device=dev)
+    out[torch.where(keep, dest, length).reshape(-1)] = src.reshape(-1)
+    return out[:length]
+
+
+def concat_row_spans(src: torch.Tensor, src_start: torch.Tensor,
+                     span: torch.Tensor, dest_off: torch.Tensor, length: int,
+                     background: int) -> torch.Tensor:
+    """A new (length,) uint8 tensor: for each row r of the (rows, width)
+    uint8 src, out[dest_off[r] + j] = src[r, src_start[r] + j] for 0 <= j <
+    span[r] where the source column lies in [0, width) and the target in
+    [0, length); background elsewhere. src's rows contiguous, any stride
+    apart; src_start, span, dest_off: (rows,) int32. Where two rows write
+    one target, either byte may land (the elision's rows, dest_off the
+    exclusive prefix sum of span, write disjoint spans). The same kernels
+    as fill_sorted_runs, the rows one segment; one call is counted as one
+    launch."""
+    _check_rows("src", src)
+    rows, width = src.shape
+    _check_size("length", length)
+    _check_size("rows", rows)
+    if not 0 <= background < 256:
+        raise ValueError("background must be a byte, got %d" % background)
+    _check_entries(("src_start", "span", "dest_off"),
+                   (src_start, span, dest_off), rows)
+    if not _on_cuda(src, src_start, span, dest_off):
+        return concat_row_spans_plain(src, src_start, span, dest_off, length,
+                                      background)
+    dev = src.device
+    out = torch.empty(length, dtype=torch.uint8, device=dev)
+    if length == 0:
+        return out
+    lib = _build.library()
+    src_start, span, dest_off = (src_start.contiguous(), _aligned(span),
+                                 _aligned(dest_off))
+    scratch = torch.empty(lib.repaq_sorted_runs_scratch_words(rows, 1,
+                                                              length),
+                          dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _launch("concat_row_spans", lib.repaq_concat_row_spans,
+                out.data_ptr(), length, background, src.data_ptr(),
+                src.stride(0), width, src_start.data_ptr(), span.data_ptr(),
+                dest_off.data_ptr(), rows, scratch.data_ptr(), _stream(dev))
     return out
 
 

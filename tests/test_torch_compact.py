@@ -191,14 +191,14 @@ def test_compact_moved_counts_what_the_function_moves():
 
 def test_no_sort_left_in_the_stream_coders():
     """The stream coders call no sort: the compactions are bucket_compact
-    and the layouts fill_runs; the decode's one searchsorted (the bin of
-    each token) is a search."""
+    and the layouts fill_runs; the decode's two searchsorted (the bin of
+    each token, and each bin's first token) are searches."""
     src = pathlib.Path(T.__file__).read_text()
     calls = [node.func.attr for node in ast.walk(ast.parse(src))
              if isinstance(node, ast.Call)
              and isinstance(node.func, ast.Attribute)]
     assert "sort" not in calls and "argsort" not in calls
-    assert calls.count("searchsorted") == 1
+    assert calls.count("searchsorted") == 2
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,10 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 from repaq_tpu_torch.ops import rans_device as RD
 
+from chip_smoke import (CONCAT_CASES, RUNS_CASES, chunk_calls, concat_args,
+                        concat_case, concat_ref, parent_elide,
+                        parent_qual_write, pe_chunk_elision, runs_args,
+                        runs_case, runs_ref)
 from chip_smoke import (COMPACT_CALLS, COMPACT_CAPS, COMPACT_CASES,
                         COMPACT_FORMS,
                         COMPACT_PAST_WAVE, DECODE_CASES, FILL_CASES,
@@ -809,6 +813,99 @@ def test_fill_runs_at_the_se_chunk(cuda):
     got = TK.fill_runs(out, start, count, value, keep)
     assert TK.launches["fill_runs"] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RUNS_CASES)
+def test_fill_sorted_runs_edges(cuda, name):
+    """fill_sorted_runs against its plain version and the numpy generic
+    composition on chip_smoke's RUNS_CASES placed by the built tile, one
+    launch each (two kernels)."""
+    case = runs_case(name, TK.sorted_runs_tile())
+    args = runs_args(case, cuda)
+    before = TK.launches["fill_sorted_runs"]
+    got = TK.fill_sorted_runs(*args)
+    torch.cuda.synchronize()
+    assert TK.launches["fill_sorted_runs"] == before + 1
+    assert torch.equal(got, TK.fill_sorted_runs_plain(*args))
+    assert np.array_equal(got.cpu().numpy(), runs_ref(*case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CONCAT_CASES)
+def test_concat_row_spans_edges(cuda, name):
+    """concat_row_spans against its plain version and a row-by-row numpy
+    copy on chip_smoke's CONCAT_CASES placed by the built tile, one launch
+    each."""
+    case = concat_case(name, TK.sorted_runs_tile())
+    args = concat_args(case, cuda)
+    before = TK.launches["concat_row_spans"]
+    got = TK.concat_row_spans(*args)
+    torch.cuda.synchronize()
+    assert TK.launches["concat_row_spans"] == before + 1
+    assert torch.equal(got, TK.concat_row_spans_plain(*args))
+    assert np.array_equal(got.cpu().numpy(), concat_ref(*case))
+
+
+@pytest.mark.cuda
+def test_sorted_runs_at_the_real_chunks(cuda):
+    """Both entries at the calls of one real chunk, recorded through the
+    CLI: an SE decode's quality write against its plain version and the
+    parent's composition, a PE encode's elision against its plain version
+    and the parent's _elide."""
+    args = chunk_calls(cuda)["fill_sorted_runs"][0]
+    got = TK.fill_sorted_runs(*args)
+    assert torch.equal(got, TK.fill_sorted_runs_plain(*args))
+    assert torch.equal(got, parent_qual_write(*args)())
+    rec = pe_chunk_elision(cuda)
+    cargs = rec["concat_row_spans"]
+    assert torch.equal(TK.concat_row_spans(*cargs),
+                       TK.concat_row_spans_plain(*cargs))
+    from repaq_tpu_torch.codec import device_engine as DE
+    for x, y in zip(DE._elide(*rec["elide"]), parent_elide(*rec["elide"])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_sorted_runs_from_threads_on_one_stream(cuda):
+    """Calls from 8 threads on one stream (a call's two kernels may have
+    other calls' between them, each with scratch of its own), all exact."""
+    import threading
+
+    tile = TK.sorted_runs_tile()
+    cases = [runs_case(n, tile) for n in ("wrap", "later_wins", "segments63",
+                                          "one_segment")]
+    bad = []
+
+    def work(i):
+        for k in range(12):
+            case = cases[(i + k) % len(cases)]
+            got = TK.fill_sorted_runs(*runs_args(case, cuda))
+            torch.cuda.synchronize()
+            if not np.array_equal(got.cpu().numpy(), runs_ref(*case)):
+                bad.append((i, k))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not bad
+
+
+@pytest.mark.cuda
+def test_sorted_runs_refuse_a_mix_of_devices(cuda):
+    i32 = torch.int32
+    with pytest.raises(ValueError):
+        TK.fill_sorted_runs(8, 0, torch.zeros(2, dtype=i32, device=cuda),
+                            torch.ones(2, dtype=i32),
+                            torch.tensor([0, 2], dtype=i32, device=cuda),
+                            torch.ones(1, dtype=torch.uint8, device=cuda))
+    with pytest.raises(ValueError):
+        TK.concat_row_spans(torch.zeros(2, 4, dtype=torch.uint8, device=cuda),
+                            torch.zeros(2, dtype=i32),
+                            torch.ones(2, dtype=i32, device=cuda),
+                            torch.zeros(2, dtype=i32, device=cuda), 8, 71)
 
 
 def _same_as_plain(got, args, ref=None):

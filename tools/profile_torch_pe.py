@@ -25,7 +25,8 @@ for the overlap, compaction and run-write kernels, the
 host-device copies, the kernels with the most device time, and the time
 inside each of the engine's named stage ranges (``enc.*`` / ``dec.*``,
 see repaq_tpu_torch/codec/device_engine.py and ops/device_streams.py) with
-the kernels and the copies and fills launched inside it, every
+the kernels (and their device time) and the copies and fills launched
+inside it, every
 ``aten::index_put_`` (a scatter) by the range it ran in and by its target
 and value shapes, with its device time and calls, the sort kernels'
 device time and launches, and every ``aten::sort`` by the range it ran in
@@ -113,10 +114,10 @@ def report(label: str, prof, wall: float) -> None:
         if e.device_type != DeviceType.CUDA:
             if ranged:  # the host side of a named range: time, calls and
                 # the device work it launched
-                t, c, k, cp = host_spans.get(e.name, (0.0, 0, 0, 0))
+                t, c, k, cp, ku = host_spans.get(e.name, (0.0, 0, 0, 0, 0.0))
                 dk, dcp = _launched_under(e)
                 host_spans[e.name] = (t + e.cpu_time_total, c + 1, k + dk,
-                                      cp + dcp)
+                                      cp + dcp, ku + _kernel_us_under(e))
             continue
         us = e.time_range.elapsed_us()
         if ranged:  # the device-side extent of a named range
@@ -138,17 +139,20 @@ def report(label: str, prof, wall: float) -> None:
                        ("the port's compaction", ("bucket_compact",
                                                   "compact_mask_kernel",
                                                   "compact_reg_")),
-                       ("the port's run writes", ("fill_runs_kernel",))):
+                       ("the port's run writes", ("fill_runs_kernel",)),
+                       ("the port's sorted-run writes",
+                        ("runs_check_kernel", "runs_tile_kernel"))):
         hit = [k for k in kernels if any(key in k for key in keys)]
         us = sum(kernels[k] for k in hit)
         print("  kernels (%s) %.3f ms, %.2f%% of the device "
               "time, %d launches" % (what, us / 1e3, 100 * us / max(busy, 1e-9),
                                      sum(counts[k] for k in hit)))
     for name in sorted(set(dev_spans) | set(host_spans)):
-        t, c, k, cp = host_spans.get(name, (0.0, 0, 0, 0))
+        t, c, k, cp, ku = host_spans.get(name, (0.0, 0, 0, 0, 0.0))
         print("  range %-15s device extent %.3f ms, host %.1f ms, %d calls; "
-              "%d kernel launches, %d copies and fills inside"
-              % (name, dev_spans.get(name, 0.0) / 1e3, t / 1e3, c, k, cp))
+              "%d kernel launches (%.3f ms of device time), %d copies and "
+              "fills inside" % (name, dev_spans.get(name, 0.0) / 1e3,
+                                t / 1e3, c, k, ku / 1e3, cp))
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]):
         if _is_copy(k):
             print("  copy  %-40s %.1f ms" % (k[:40], v / 1e3))
