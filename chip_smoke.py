@@ -57,7 +57,22 @@ Phases, each of which must pass:
      and o = minlen, both directions in one pair, rows of one byte, bytes
      0 and 255, periodic rows, near misses), as given and as strided
      views, and at a PE chunk's grid, 49,152 pairs of 150 bytes, read as
-     the engine reads it (the odd and even rows of one buffer), timed.
+     the engine reads it (the odd and even rows of one buffer), timed (the
+     search alone is on no main path: pe_encode_pairs runs it). The PE
+     pair tiles, pe_encode_pairs (the odd rows' revcomp, the search and
+     the shift clamp, in place) and pe_decode_rows (the overlap expansion,
+     N restore, revcomp and payload), on every PAIR_CASES and
+     PAIR_LONG_CASES case placed by the built tile (pad rows, odd pair
+     counts, clamps at +-127 and +-128, whole-row overlaps, L of 11-13,
+     37, 1,000, 5,000, 20,000, 40,000 and 65,535, every byte value, no
+     search, the nBaseQual restore; each grid decoded as encoded, with nbq
+     ':' and once with wild tables), one launch each, against their plain
+     versions and the cases' reads; then at one real PE chunk's calls
+     recorded through repaq_tpu_torch.cli.main (pe_chunk_calls), each one
+     device kernel a call under torch.profiler (pairs_traced), exact and
+     timed beside its bound (pairs_moved, rows_moved), its plain version
+     and, in turns, the parent's torch composition (parent_pe_encode,
+     parent_pe_decode).
      The decode's masked run writes (fill_runs) on every FILL_CASES case
      in uint8, bool and int32 (against its plain version and a numpy
      loop), then at one SE decode chunk's quality writes (FILL_CHUNK:
@@ -65,13 +80,17 @@ Phases, each of which must pass:
      as the decode passes none), timed beside its bound, beside index_put_ of the same writes as distinct indices,
      and in turns beside the parent's composition of them (the token
      index_put_ and the 73,138,176-entry run grid aimed at a dump byte),
-     and at that chunk's N deltas and N bases. The output-stationary
+     and at that chunk's modeled N deltas and N bases, then at every
+     fill_runs call of one real SE chunk recorded through cli.main (the
+     encode's three layout writes, the decode's N deltas and N bases),
+     each beside its bound and index_put_ of its writes. The
+     output-stationary
      run writes of the same source, fill_sorted_runs and concat_row_spans,
      on every RUNS_CASES and CONCAT_CASES input placed by the built tile
      (against their plain versions and numpy references, one launch
      each), then at one real SE decode chunk's quality call and one real
      PE encode chunk's elision, recorded through repaq_tpu_torch.cli.main
-     (chunk_calls, pe_chunk_elision), each timed beside its bound, beside
+     (chunk_calls, pe_chunk_calls), each timed beside its bound, beside
      one torch.take of precomputed indices and, in turns, beside the
      parent's composition (torch.full, the value gather and fill_runs; the
      elision's index_put_ into a dump slot). The stable bucket
@@ -109,8 +128,9 @@ Phases, each of which must pass:
      and every kernel of the SE path must have launched on it,
      run_offsets 3 times a chunk on compress and never on decompress,
      seg_positions once a chunk on decompress and never on compress (the
-     same in phases 7 and 8; overlap_pairs likewise once a PE compress
-     chunk and never elsewhere, fill_runs 3 times a compress chunk and
+     same in phases 7 and 8; pe_encode_pairs likewise once a PE compress
+     chunk and pe_decode_rows once a PE decompress chunk and never
+     elsewhere, overlap_pairs never, fill_runs 3 times a compress chunk and
      twice a decompress chunk, fill_sorted_runs once a decompress chunk,
      concat_row_spans once a PE compress chunk,
      bucket_compact 5 times a compress chunk and once a decompress
@@ -122,8 +142,9 @@ Phases, each of which must pass:
   5. real size, paired-end: the same for a seeded 2 x 320k-read corpus of
      150 bp pairs (96 Mbase, 8 chunks of 40k pairs) whose inserts give
      forward and backward mate overlaps, through -i/-I and -o/-O; the
-     kernels of the PE path must have launched on it (overlap_pairs once
-     a chunk), no chunk may take the host route, and the shares of
+     kernels of the PE path must have launched on it (pe_encode_pairs and
+     pe_decode_rows once a chunk), no chunk may take the host route, and
+     the shares of
      pairs stored with a forward and a backward overlap are printed and
      must each be at least 1%;
   6. `.rfqz`, both corpora: `-c -o x.rfqz --engine device` codes every
@@ -218,7 +239,16 @@ KERNELS = [
     ("rans_decode", "repaq_tpu_torch/csrc/rans.cu",
      "repaq_tpu/ops/rans_device.py:330", ()),
     ("overlap_pairs", "repaq_tpu_torch/csrc/overlap.cu",
-     "repaq_tpu/ops/device_streams.py:1369", ("pe", "mesh_pe", "shard_pe")),
+     "repaq_tpu/ops/device_streams.py:1369", ()),
+    # the PE steps' pair work: XLA code of the JAX steps
+    ("pe_encode_pairs", "repaq_tpu_torch/csrc/overlap.cu",
+     "repaq_tpu/codec/device_engine.py:580-591 (revcomp :582-583, search "
+     ":587 via repaq_tpu/ops/device_streams.py:1369, clamp :589-591)",
+     ("pe", "mesh_pe", "shard_pe")),
+    ("pe_decode_rows", "repaq_tpu_torch/csrc/overlap.cu",
+     "repaq_tpu/codec/device_engine.py:984-1001 (expansion), :1008-1009 "
+     "(N restore), :1010-1021 (revcomp)",
+     ("pe", "mesh_pe", "shard_pe")),
     # the decode's masked writes: XLA scatters aimed at a dump element
     ("fill_runs", "repaq_tpu_torch/csrc/fill.cu",
      "repaq_tpu/ops/device_streams.py:982, :992, :1211, :1228, :1257; "
@@ -250,6 +280,10 @@ NO_PATH = {
     "rans_decode": "none: the CLI reads .rfqz with the host decoder, as the "
                    "JAX CLI does; held against its plain version in phase 2 "
                    "and against rans_np on every section in phase 6",
+    "overlap_pairs": "none: pe_encode_pairs runs the same search inside its "
+                     "tiles on the PE encode path; the search alone keeps "
+                     "JAX's overlap_pairs_device signature for the tests "
+                     "and phase 2 (OVERLAP_CASES and a PE chunk's grid)",
 }
 
 # rANS sections (order, bytes, lanes): an order-1 section the size of the
@@ -343,12 +377,13 @@ def build_native() -> None:
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, runs: int = 15, clean: bool = False) -> float:
+def cuda_ms(fn, runs: int = 15, clean: bool = False, setup=None) -> float:
     """Median device time of fn() in ms: CUDA events around each call, the
     L2 flushed and the stream kept busy before each so that neither a warm
     cache nor the host's enqueue time is measured. The flush writes 64 MB,
     whose dirty lines fn()'s reads then write back; clean=True flushes by
-    reading them instead."""
+    reading them instead. setup(), untimed, runs before each flush (a
+    kernel that works in place gets its inputs back)."""
     import torch
 
     flush = torch.zeros(64 << 20, dtype=torch.uint8, device="cuda")
@@ -356,6 +391,8 @@ def cuda_ms(fn, runs: int = 15, clean: bool = False) -> float:
     fn()
     times = []
     for _ in range(runs):
+        if setup is not None:
+            setup()
         if clean:
             flush.sum()
         else:
@@ -861,11 +898,15 @@ def fill_kernel_phase(dev) -> dict:
     every entry, start and value of those that write, the run elements
     written once), beside
     index_put_ of the same writes given as distinct indices (the library
-    call) and, in turns, beside the parent's composition of the same
-    writes (parent_qual_fill: the token index_put_, the 73 M-entry run grid
-    and its index_put_); also at the N stream's shapes of that chunk: the
-    int32 deltas (786,432 entries, the starts kept) and the N bases (786,432
-    entries, -1 past the real ones, one value)."""
+    call, fill_library) and, in turns, beside the parent's composition of
+    the same writes (parent_qual_fill: the token index_put_, the 73
+    M-entry run grid and its index_put_); also at the N stream's modeled
+    shapes of that chunk: the int32 deltas (786,432 entries, the starts
+    kept) and the N bases (786,432 entries, -1 past the real ones, one
+    value); then at every call of one real SE chunk recorded through
+    cli.main (chunk_calls, FILL_CALLS: the encode's three layout writes,
+    the decode's N deltas and N bases), each beside its bound and its
+    index_put_."""
     import numpy as np
     import torch
 
@@ -944,18 +985,70 @@ def fill_kernel_phase(dev) -> dict:
     pos_t = torch.from_numpy(pos).to(dev)
     res["by_shape"] = {shape: dict(res)}
     for label, kern, plain, inputs, moved in (
-            ("N deltas: %d int32 entries, %d kept" % (m, real),
+            ("modeled N deltas: %d int32 entries, %d kept" % (m, real),
              lambda: TK.fill_runs(deltas, slot, 1, dist, starts),
              lambda: TK.fill_runs_plain(pdeltas, slot, 1, dist, starts),
              (slot, dist, starts), fill_moved(deltas, slot, 1, dist,
                                               starts)),
-            ("N bases: %d entries, %d in the output, one value" % (m, real),
+            ("modeled N bases: %d entries, %d in the output, one value"
+             % (m, real),
              lambda: TK.fill_runs(seq, pos_t, 1, ord("N")),
              lambda: TK.fill_runs_plain(pseq, pos_t, 1, ord("N")),
              (pos_t,), fill_moved(seq, pos_t, 1, ord("N")))):
         res["by_shape"][label] = held_and_timed(
-            "fill_runs", kern, plain, inputs, label, moved=moved)
+            "fill_runs", kern, plain, inputs, label, moved=moved,
+            library=fill_library(*((deltas, slot, 1, dist, starts)
+                                   if "deltas" in label
+                                   else (seq, pos_t, 1, ord("N")))))
+    # every call of one real SE chunk as the main path makes it
+    # (chunk_calls): the encode's three layout writes and the decode's N
+    # deltas and N bases, in place on copies of the recorded outputs
+    calls = chunk_calls(dev)["fill_runs"]
+    check(len(calls) == len(FILL_CALLS), "the SE chunk called fill_runs %d "
+          "times, not %d" % (len(calls), len(FILL_CALLS)))
+    for what, (out0, start, count, value, *keep) in zip(FILL_CALLS, calls):
+        keep = keep[0] if keep else None
+        o1, o2 = out0.clone(), out0.clone()
+        label = ("SE chunk %s: %d entries into %d %s" % (
+            what, start.shape[0], out0.shape[0], str(out0.dtype)[6:]))
+        res["by_shape"][label] = held_and_timed(
+            "fill_runs", lambda: TK.fill_runs(o1, start, count, value, keep),
+            lambda: TK.fill_runs_plain(o2, start, count, value, keep), (),
+            label, moved=fill_moved(o1, start, count, value, keep),
+            library=fill_library(out0, start, count, value, keep))
     return res
+
+
+# fill_runs' calls in one SE chunk of the smoke corpora, in the order the
+# device path makes them
+FILL_CALLS = ("quality stream layout", "N-position stream layout",
+              "coordinate streams layout", "N deltas", "N bases")
+
+
+def fill_library(out, start, count, value, keep=None):
+    """One index_put_ that makes fill_runs' writes, as a function of no
+    arguments: its written targets as distinct int64 indices and their
+    values, built beforehand; the library call timed as a yardstick. It
+    writes into a copy of out."""
+    import torch
+
+    n, dev = start.shape[0], start.device
+    cnt = (count.long() if isinstance(count, torch.Tensor)
+           else torch.full((n,), int(count), dtype=torch.long, device=dev))
+    if keep is not None:
+        cnt = torch.where(keep, cnt, 0)
+    cnt = cnt.clamp(min=0)
+    entry = torch.repeat_interleave(torch.arange(n, device=dev), cnt)
+    first = torch.cumsum(cnt, 0) - cnt
+    tgt = (start.long()[entry] + torch.arange(entry.shape[0], device=dev)
+           - first[entry])
+    ok = (tgt >= 0) & (tgt < out.shape[0])
+    vals = (value[entry] if isinstance(value, torch.Tensor)
+            else torch.full((entry.shape[0],), value, dtype=out.dtype,
+                            device=dev))
+    idx, vals = tgt[ok], vals[ok]
+    target = out.clone()
+    return lambda: target.index_put_((idx,), vals)
 
 
 # ---------------------------------------------------------------------------
@@ -1422,46 +1515,73 @@ def concat_writes(src, src_start, span, dest_off, length):
     return [(dest[kept], src[kept])]
 
 
-def pe_chunk_elision(dev, pairs: int = 40_000) -> dict:
-    """_elide's inputs (tseq, ov, n_reads) and its concat_row_spans
-    call's arguments in one PE chunk as the device path makes them:
+# the PE chunk's calls pe_chunk_calls records, by name
+PE_RECORDED = ("concat_row_spans", "pe_encode_pairs", "pe_decode_rows")
+_PE_CHUNK_CALLS: dict = {}
+
+
+def pe_chunk_calls(dev, pairs: int = 40_000) -> dict:
+    """_elide's inputs (tseq, ov, n_reads) and the arguments of the
+    PE_RECORDED kernels' calls in one PE chunk as the device path makes
+    them, each cloned before the call (pe_encode_pairs works in place):
     `pairs` pairs of phase 5's corpus (make_pe_corpus, seed 97; 40,000
-    pairs of 150 bp are one -k 12000 chunk, b_cap 98,304) compressed
-    through repaq_tpu_torch.cli.main with the device engine on dev."""
+    pairs of 150 bp are one -k 12000 chunk, b_cap 98,304) compressed and
+    decompressed through repaq_tpu_torch.cli.main with the device engine
+    on dev. Made once a device and size."""
+    import torch
+
     from repaq_tpu_torch import cli
     from repaq_tpu_torch.codec import device_engine as DE
     from repaq_tpu_torch.ops import kernels as TK
 
-    work = os.path.join(WORK, "elide_chunk.%d" % os.getpid())
+    key = (str(torch.device(dev)), pairs)
+    if key in _PE_CHUNK_CALLS:
+        return _PE_CHUNK_CALLS[key]
+    work = os.path.join(WORK, "pe_chunk.%d" % os.getpid())
     os.makedirs(work, exist_ok=True)
     fqs = [os.path.join(work, "pe%d.fq" % m) for m in (1, 2)]
-    rec = {"elide": [], "concat_row_spans": []}
-    elide, concat = DE._elide, TK.concat_row_spans
+    rfq = os.path.join(work, "pe.rfq")
+    rec = {name: [] for name in ("elide",) + PE_RECORDED}
+    elide = DE._elide
+    saved = {name: getattr(TK, name) for name in PE_RECORDED}
 
     def rec_elide(tseq, ov, n_reads):
         rec["elide"].append((tseq.clone(), ov.clone(), n_reads))
         return elide(tseq, ov, n_reads)
 
-    def rec_concat(*args):
-        rec["concat_row_spans"].append(tuple(_clone(a) for a in args))
-        return concat(*args)
+    def recording(name):
+        def kernel(*args):
+            rec[name].append(tuple(_clone(a) for a in args))
+            return saved[name](*args)
+        return kernel
 
     eng = DE.DeviceEngine(dev)
-    DE._elide, TK.concat_row_spans = rec_elide, rec_concat
+    DE._elide = rec_elide
+    for name in PE_RECORDED:
+        setattr(TK, name, recording(name))
     try:
         make_pe_corpus(fqs, pairs, 150, seed=97)
-        rc = cli.main(["-c", "-i", fqs[0], "-I", fqs[1], "-o",
-                       os.path.join(work, "pe.rfq"), "-k", "12000",
-                       "--engine", "device"], engine=eng.config())
-        check(rc == 0, "the PE chunk's compress exited %d" % rc)
+        for argv in (["-c", "-i", fqs[0], "-I", fqs[1], "-o", rfq, "-k",
+                      "12000"],
+                     ["-d", "-i", rfq, "-o", fqs[0] + ".b", "-O",
+                      fqs[1] + ".b"]):
+            rc = cli.main(argv + ["--engine", "device"], engine=eng.config())
+            check(rc == 0, "the PE chunk's %s exited %d" % (argv[0], rc))
+        for fq in fqs:
+            with open(fq, "rb") as f, open(fq + ".b", "rb") as g:
+                check(f.read() == g.read(), "the PE chunk's decode differs "
+                      "from its input")
     finally:
-        DE._elide, TK.concat_row_spans = elide, concat
+        DE._elide = elide
+        for name, fn in saved.items():
+            setattr(TK, name, fn)
         shutil.rmtree(work, ignore_errors=True)
-    check(eng.stats["device_chunks"] == 1 and len(rec["elide"]) == 1
-          == len(rec["concat_row_spans"]), "the PE chunk took another path "
-          "or called the elision %d times: %s" % (len(rec["elide"]),
-                                                  eng.stats))
-    return {k: v[0] for k, v in rec.items()}
+    check(eng.stats["device_chunks"] == 1 == eng.stats["device_decodes"]
+          and all(len(v) == 1 for v in rec.values()),
+          "the PE chunk took another path or called its kernels other than "
+          "once: %s, %s" % (eng.stats, {k: len(v) for k, v in rec.items()}))
+    _PE_CHUNK_CALLS[key] = {k: v[0] for k, v in rec.items()}
+    return _PE_CHUNK_CALLS[key]
 
 
 def sorted_runs_edge_cases(dev) -> int:
@@ -1498,7 +1618,7 @@ def sorted_runs_edge_cases(dev) -> int:
 def sorted_runs_phase(dev) -> dict:
     """fill_sorted_runs and concat_row_spans on their edge cases, then at
     one real SE decode chunk's quality call (chunk_calls) and one real PE
-    encode chunk's elision (pe_chunk_elision), exact against their plain
+    encode chunk's elision (pe_chunk_calls), exact against their plain
     versions, each timed beside its bound (runs_moved, concat_moved),
     beside one torch.take of precomputed indices (the library call) and,
     in turns, beside the parent's composition (parent_qual_write: torch.full,
@@ -1543,7 +1663,7 @@ def sorted_runs_phase(dev) -> dict:
         "fill_sorted_runs", lambda: TK.fill_sorted_runs(*args))], label)
     res["fill_sorted_runs"] = dict(r, by_shape={label: r})
 
-    rec = pe_chunk_elision(dev)
+    rec = pe_chunk_calls(dev)
     tseq, ov, n_reads = rec["elide"]
     cargs = rec["concat_row_spans"]
     src, src_start, span, dest_off, length, bg = cargs
@@ -1566,12 +1686,12 @@ def sorted_runs_phase(dev) -> dict:
     return res
 
 
-def in_turns(fns: list, label: str) -> dict:
+def in_turns(fns: list, label: str, setups: dict | None = None) -> dict:
     """{name: [ms, ms]} of the functions timed by cuda_ms in turns, A B B
-    A, logged."""
+    A, logged; setups: name -> cuda_ms' setup of that function."""
     turns = {name: [] for name, _fn in fns}
     for name, fn in fns + fns[::-1]:
-        turns[name].append(cuda_ms(fn))
+        turns[name].append(cuda_ms(fn, setup=(setups or {}).get(name)))
     log("in turns at %s: %s" % (label, "; ".join(
         "%s %s ms" % (name, ", ".join("%.4f" % t for t in ts))
         for name, ts in turns.items())))
@@ -1770,7 +1890,7 @@ COMPACT_CALLS = ("grouping", "quality count >= 2", "N flags",
                  "N count >= 2", "coordinates count >= 2", "decode tokens")
 _CHUNK_CALLS: dict = {}
 # the kernels whose calls chunk_calls records
-RECORDED = ("bucket_compact", "fill_sorted_runs")
+RECORDED = ("bucket_compact", "fill_sorted_runs", "fill_runs")
 
 
 def _clone(a):
@@ -2187,6 +2307,455 @@ def overlap_kernel_phase(dev) -> dict:
                              100 * res["backward_share"]))
     check(res["forward_share"] > 0.01 and res["backward_share"] > 0.01,
           "overlap_pairs: the PE chunk takes one search branch only")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the PE pair tiles (pe_encode_pairs, pe_decode_rows)
+# ---------------------------------------------------------------------------
+
+# the pair kernels' edge cases, each (L, pairs of the grid, pairs with reads,
+# overlap shift, search, what to plant), the counts in tiles t of the
+# encode at that L: pad rows past the reads, an odd pair count (and an odd
+# number of pairs in the grid), one pair, three tiles and one pair, shifts
+# that put ov + shift at +-127 and +-128, whole-row overlaps (|ov| = L) and
+# o = 12, L not a multiple of 4 or 16 (37, 13), L = 12 and 11 (no
+# candidate), every byte value, no search (a header without the overlap
+# flag), tiles of very different elision in turn, the nBaseQual N restore,
+# a grid whose bytes are no multiple of 16, long reads (tiles of 4 and 1
+# pairs); PAIR_LONG_CASES only on the card: a tile of one pair in one
+# stage, rows too long for a tile (the encode's long route, the decode's
+# direct route) and the engine's longest read
+PAIR_FORMS = {
+    "pad_rows": (150, lambda t: 3 * t, lambda t: 2 * t + 5, -24, True,
+                 "mixed"),
+    "odd_pairs": (150, lambda t: 2 * t + 1, lambda t: 2 * t + 1, 0, True,
+                  "mixed"),
+    "one_pair": (150, lambda t: 1, lambda t: 1, 0, True, "fwd_whole"),
+    "tiles3+1": (150, lambda t: 3 * t + 1, lambda t: 3 * t + 1, -24, True,
+                 "mixed"),
+    "clamp_plus10": (150, lambda t: 2 * t, lambda t: 2 * t, 10, True,
+                     "clamp_plus10"),
+    "clamp_minus24": (150, lambda t: 2 * t, lambda t: 2 * t, -24, True,
+                      "clamp_minus24"),
+    "whole_rows": (40, lambda t: 2 * t, lambda t: 2 * t, 0, True, "whole"),
+    "l37": (37, lambda t: 2 * t + 3, lambda t: 2 * t + 2, 0, True, "mixed"),
+    "l13": (13, lambda t: t + 1, lambda t: t + 1, 0, True, "mixed"),
+    "l12": (12, lambda t: t + 1, lambda t: t + 1, 0, True, "mixed"),
+    "l11": (11, lambda t: t + 1, lambda t: t + 1, 0, True, "mixed"),
+    "bytes_all": (150, lambda t: t + 3, lambda t: t + 3, 0, True, "bytes"),
+    "no_search": (150, lambda t: 2 * t, lambda t: 2 * t - 3, -24, False,
+                  "mixed"),
+    "straddle": (150, lambda t: 4 * t, lambda t: 4 * t, 0, True,
+                 "straddle"),
+    "nbq": (150, lambda t: 2 * t, lambda t: 2 * t - 1, -24, True, "nbq"),
+    "not16": (37, lambda t: 3, lambda t: 3, 0, True, "mixed"),
+    "l1000": (1000, lambda t: 2 * t + 1, lambda t: 2 * t + 1, -24, True,
+              "mixed"),
+    "l5000": (5000, lambda t: 3, lambda t: 3, -24, True, "mixed"),
+}
+PAIR_LONG_FORMS = {
+    "l20000": (20000, lambda t: 3, lambda t: 3, -24, True, "mixed"),
+    "l40000": (40000, lambda t: 2, lambda t: 2, 0, True, "mixed"),
+    "l65535": (65535, lambda t: 1, lambda t: 1, 0, True, "fwd_whole"),
+}
+PAIR_CASES = tuple(PAIR_FORMS)
+PAIR_LONG_CASES = tuple(PAIR_LONG_FORMS)
+
+
+def comp_np():
+    """(256,) u8: codec/vectorized.py's _COMP, the complement the PE
+    kernels write (ACGT and acgt to TGCA, every other byte to 'N')."""
+    import numpy as np
+
+    comp = np.full(256, ord("N"), np.uint8)
+    comp[np.frombuffer(b"AaTtCcGg", np.uint8)] = np.frombuffer(b"TTAAGGCC",
+                                                               np.uint8)
+    return comp
+
+
+def _planted(kind: str, p: int, L: int, rng) -> int:
+    """The overlap planted into pair p (in transformed rows): > 0 forward,
+    < 0 backward, 0 none."""
+    if kind == "mixed":
+        return int((0, 1, -1, 0)[p % 4] * rng.integers(1, L + 1))
+    if kind == "whole":
+        return (L, -L, 12, -12, 0)[p % 5]
+    if kind == "fwd_whole":
+        return L
+    if kind == "clamp_plus10":  # |ov + 10| = 127 kept, 128 cut
+        return (117, 118, -137, -138, 12, -12, 150, 0)[p % 8]
+    if kind == "clamp_minus24":  # |ov - 24| = 127 kept, 128 cut
+        return (-103, -104, 150, 149, 12, -12, 0, 60)[p % 8]
+    if kind == "straddle":  # tiles of 8 pairs in turn: whole, none, -whole
+        return (L, 0, -L, 0)[(p // 8) % 4]
+    return 0
+
+
+def pair_case(name: str, tile_of=lambda L: 32):
+    """(seq_mat, qual_mat, n_pairs, shift, search, nbq) of a PAIR_CASES or
+    PAIR_LONG_CASES case as numpy: raw (rows, L) u8 grids whose pair rows
+    the encode transforms (rows past 2 n_pairs 'G' and the major 'F'),
+    overlaps planted in the transformed rows; nbq the quality byte that
+    restores 'N' in the decode (None but for the nbq case). tile_of(L):
+    pairs a tile of the encode at L."""
+    import numpy as np
+
+    forms = dict(PAIR_FORMS, **PAIR_LONG_FORMS)
+    L, grid_of, reads_of, shift, search, kind = forms[name]
+    t = tile_of(L)
+    pcap, n = grid_of(t), reads_of(t)
+    rng = np.random.default_rng(2020 + sorted(forms).index(name))
+    rows = 2 * pcap
+    if kind == "bytes":
+        tseq = rng.integers(0, 256, size=(rows, L), dtype=np.uint8)
+        tseq[0, :] = np.arange(L) % 256
+        tseq[1, :] = (np.arange(L) + 150) % 256
+    else:
+        tseq = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(rows, L))
+        tseq[rng.random((rows, L)) < 0.01] = ord("N")
+        for p in range(n):
+            o = _planted(kind, p, L, rng)
+            if o > 0:
+                tseq[2 * p + 1, :o] = tseq[2 * p, L - o:]
+            elif o < 0:
+                tseq[2 * p, :-o] = tseq[2 * p + 1, L + o:]
+    seq = tseq.copy()
+    if kind != "bytes":  # comp is its own inverse on ACGTN
+        seq[1::2] = comp_np()[tseq[1::2, ::-1]]
+    qual = rng.choice(np.frombuffer(NOVA_QUALS, np.uint8), size=(rows, L),
+                      p=NOVA_P)
+    nbq = None
+    if kind == "nbq":  # '#' exactly where the base is 'N'
+        nbq = ord("#")
+        qual[qual == nbq] = ord(",")
+        qual[seq == ord("N")] = nbq
+    seq[2 * n:] = ord("G")
+    qual[2 * n:] = ord("F")
+    return (seq.astype(np.uint8), qual.astype(np.uint8), n, shift, search,
+            nbq)
+
+
+def decode_inputs(tseq, tqual, ov, n_pairs: int, search: bool, nbq=None):
+    """(stored, qual, tables) numpy of the decode of an encoded PE grid, as
+    DeviceEngine's PE decode makes them: the transformed rows' stored
+    spans concatenated (odd rows drop |ov| bases, rows past the reads store
+    nothing), 'A' past them (the unpack of zero padding) and where the
+    quality restores 'N'; qual the transformed quality grid, flat; tables
+    (4, rows) int32, or None without search (every row stores L bases)."""
+    import numpy as np
+
+    rows, L = tseq.shape
+    b = 2 * n_pairs
+    flat = tseq.copy()
+    if nbq is not None:
+        flat[tqual == nbq] = ord("A")
+    stored = np.full(rows * L, ord("A"), np.uint8)
+    if not search:
+        stored[:b * L] = flat[:b].reshape(-1)
+        return stored, tqual.reshape(-1).copy(), None
+    ovp = ov[:n_pairs].astype(np.int64)
+    span = np.full(b, L, np.int64)
+    span[1::2] -= np.abs(ovp)
+    off = np.cumsum(span) - span
+    first = np.zeros(b, np.int64)
+    first[1::2] = np.maximum(ovp, 0)
+    for r in range(b):
+        stored[off[r]:off[r] + span[r]] = flat[r, first[r]:first[r] + span[r]]
+    tab = np.zeros((4, rows), np.int32)
+    tab[0, :b] = off
+    tab[1, 1:b:2] = np.maximum(ovp, 0)
+    tab[2, 1:b:2] = np.maximum(-ovp, 0)
+    tab[3, 1:b:2] = off[0:b:2]
+    return stored, tqual.reshape(-1).copy(), tab
+
+
+def wild_tables(rows: int, L: int, n_stored: int, seed: int = 2040):
+    """(4, rows) int32 tables of no real chunk: offsets and overlaps
+    anywhere in int32 or near the stored range's ends, so indices clamp,
+    wrap and fall outside a tile's staged range."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    near = rng.integers(-2 * L, n_stored + 2 * L, size=(4, rows))
+    far = rng.integers(-2**31, 2**31, size=(4, rows))
+    return np.where(rng.random((4, rows)) < 0.8, near, far).astype(np.int32)
+
+
+def pairs_moved(rows: int, L: int) -> int:
+    """The bytes pe_encode_pairs must move: the seq grid and the odd qual
+    rows read, the odd rows of both written, ov (int32 a pair) written."""
+    return rows * L + (rows // 2) * L + 2 * (rows // 2) * L + 4 * (rows // 2)
+
+
+def rows_moved(stored, qual, tables, L: int) -> int:
+    """The bytes pe_decode_rows must move: each stored byte some row reads
+    once, the quality grid and the tables read, the seq and quality grids
+    written."""
+    import torch
+
+    rows = qual.shape[0] // L
+    seen = torch.zeros(stored.shape[0], dtype=torch.bool,
+                       device=stored.device)
+    if tables is None:
+        seen[:min(rows * L, stored.shape[0])] = True
+    else:  # the sources of the real chunk's rows (no int32 wrap), marked
+        so, f, w, prev = (t[:, None].long() for t in tables)
+        i = torch.arange(L, device=stored.device)[None, :]
+        odd = (torch.arange(rows, device=stored.device) % 2 == 1)[:, None]
+        s = torch.where(i < f, so - f + i,
+                        torch.where(i >= L - w, prev + i - (L - w),
+                                    so + i - f))
+        s = torch.where(odd, s, so + i).clamp(0, stored.shape[0] - 1)
+        seen[s.reshape(-1)] = True
+    return (int(seen.sum()) + qual.shape[0]
+            + (0 if tables is None else 16 * rows) + 2 * qual.shape[0])
+
+
+def parent_pe_encode(seq_mat, qual_mat, n_pairs: int, shift: int,
+                     search: bool):
+    """The parent's PE encode pair work, as a function of no arguments
+    returning (ov, tseq, tqual): the revcomp's clones, flips, LUT gather
+    and row assigns, the overlap_pairs launch on the transformed rows'
+    views and the clamp's elementwise kernels."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    dev = seq_mat.device
+    comp = TK.comp_table(dev)
+    p_cap = seq_mat.shape[0] // 2
+
+    def run():
+        tseq = seq_mat.clone()
+        tseq[1::2] = comp[seq_mat[1::2].flip(1).long()]
+        tqual = qual_mat.clone()
+        tqual[1::2] = qual_mat[1::2].flip(1)
+        ov = torch.zeros(p_cap, dtype=torch.int32, device=dev)
+        if search:
+            found = TK.overlap_pairs(tseq[0::2], tseq[1::2])
+            pvalid = torch.arange(p_cap, device=dev) < n_pairs
+            shifted = found + shift
+            ov = torch.where(pvalid & (shifted <= 127) & (shifted >= -127),
+                             found, 0)
+        return ov, tseq, tqual
+    return run
+
+
+def parent_pe_decode(stored, qual, tables, L: int, nbq):
+    """The parent's PE decode work after the quality decode, as a function
+    of no arguments returning its payload: _expand where tables are given
+    (an int32 index grid by three wheres, a clamp, an int64 gather), the N
+    where, the revcomp's flips, LUT gather and row assigns (in place on
+    qual, and on stored without tables, as the parent's were on their
+    step's tensors) and the payload's torch.cat."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    dev = qual.device
+    comp = TK.comp_table(dev)
+
+    def run():
+        seq = stored
+        if tables is not None:
+            so, f, w, prev = (t[:, None] for t in tables)
+            i = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+            odd = (torch.arange(so.shape[0], device=dev) % 2 == 1)[:, None]
+            src = torch.where(i < f, so - f + i,
+                              torch.where(i >= L - w, prev + i - (L - w),
+                                          so + i - f))
+            src = torch.where(odd, src, so + i).reshape(-1)
+            seq = stored[src.clamp(0, stored.shape[0] - 1).long()]
+        if nbq is not None:
+            seq = torch.where(qual == nbq, ord("N"), seq)
+        sm = seq.view(-1, L)
+        sm[1::2] = comp[sm[1::2].flip(1).long()]
+        qm = qual.view(-1, L)
+        qm[1::2] = qm[1::2].flip(1)
+        return torch.cat([seq, qual])
+    return run
+
+
+def pair_edge_cases(dev, names=PAIR_CASES + PAIR_LONG_CASES) -> int:
+    """pe_encode_pairs on every case in names (PAIR_CASES, PAIR_LONG_CASES)
+    placed by the built encode tile, and pe_decode_rows on each case's
+    encoded grid (decode_inputs: its tables, or none without search; the
+    case's nbq), on the same grid with nbq ':' and, for pad_rows, with
+    wild_tables; each one launch, exact against the plain version (ov and
+    both grids; the whole payload), the decode giving the case's rows
+    back where it can (not on every byte value, whose complement is not
+    its own inverse). Returns the number of calls."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def one_launch(name, fn):
+        before = TK.launches[name]
+        got = fn()
+        torch.cuda.synchronize()
+        check(TK.launches[name] == before + 1, "%s launched %d times"
+              % (name, TK.launches[name] - before))
+        return got
+
+    calls = 0
+    for name in names:
+        seq, qual, n, shift, search, nbq = pair_case(name, TK.pe_pair_tile)
+        L = seq.shape[1]
+        s1, q1 = t(seq), t(qual)
+        ov = one_launch("pe_encode_pairs", lambda: TK.pe_encode_pairs(
+            s1, q1, n, shift, search))
+        s2, q2 = t(seq), t(qual)
+        want = TK.pe_encode_pairs_plain(s2, q2, n, shift, search)
+        check(torch.equal(ov, want) and torch.equal(s1, s2)
+              and torch.equal(q1, q2), "pe_encode_pairs differs from its "
+              "plain version on %s (%d of %d pairs)"
+              % (name, int((ov != want).sum()), ov.shape[0]))
+        calls += 1
+        stored, qflat, tab = decode_inputs(s1.cpu().numpy(), q1.cpu().numpy(),
+                                           ov.cpu().numpy(), n, search, nbq)
+        variants = [(tab, nbq, name != "bytes_all"), (tab, ord(":"), False)]
+        if name == "pad_rows":
+            variants.append((wild_tables(seq.shape[0], L, stored.shape[0]),
+                             None, False))
+        for tb, q_nbq, round_trip in variants:
+            args = (t(stored), t(qflat), None if tb is None else t(tb), L,
+                    q_nbq)
+            got = one_launch("pe_decode_rows",
+                             lambda: TK.pe_decode_rows(*args))
+            check(torch.equal(got, TK.pe_decode_rows_plain(*args)),
+                  "pe_decode_rows differs from its plain version on %s "
+                  "(tables %s, nbq %s)" % (name, "none" if tb is None else
+                                           "given", q_nbq))
+            if round_trip:
+                b = 2 * n * L
+                out = got.cpu().numpy()
+                check((out[:b] == seq[:2 * n].reshape(-1)).all() and
+                      (out[seq.size:seq.size + b]
+                       == qual[:2 * n].reshape(-1)).all(),
+                      "pe_decode_rows does not give %s's reads back" % name)
+            calls += 1
+    return calls
+
+
+# traces one pe_encode_pairs and one pe_decode_rows call of a real PE chunk
+# in a process of its own (pairs_traced)
+_TRACE_PAIRS = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from repaq_tpu_torch.ops import kernels as TK
+rec = cs.pe_chunk_calls(torch.device("cuda:0"))
+enc, dec = rec["pe_encode_pairs"], rec["pe_decode_rows"]
+print(json.dumps([cs.one_kernel_a_call(lambda: TK.pe_encode_pairs(*enc)),
+                  cs.one_kernel_a_call(lambda: TK.pe_decode_rows(*dec))]))
+"""
+
+
+def pairs_traced() -> list:
+    """[the device kernels of one pe_encode_pairs call, of one
+    pe_decode_rows call] at a real PE chunk's calls under torch.profiler,
+    in a process of its own (a trace taken after this process's earlier
+    phases showed none of the card's kernels)."""
+    r = subprocess.run([sys.executable, "-c", _TRACE_PAIRS, ROOT],
+                       capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, "tracing the pair kernels failed (rc %d): %s"
+          % (r.returncode, r.stderr.strip()[-2000:]))
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def pair_kernel_phase(dev) -> dict:
+    """pe_encode_pairs and pe_decode_rows on their edge cases
+    (pair_edge_cases), then at one real PE chunk's calls recorded through
+    cli.main (pe_chunk_calls): exact against their plain versions and the
+    parent's compositions, each one device kernel a call (pairs_traced:
+    no torch kernel in the work the parent's enc.revcomp, enc.overlap,
+    dec.expand and dec.revcomp ranges held), each timed beside its bound
+    (pairs_moved, rows_moved), its plain version and, in turns, the
+    parent's composition (parent_pe_encode, parent_pe_decode). The encode
+    works in place, so each timed call gets its grids back first,
+    untimed."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    log("kernels pe_encode_pairs and pe_decode_rows exact on %d edge-case "
+        "calls (PAIR_CASES and PAIR_LONG_CASES at the built encode tile, "
+        "%d pairs at 150 bp: %s; each grid decoded as encoded, with nbq "
+        "':', and with wild tables once), one launch each"
+        % (pair_edge_cases(dev), TK.pe_pair_tile(150),
+           ", ".join(PAIR_CASES + PAIR_LONG_CASES)))
+    traced = pairs_traced()
+    for name, kernels in zip(("pe_encode_pairs", "pe_decode_rows"), traced):
+        check(len(kernels) == 1, "%s ran %d device kernels a call, not 1: %s"
+              % (name, len(kernels), kernels))
+    log("kernels pe_encode_pairs and pe_decode_rows: one device kernel a "
+        "call at the real PE chunk (%s)" % "; ".join(k[0] for k in traced))
+    rec = pe_chunk_calls(dev)
+    res = {}
+
+    seq_mat, qual_mat, n_pairs, shift, search = rec["pe_encode_pairs"]
+    rows, L = seq_mat.shape
+    label = ("PE encode chunk: %d of %d pairs of %d bytes, shift %d%s"
+             % (n_pairs, rows // 2, L, shift, "" if search else ", no search"))
+    s1, q1, s2, q2 = (x.clone() for x in (seq_mat, qual_mat) * 2)
+    got = (TK.pe_encode_pairs(s1, q1, n_pairs, shift, search), s1, q1)
+    want = (TK.pe_encode_pairs_plain(s2, q2, n_pairs, shift, search), s2, q2)
+    parent = parent_pe_encode(seq_mat, qual_mat, n_pairs, shift, search)
+    err = max(max_abs_err(got, want), max_abs_err(got, parent()))
+    check(err == 0, "pe_encode_pairs differs from its plain version or the "
+          "parent's composition at %s" % label)
+    grids = (seq_mat.clone(), qual_mat.clone())
+
+    def restore():
+        grids[0].copy_(seq_mat)
+        grids[1].copy_(qual_mat)
+
+    def kern():
+        return TK.pe_encode_pairs(*grids, n_pairs, shift, search)
+
+    def plain():
+        return TK.pe_encode_pairs_plain(*grids, n_pairs, shift, search)
+
+    ms = cuda_ms(kern, setup=restore)
+    r = {"max_abs_err": err, "ms": ms,
+         "plain_ms": cuda_ms(plain, runs=3, setup=restore),
+         **bound_fields(pairs_moved(rows, L), ms), "library_ms": None,
+         "device_kernels": len(traced[0])}
+    log("kernel %-21s exact at %s: %.4f ms (bound %.4f ms, %.0f%%), plain "
+        "torch %.4f ms" % ("pe_encode_pairs", label, ms, r["bound_ms"],
+                           100 * r["share_of_bound"], r["plain_ms"]))
+    r["in_turns_ms"] = in_turns([("parent", parent),
+                                 ("pe_encode_pairs", kern)], label,
+                                setups={"pe_encode_pairs": restore})
+    res["pe_encode_pairs"] = dict(r, by_shape={label: dict(r)})
+    del grids, s1, q1, s2, q2, got, want
+
+    stored, qual, tables, L, nbq = rec["pe_decode_rows"]
+    label = ("PE decode chunk: %d rows of %d bytes from %d stored bytes, "
+             "tables %s, nbq %s" % (qual.shape[0] // L, L, stored.shape[0],
+                                    "given" if tables is not None else "none",
+                                    nbq))
+    args = (stored, qual, tables, L, nbq)
+    r = held_and_timed("pe_decode_rows", lambda: TK.pe_decode_rows(*args),
+                       lambda: TK.pe_decode_rows_plain(*args), (), label,
+                       plain_runs=3, moved=rows_moved(stored, qual, tables,
+                                                      L))
+    check(torch.equal(parent_pe_decode(stored.clone(), qual.clone(), tables,
+                                       L, nbq)(), TK.pe_decode_rows(*args)),
+          "pe_decode_rows differs from the parent's composition at %s"
+          % label)
+    r["device_kernels"] = len(traced[1])
+    r["in_turns_ms"] = in_turns([
+        ("parent", parent_pe_decode(stored.clone(), qual.clone(), tables, L,
+                                    nbq)),
+        ("pe_decode_rows", lambda: TK.pe_decode_rows(*args))], label)
+    res["pe_decode_rows"] = dict(r, by_shape={label: dict(r)})
     return res
 
 
@@ -3346,8 +3915,9 @@ def main_path_boundary_shapes(shapes: list, cut: int) -> dict:
 def per_chunk(what: str, pe: bool) -> dict:
     """The launches a chunk of the kernels whose count a chunk fixes, on
     compress or decompress: run_offsets 3 an encode, seg_positions 1 a
-    decode, overlap_pairs 1 a PE encode (none in the other direction);
-    fill_runs 3 an encode (the quality, N-position and coordinate
+    decode, pe_encode_pairs 1 a PE encode and pe_decode_rows 1 a PE decode
+    (none in the other direction, none on SE), overlap_pairs none; fill_runs
+    3 an encode (the quality, N-position and coordinate
     streams' bytes) and 2 a decode (the N positions' deltas, the N bases);
     fill_sorted_runs 1 a decode (the quality runs), concat_row_spans 1 a
     PE encode (the elision); bucket_compact 5 an encode (the grouping by
@@ -3355,7 +3925,9 @@ def per_chunk(what: str, pe: bool) -> dict:
     coordinates' multi-byte values) and 1 a decode (the quality tokens)."""
     enc = what == "compress"
     return {"run_offsets": 3 * enc, "seg_positions": int(not enc),
-            "overlap_pairs": int(enc and pe), "fill_runs": 3 if enc else 2,
+            "overlap_pairs": 0, "pe_encode_pairs": int(enc and pe),
+            "pe_decode_rows": int(pe and not enc),
+            "fill_runs": 3 if enc else 2,
             "fill_sorted_runs": int(not enc),
             "concat_row_spans": int(enc and pe),
             "bucket_compact": 5 if enc else 1}
@@ -4024,6 +4596,7 @@ def main() -> int:
             % (time.perf_counter() - t0))
         kres = kernel_phase(torch.device("cuda:0"))
         kres["overlap_pairs"] = overlap_kernel_phase(torch.device("cuda:0"))
+        kres.update(pair_kernel_phase(torch.device("cuda:0")))
         kres["fill_runs"] = fill_kernel_phase(torch.device("cuda:0"))
         kres.update(sorted_runs_phase(torch.device("cuda:0")))
         kres["bucket_compact"] = compact_kernel_phase(torch.device("cuda:0"))

@@ -127,22 +127,6 @@ def _elide(tseq: torch.Tensor, ov: torch.Tensor, n_reads: int):
     return out, cum[-1]
 
 
-def _expand(seq: torch.Tensor, tables: torch.Tensor, L: int):
-    """The three-piece reconstruction of the elided odd reads (reference
-    rfqcodec.cpp:860-901) as one gather: an odd row is [its mate's tail]
-    [its stored span][its mate's head]. tables: (4, b_cap) int32 stored
-    offset, forward and backward overlap, the mate's stored offset. Padded
-    rows read clamped bytes that are cut."""
-    n_cap = seq.shape[0]
-    so, f, w, prev = (t[:, None] for t in tables)
-    i = torch.arange(L, dtype=torch.int32, device=seq.device)[None, :]
-    odd = (torch.arange(so.shape[0], device=seq.device) % 2 == 1)[:, None]
-    src = torch.where(i < f, so - f + i,
-                      torch.where(i >= L - w, prev + i - (L - w), so + i - f))
-    src = torch.where(odd, src, so + i).reshape(-1)
-    return seq[src.clamp(0, n_cap - 1).long()]
-
-
 class DeviceEngine:
     """Chunk codec on one torch device. Safe to call from the pipeline's
     worker threads: the palette cache and the stats take a lock, and each
@@ -156,9 +140,6 @@ class DeviceEngine:
         self._lock = threading.Lock()
         self._palette = None  # (bins on device, major) of one header
         self._palette_key = None
-        # vectorized's complement table (ACGT and lowercase -> complement,
-        # anything else -> N), so odd reads transform as the host engine's
-        self._comp = torch.from_numpy(vectorized._COMP).to(self.device)
         self.stats = {"device_chunks": 0, "host_chunks": 0,
                       "device_decodes": 0, "host_decodes": 0}
 
@@ -440,33 +421,21 @@ class DeviceEngine:
                         qfetch, npfetch, want_npos):
         """The device work of one PE-interleaved encode. seq_mat, qual_mat:
         (b_cap, L) u8, rows past n_reads padded with 'G' and the major
-        qual. overlap: search and elide overlaps (the header's flag), else
-        every pair stores ov = 0. Returns the payload of _payload with the
+        qual; the step owns them and transforms their odd rows in place.
+        overlap: search and elide overlaps (the header's flag), else every
+        pair stores ov = 0. Returns the payload of _payload with the
         (b_cap/2,) u8 overlap bytes and the stored base count at its end."""
-        dev = seq_mat.device
-        p_cap = seq_mat.shape[0] // 2
-        with _span("enc.revcomp"):
-            tseq = seq_mat.clone()
-            tseq[1::2] = self._comp[seq_mat[1::2].flip(1).long()]
-            tqual = qual_mat.clone()
-            tqual[1::2] = qual_mat[1::2].flip(1)
         n_pairs = n_reads // 2
-
-        ov = torch.zeros(p_cap, dtype=torch.int32, device=dev)
-        if overlap:
-            # the overlap search (reference rfqcodec.cpp:1391-1438; the
-            # overlap kernel) and the encode-side shift clamp
-            # (rfqcodec.cpp:379-382)
-            with _span("enc.overlap"):
-                found = ds.overlap_pairs_device(tseq[0::2], tseq[1::2])
-                pvalid = torch.arange(p_cap, device=dev) < n_pairs
-                shifted = found + shift
-                ov = torch.where(
-                    pvalid & (shifted <= 127) & (shifted >= -127), found, 0)
-
+        # in place, one launch: the odd reads' revcomp (vectorized's
+        # complement table, as the host engine transforms them), the
+        # overlap search (reference rfqcodec.cpp:1391-1438) and the
+        # encode-side shift clamp (rfqcodec.cpp:379-382)
+        with _span("enc.pairs"):
+            ov = kernels.pe_encode_pairs(seq_mat, qual_mat, n_pairs, shift,
+                                         overlap)
         with _span("enc.compaction"):
-            seq_concat, total_stored = _elide(tseq, ov, n_reads)
-        qual_flat = tqual.reshape(-1)
+            seq_concat, total_stored = _elide(seq_mat, ov, n_reads)
+        qual_flat = qual_mat.reshape(-1)
         n_cap = qual_flat.shape[0]
         with _span("enc.frontend"):  # over the elided seq, the full qual
             packed, meta = kernels.encode_frontend(seq_concat, qual_flat,
@@ -675,23 +644,22 @@ class DeviceEngine:
                 with _span("dec.nscatter"):
                     # the -1 padding of pos lies outside seq: no write
                     kernels.fill_runs(seq, pos, 1, _N)
-        if tables is not None:
-            with _span("dec.expand"):
-                seq = _expand(seq, tables, L)
+        restore_n = not has_npos and nbq < 128
         with _span("dec.qual"):
             qual = ds.qualcol_decode_device(
                 qual_buf, nbins, bins, major, n_cap, qual_len,
                 tok_cap=tok_cap, pos_cap=pos_cap, esc_cap=esc_cap,
                 run_cap=run_cap,
             )
-            if not has_npos and nbq < 128:
+            if restore_n and L is None:
                 seq = torch.where(qual == nbq, _N, seq)
         if L is not None:
-            with _span("dec.revcomp"):
-                sm = seq.view(-1, L)
-                sm[1::2] = self._comp[sm[1::2].flip(1).long()]
-                qm = qual.view(-1, L)
-                qm[1::2] = qm[1::2].flip(1)
+            # one launch: the overlap expansion (reference
+            # rfqcodec.cpp:860-901), the N restore, the odd reads' revcomp
+            # and the payload (the quality decode does not read seq)
+            with _span("dec.rows"):
+                return kernels.pe_decode_rows(seq, qual, tables, L,
+                                              nbq if restore_n else None)
         return torch.cat([seq, qual])
 
 

@@ -155,6 +155,12 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_rans_decode_shared_rows.restype = ll
     lib.repaq_overlap_pairs.argtypes = [vp, ll, ci, vp, ll, ci, ll, vp, vp]
     lib.repaq_overlap_pairs.restype = ci
+    lib.repaq_pe_pair_tile.argtypes = [ci, ci]
+    lib.repaq_pe_pair_tile.restype = ll
+    lib.repaq_pe_encode_pairs.argtypes = [vp, vp, ci, ll, ll, ci, ci, vp, vp]
+    lib.repaq_pe_encode_pairs.restype = ci
+    lib.repaq_pe_decode_rows.argtypes = [vp, ci, vp, vp, ll, ci, ci, vp, vp]
+    lib.repaq_pe_decode_rows.restype = ci
     for entry in (lib.repaq_fill_runs_u8, lib.repaq_fill_runs_i32):
         entry.argtypes = [vp, ll, vp, vp, ci, vp, ci, vp, ll, vp]
         entry.restype = ci

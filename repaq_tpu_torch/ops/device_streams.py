@@ -686,5 +686,8 @@ def overlap_pairs_device(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
 
     Returns ov, (p,) int32, JAX's ov. The search is exact
     (``kernels.overlap_pairs``: the CUDA kernel on the card, its plain
-    version on the CPU), so JAX's collision flags have no counterpart."""
+    version on the CPU), so JAX's collision flags have no counterpart. It
+    keeps JAX's signature for the tests: the engine's PE step runs the same
+    search inside ``kernels.pe_encode_pairs``, with the revcomp and the
+    shift clamp."""
     return kernels.overlap_pairs(r1, r2)

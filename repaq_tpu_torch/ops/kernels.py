@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels of the port, each beside its plain torch
 version; the counterpart of repaq_tpu/ops/pallas_tpu.py, and of the
-run-boundary scans, the PE overlap search, the decode's masked writes and
-the stream coders' compaction sorts that the JAX package left to XLA,
-and of the PE encode's elision sort.
+run-boundary scans, the PE overlap search, the PE steps' revcomp, overlap
+clamp and expansion, the decode's masked writes and the stream coders'
+compaction sorts that the JAX package left to XLA, and of the PE encode's
+elision sort.
 
 Every wrapper decides by the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (built on
@@ -27,7 +28,8 @@ launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
             "pack_bases": 0, "unpack_bases": 0, "token_start_mask": 0,
             "run_offsets": 0, "seg_positions": 0, "rans_encode": 0,
             "rans_layout": 0, "rans_decode": 0, "overlap_pairs": 0,
-            "fill_runs": 0, "fill_sorted_runs": 0, "concat_row_spans": 0,
+            "pe_encode_pairs": 0, "pe_decode_rows": 0, "fill_runs": 0,
+            "fill_sorted_runs": 0, "concat_row_spans": 0,
             "bucket_compact": 0}
 _launch_lock = threading.Lock()
 
@@ -535,8 +537,9 @@ def overlap_pairs(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     the smallest with r2[p, L2-o:] == r1[p, :o], else 0; minlen = min(L1,
     L2), raw bytes. r1: (p, L1) u8, r2: (p, L2) u8, r2's rows already
     reverse-complemented; each row contiguous, rows any stride apart (the
-    engine passes the odd and even rows of one grid). Returns (p,) int32.
-    One launch."""
+    odd and even rows of one grid, say). Returns (p,) int32. One launch.
+    On no main path: the PE encode runs the same search inside
+    ``pe_encode_pairs``."""
     _check_rows("r1", r1)
     _check_rows("r2", r2)
     if r1.shape[0] != r2.shape[0]:
@@ -554,6 +557,199 @@ def overlap_pairs(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
         _launch("overlap_pairs", lib.repaq_overlap_pairs, r1.data_ptr(),
                 r1.stride(0), r1.shape[1], r2.data_ptr(), r2.stride(0),
                 r2.shape[1], p, out.data_ptr(), _stream(dev))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# PE pair tiles (JAX: XLA code of the PE encode step's revcomp, search and
+# clamp, repaq_tpu/codec/device_engine.py:580-591, and of the PE decode
+# step's expansion, N restore and revcomp, :984-1021)
+# ---------------------------------------------------------------------------
+
+# codec/vectorized.py's _COMP: ACGT and acgt to their uppercase
+# complements, every other byte to 'N' (the kernels compute the same)
+_COMP = [_N] * 256
+for _a, _b in zip(b"AaTtCcGg", b"TTAAGGCC"):
+    _COMP[_a] = _b
+
+
+def comp_table(device) -> torch.Tensor:
+    """(256,) uint8: byte -> the complement the PE kernels write."""
+    return torch.tensor(_COMP, dtype=torch.uint8, device=device)
+
+
+def pe_pair_tile(L: int, decode: int = 0) -> int:
+    """Pairs a tile of pe_encode_pairs (decode 0) or of pe_decode_rows
+    with tables (1) or without (2) at rows of L bytes, as the built
+    library picks them; 0 where the decode takes its direct route (rows
+    too long for a stage). The card tests place edge cases by it."""
+    return int(_build.library().repaq_pe_pair_tile(L, decode))
+
+
+def _check_grid(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.uint8 or t.dim() != 2 or not t.is_contiguous() \
+            or t.shape[0] % 2:
+        raise ValueError("%s must be a contiguous (rows, L) uint8 tensor of "
+                         "an even row count, got %s %s"
+                         % (name, t.dtype, tuple(t.shape)))
+
+
+def pe_encode_pairs_plain(seq_mat: torch.Tensor, qual_mat: torch.Tensor,
+                          n_pairs: int, shift: int,
+                          search: bool) -> torch.Tensor:
+    """Plain torch version of ``pe_encode_pairs``: the odd rows rewritten
+    by a LUT gather of their flips, overlap_pairs_plain over the first
+    n_pairs pairs, then the shift clamp."""
+    seq_mat[1::2] = comp_table(seq_mat.device)[seq_mat[1::2].flip(1).long()]
+    qual_mat[1::2] = qual_mat[1::2].flip(1)
+    p_cap = seq_mat.shape[0] // 2
+    ov = torch.zeros(p_cap, dtype=torch.int32, device=seq_mat.device)
+    if search:
+        n = max(0, min(int(n_pairs), p_cap))
+        ov[:n] = overlap_pairs_plain(seq_mat[0:2 * n:2], seq_mat[1:2 * n:2])
+        shifted = ov + shift
+        ov = torch.where((shifted <= 127) & (shifted >= -127), ov, 0)
+    return ov
+
+
+def pe_encode_pairs(seq_mat: torch.Tensor, qual_mat: torch.Tensor,
+                    n_pairs: int, shift: int, search: bool) -> torch.Tensor:
+    """A PE encode chunk's pair work on its (rows, L) uint8 grids, in
+    place: each odd seq row reverse-complemented (``comp_table``) and each
+    odd qual row reversed; then, with ``search``, each pair's first exact
+    overlap on the transformed rows (``overlap_pairs``' semantics: +o
+    forward, -o backward, 0 none), 0 for the pairs at or past n_pairs, and
+    the encode's shift clamp: 0 where |ov + shift| > 127. Without
+    ``search`` (a header without the overlap flag) ov is all zeros.
+    Returns ov, (rows / 2,) int32. Both grids contiguous, of one shape and
+    an even row count. One launch."""
+    _check_grid("seq_mat", seq_mat)
+    _check_grid("qual_mat", qual_mat)
+    if seq_mat.shape != qual_mat.shape:
+        raise ValueError("seq_mat and qual_mat need one shape (got %s and "
+                         "%s)" % (tuple(seq_mat.shape),
+                                  tuple(qual_mat.shape)))
+    rows, L = seq_mat.shape
+    _check_size("the grid's bytes", rows * L)
+    if not _on_cuda(seq_mat, qual_mat):
+        return pe_encode_pairs_plain(seq_mat, qual_mat, n_pairs, shift,
+                                     search)
+    dev = seq_mat.device
+    ov = torch.empty(rows // 2, dtype=torch.int32, device=dev)
+    if rows == 0:
+        return ov
+    # the kernel reads the aligned vectors that hold the grids: one that
+    # starts off 16 bytes is transformed in an aligned copy
+    grids = [g if g.data_ptr() % 16 == 0 else g.clone()
+             for g in (seq_mat, qual_mat)]
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        _launch("pe_encode_pairs", lib.repaq_pe_encode_pairs,
+                grids[0].data_ptr(), grids[1].data_ptr(), L, rows // 2,
+                max(0, min(int(n_pairs), rows // 2)), int(shift),
+                int(bool(search)), ov.data_ptr(), _stream(dev))
+    for g, mat in zip(grids, (seq_mat, qual_mat)):
+        if g is not mat:
+            mat.copy_(g)
+    return ov
+
+
+def pe_decode_rows_plain(stored: torch.Tensor, qual: torch.Tensor,
+                         tables: torch.Tensor | None, L: int,
+                         nbq: int | None = None,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain torch version of ``pe_decode_rows``: an int32 index grid by
+    three wheres, clamped, one gather, the N where, the odd rows' LUT
+    gather of their flips, the quality's flips."""
+    dev = qual.device
+    rows = qual.shape[0] // L
+    n = rows * L
+    if out is None:
+        out = torch.empty(2 * n, dtype=torch.uint8, device=dev)
+    i = torch.arange(L, dtype=torch.int32, device=dev)[None, :]
+    if tables is None:
+        so = (torch.arange(rows, dtype=torch.int32, device=dev) * L)[:, None]
+        f = w = prev = torch.zeros_like(so)
+    else:
+        so, f, w, prev = (t[:, None] for t in tables)
+    odd = (torch.arange(rows, device=dev) % 2 == 1)[:, None]
+    src = torch.where(i < f, so - f + i,
+                      torch.where(i >= L - w, prev + i - (L - w), so + i - f))
+    src = torch.where(odd, src, so + i)
+    seq = stored[src.clamp(0, stored.shape[0] - 1).long()]
+    qm = qual.view(rows, L)
+    if nbq is not None:
+        seq = torch.where(qm == nbq, _N, seq).to(torch.uint8)
+    seq[1::2] = comp_table(dev)[seq[1::2].flip(1).long()]
+    out[:n].view(rows, L).copy_(seq)
+    oq = out[n:].view(rows, L)
+    oq.copy_(qm)
+    oq[1::2] = qm[1::2].flip(1)
+    return out
+
+
+def _check_decode_rows(stored, qual, tables, L, nbq, out) -> None:
+    _check_u8("stored", stored)
+    _check_u8("qual", qual)
+    if L < 1 or qual.shape[0] % L or (qual.shape[0] // L) % 2:
+        raise ValueError("qual must hold an even number of rows of L = %d "
+                         "bytes, got %d bytes" % (L, qual.shape[0]))
+    rows = qual.shape[0] // L
+    _check_size("the grid's bytes", 2 * qual.shape[0])
+    _check_size("stored", stored.shape[0])
+    if rows and stored.shape[0] == 0:
+        raise ValueError("stored holds no bytes for %d rows" % rows)
+    if tables is not None and (tables.dtype != torch.int32
+                               or tables.shape != (4, rows)):
+        raise ValueError("tables must be a (4, %d) int32 tensor, got %s %s"
+                         % (rows, tables.dtype, tuple(tables.shape)))
+    if nbq is not None and not 0 <= nbq < 256:
+        raise ValueError("nbq must be a byte or None, got %r" % (nbq,))
+    if out is not None and (out.dtype != torch.uint8 or out.dim() != 1
+                            or out.shape[0] != 2 * qual.shape[0]
+                            or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous (%d,) uint8 tensor, got "
+                         "%s %s" % (2 * qual.shape[0], out.dtype,
+                                    tuple(out.shape)))
+
+
+def pe_decode_rows(stored: torch.Tensor, qual: torch.Tensor,
+                   tables: torch.Tensor | None, L: int,
+                   nbq: int | None = None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """A PE decode chunk's payload: out[:n] the (rows, L) seq grid, out[n:]
+    the quality grid, n = rows * L. Row r is rebuilt from the stored bases
+    by tables, (4, rows) int32 (stored offset so, forward and backward
+    overlap f and w, the mate's stored offset prev): an even row is
+    stored[so + i], an odd row stored[so - f + i] for i < f, stored[prev + i
+    - (L - w)] for i >= L - w, else stored[so + i - f] (int32 arithmetic,
+    the index clamped to [0, stored.numel())); tables=None stores every
+    row's L bases at r * L. With nbq, 'N' where the row's quality (as
+    decoded, before any reversal) equals nbq. Then odd seq rows are
+    reverse-complemented (``comp_table``) and odd quality rows reversed.
+    Rows past a chunk's reads have zero tables in the engine, so each holds
+    stored[0:L] (its N restore and revcomp applied) and its decoded
+    quality. stored: 1-D uint8; qual: (rows * L,) uint8, rows even; out:
+    None for a new tensor. One launch; returns out."""
+    _check_decode_rows(stored, qual, tables, L, nbq, out)
+    tensors = [t for t in (stored, qual, tables, out) if t is not None]
+    if not _on_cuda(*tensors):
+        return pe_decode_rows_plain(stored, qual, tables, L, nbq, out)
+    dev = qual.device
+    rows = qual.shape[0] // L
+    if out is None:
+        out = torch.empty(2 * qual.shape[0], dtype=torch.uint8, device=dev)
+    if rows == 0:
+        return out
+    stored, qual = _aligned(stored), _aligned(qual)
+    tables = None if tables is None else tables.contiguous()
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        _launch("pe_decode_rows", lib.repaq_pe_decode_rows,
+                stored.data_ptr(), stored.shape[0], qual.data_ptr(),
+                None if tables is None else tables.data_ptr(), rows, L,
+                -1 if nbq is None else int(nbq), out.data_ptr(),
+                _stream(dev))
     return out
 
 

@@ -23,8 +23,11 @@ from repaq_tpu_torch.ops import rans_device as RD
 
 from chip_smoke import (CONCAT_CASES, RUNS_CASES, chunk_calls, concat_args,
                         concat_case, concat_ref, parent_elide,
-                        parent_qual_write, pe_chunk_elision, runs_args,
+                        parent_qual_write, pe_chunk_calls, runs_args,
                         runs_case, runs_ref)
+from chip_smoke import (PAIR_CASES, PAIR_LONG_CASES, pair_case,
+                        pair_edge_cases, pairs_traced, parent_pe_decode,
+                        parent_pe_encode)
 from chip_smoke import (COMPACT_CALLS, COMPACT_CAPS, COMPACT_CASES,
                         COMPACT_FORMS,
                         COMPACT_PAST_WAVE, DECODE_CASES, FILL_CASES,
@@ -321,8 +324,9 @@ def test_engine_on_cuda_matches_host(cuda):
 @pytest.mark.cuda
 def test_pe_engine_on_cuda_matches_host(cuda):
     """One PE-interleaved chunk with overlaps and Ns through the engine on
-    the card: the host engine's bytes, the input back, and the kernels of
-    the PE path launched."""
+    the card: the host engine's bytes, the input back, the kernels of the
+    PE path launched, and the pair work as one pe_encode_pairs and one
+    pe_decode_rows launch (no overlap_pairs)."""
     eng = DeviceEngine(cuda, min_bases=0)
     TK.reset_launches()
     block = _mk_block(600, 96, seed=7, pe_overlap=0.5, nfrac=0.01)
@@ -337,7 +341,11 @@ def test_pe_engine_on_cuda_matches_host(cuda):
     for name in ("encode_frontend", "unpack_bases", "token_start_mask",
                  "run_offsets", "seg_positions"):
         assert TK.launches[name] > 0, TK.launches
-    assert TK.launches["overlap_pairs"] == 1
+    # the pair work: one launch of each pair kernel a chunk, the search
+    # inside the encode's, none of the search alone
+    assert TK.launches["pe_encode_pairs"] == 1
+    assert TK.launches["pe_decode_rows"] == 1
+    assert TK.launches["overlap_pairs"] == 0
     assert TK.launches["encode_frontend_bytes"] == 0  # the meta route
 
 
@@ -485,6 +493,87 @@ def test_overlap_edge_cases_on_cuda(cuda, name):
     got = TK.overlap_pairs(r1, r2)
     assert TK.launches["overlap_pairs"] == before + 1
     assert torch.equal(got, TK.overlap_pairs_plain(r1, r2))
+
+
+@pytest.mark.cuda
+def test_pe_pair_tiles_by_read_length(cuda):
+    """The built pair tiles: 32 pairs at 150 bp both ways, fewer for long
+    reads, one pair (in one stage) at 20,000 bases, and past what one
+    pair's tile holds 0: the encode's long route and the decode's direct
+    route, up to the engine's longest read (65,535 bases)."""
+    assert TK.pe_pair_tile(150) == TK.pe_pair_tile(150, 1) == 32
+    assert TK.pe_pair_tile(150, 2) == 32
+    assert 1 < TK.pe_pair_tile(1000) < 32
+    assert TK.pe_pair_tile(20000) == TK.pe_pair_tile(20000, 1) == 1
+    for L in (40000, 65535):
+        assert TK.pe_pair_tile(L) == TK.pe_pair_tile(L, 1) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PAIR_CASES + PAIR_LONG_CASES)
+def test_pair_kernels_on_edge_cases(cuda, name):
+    """chip_smoke's PAIR_CASES and PAIR_LONG_CASES placed by the built
+    encode tile: pe_encode_pairs against its plain version (ov and both
+    grids), then pe_decode_rows on the encoded grid (with the case's nbq,
+    with ':', and with wild tables for pad_rows) against its plain version
+    and the case's reads, one launch each."""
+    assert pair_edge_cases(cuda, (name,)) == (4 if name == "pad_rows"
+                                               else 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 5, 15])
+def test_pe_encode_pairs_on_unaligned_grids(cuda, offset):
+    """Grids that start off 16 bytes (views into a wider buffer): one
+    launch, the plain version's ov and rows, the bytes around the grids
+    untouched."""
+    seq, qual, n, shift, search, _nbq = pair_case("odd_pairs",
+                                                  TK.pe_pair_tile)
+    bufs, views = [], []
+    for a in (seq, qual):
+        buf = torch.full((a.size + 32,), 7, dtype=torch.uint8, device=cuda)
+        buf[offset:offset + a.size] = torch.from_numpy(a.reshape(-1)).to(cuda)
+        bufs.append(buf)
+        views.append(buf[offset:offset + a.size].view(a.shape))
+    before = TK.launches["pe_encode_pairs"]
+    ov = TK.pe_encode_pairs(*views, n, shift, search)
+    assert TK.launches["pe_encode_pairs"] == before + 1
+    s, q = torch.from_numpy(seq).to(cuda), torch.from_numpy(qual).to(cuda)
+    assert torch.equal(ov, TK.pe_encode_pairs_plain(s, q, n, shift, search))
+    assert torch.equal(views[0], s) and torch.equal(views[1], q)
+    for buf, a in zip(bufs, (seq, qual)):
+        assert (buf[:offset] == 7).all() and (buf[offset + a.size:]
+                                              == 7).all()
+
+
+@pytest.mark.cuda
+def test_pair_kernels_at_a_real_pe_chunk(cuda):
+    """The pair kernels at one real PE chunk's calls recorded through
+    cli.main (chip_smoke.pe_chunk_calls: 40,000 pairs, b_cap 98,304):
+    each equal to its plain version and to the parent's composition, and
+    one device kernel a call under torch.profiler."""
+    rec = pe_chunk_calls(cuda)
+    seq_mat, qual_mat, n_pairs, shift, search = rec["pe_encode_pairs"]
+    s1, q1, s2, q2 = (x.clone() for x in (seq_mat, qual_mat) * 2)
+    ov = TK.pe_encode_pairs(s1, q1, n_pairs, shift, search)
+    assert torch.equal(ov, TK.pe_encode_pairs_plain(s2, q2, n_pairs, shift,
+                                                    search))
+    assert torch.equal(s1, s2) and torch.equal(q1, q2)
+    pov, ps, pq = parent_pe_encode(seq_mat, qual_mat, n_pairs, shift,
+                                   search)()
+    assert torch.equal(ov, pov) and torch.equal(s1, ps) and torch.equal(q1,
+                                                                        pq)
+    assert (ov > 0).any() and (ov < 0).any()
+    stored, qual, tables, L, nbq = rec["pe_decode_rows"]
+    got = TK.pe_decode_rows(stored, qual, tables, L, nbq)
+    assert torch.equal(got, TK.pe_decode_rows_plain(stored, qual, tables, L,
+                                                    nbq))
+    assert torch.equal(got, parent_pe_decode(stored.clone(), qual.clone(),
+                                             tables, L, nbq)())
+    # traced in a process of its own (chip_smoke.pairs_traced)
+    enc_kernels, dec_kernels = pairs_traced()
+    assert len(enc_kernels) == 1 and "pe_encode_kernel" in enc_kernels[0]
+    assert len(dec_kernels) == 1 and "pe_decode_kernel" in dec_kernels[0]
 
 
 @pytest.mark.cuda
@@ -857,7 +946,7 @@ def test_sorted_runs_at_the_real_chunks(cuda):
     got = TK.fill_sorted_runs(*args)
     assert torch.equal(got, TK.fill_sorted_runs_plain(*args))
     assert torch.equal(got, parent_qual_write(*args)())
-    rec = pe_chunk_elision(cuda)
+    rec = pe_chunk_calls(cuda)
     cargs = rec["concat_row_spans"]
     assert torch.equal(TK.concat_row_spans(*cargs),
                        TK.concat_row_spans_plain(*cargs))

@@ -502,7 +502,8 @@ def test_decode_writes_have_no_dump_slot():
     """The port's decode writes go through kernels.fill_runs: in
     decode_positions_device, _scatter_escapes, qualcol_decode_device and
     DeviceEngine._decode_step the only subscript assignments left are the
-    stream-start marks (one a bin) and the PE revcomp's row copies."""
+    stream-start marks (one a bin); the PE revcomp's row copies went into
+    kernels.pe_decode_rows."""
     pkg = pathlib.Path(T.__file__).resolve().parent.parent
     found = {}
     for path, names in (("ops/device_streams.py",
@@ -520,5 +521,5 @@ def test_decode_writes_have_no_dump_slot():
         "decode_positions_device": [],
         "_scatter_escapes": [],
         "qualcol_decode_device": ["force[stream_begin.clamp(0, m).long()]"],
-        "_decode_step": ["qm[1::2]", "sm[1::2]"],
+        "_decode_step": [],
     }

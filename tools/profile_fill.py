@@ -36,7 +36,7 @@ turns, one process each.
 
 ``--runs``: at one real SE decode chunk's quality call and one real PE
 encode chunk's elision, recorded through repaq_tpu_torch.cli.main
-(chip_smoke.chunk_calls, chip_smoke.pe_chunk_elision), each entry's
+(chip_smoke.chunk_calls, chip_smoke.pe_chunk_calls), each entry's
 CUDA-event time (flushed by writes, by reads, and back to back), its two
 device kernels' times under torch.profiler (the order check and the
 tiles), and the parent's composition in turns (chip_smoke.parent_qual_write;
@@ -187,7 +187,7 @@ def runs_main(cs, ablate: bool) -> dict:
 
     dev = torch.device("cuda:0")
     qargs = cs.chunk_calls(dev)["fill_sorted_runs"][0]
-    rec = cs.pe_chunk_elision(dev)
+    rec = cs.pe_chunk_calls(dev)
     cargs = rec["concat_row_spans"]
     calls = [("quality write", qargs, TK.fill_sorted_runs,
               TK.fill_sorted_runs_plain, runs_launcher,

@@ -9,7 +9,7 @@ With ``--se``, chip_smoke.py's single-end corpus instead (640k reads of
 Run from the root of a checkout on a machine with a card:
 
     python3 tools/profile_torch_pe.py [--se] [--pairs N] [--workers 8,1]
-                                      [--tree DIR]
+                                      [--tree DIR] [--stack]
 
 ``--tree DIR`` profiles the package of another checkout (for example the
 parent commit, unpacked with ``git archive`` into a git-ignored
@@ -17,7 +17,8 @@ directory) with this script's report, so two trees can be read in turns
 by the same measurement.
 
 For each worker count and direction it prints the wall time, the device
-time (kernels and copies, summed), the device's idle share of the wall,
+time (kernels and copies, summed, and each apart), the device's idle share
+of the wall,
 the launches on the device (kernels, then copies and fills), the
 run-boundary kernels' device time and share (the port's kernels of
 csrc/scan.cu, and torch's cummax/cummin kernels should any run), and so
@@ -41,6 +42,8 @@ import argparse
 import os
 import sys
 import time
+
+from torch.autograd import DeviceType
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -79,6 +82,45 @@ def _range_of(e) -> str:
     return "-"
 
 
+def _site(e) -> str:
+    """The innermost frame of this repo's code in op e's Python stack
+    (recorded with --stack), else ''."""
+    for frame in e.stack or ():
+        if "repaq_tpu_torch" in frame or "chip_smoke" in frame:
+            return frame
+    return ""
+
+
+def by_name_report(prof, top: int = 8) -> None:
+    """Each range's torch kernels, copies and fills by name (the range of
+    the op that launched them; '-' for none): launches and device ms, the
+    op that launched them and, with --stack, the line of the port that ran
+    the op. The port's kernels launch through ctypes, under no torch op,
+    and show by name in the kernel counts above instead."""
+    sites = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            continue
+        rng = e.name if e.name.startswith(("enc.", "dec.")) else _range_of(e)
+        for k in e.kernels:
+            if k.name.startswith(("enc.", "dec.")):
+                continue
+            key = (rng, k.name, e.name, _site(e))
+            n, us = sites.get(key, (0, 0.0))
+            sites[key] = (n + 1, us + k.duration)
+    for rng in sorted({key[0] for key in sites}):
+        rows = sorted(((us, n, key[1:]) for key, (n, us) in sites.items()
+                       if key[0] == rng), reverse=True)
+        for us, n, (k, op, site) in rows[:top]:
+            print("    in %-15s %5d x %8.3f ms  %s  (by %s%s)"
+                  % (rng, n, us / 1e3, k[:90], op,
+                     ", " + site if site else ""))
+        if len(rows) > top:
+            print("    in %-15s %d more kernels, %.3f ms"
+                  % (rng, len(rows) - top,
+                     sum(us for us, _n, _k in rows[top:]) / 1e3))
+
+
 def index_put_report(prof) -> None:
     """Every aten::index_put_ (a scatter) by the range it ran in and its
     shapes: device ms, calls, entries written. Shapes are the target's
@@ -105,8 +147,6 @@ def index_put_report(prof) -> None:
 
 
 def report(label: str, prof, wall: float) -> None:
-    from torch.autograd import DeviceType
-
     dev_spans, host_spans, kernels, counts = {}, {}, {}, {}
     busy = 0.0
     for e in prof.events():
@@ -127,15 +167,20 @@ def report(label: str, prof, wall: float) -> None:
             kernels[e.name] = kernels.get(e.name, 0.0) + us
             counts[e.name] = counts.get(e.name, 0) + 1
     copies = sum(c for k, c in counts.items() if _is_copy(k))
-    print("%s: wall %.3f s, device %.3f s, device idle %.1f%% of the wall; "
-          "%d kernel launches, %d copies and fills"
-          % (label, wall, busy / 1e6, 100 * (1 - busy / 1e6 / wall),
-             sum(counts.values()) - copies, copies))
+    copy_us = sum(v for k, v in kernels.items() if _is_copy(k))
+    print("%s: wall %.3f s, device %.3f s (kernels %.3f ms, copies and fills "
+          "%.3f ms), device idle %.1f%% of the wall; %d kernel launches, %d "
+          "copies and fills"
+          % (label, wall, busy / 1e6, (busy - copy_us) / 1e3, copy_us / 1e3,
+             100 * (1 - busy / 1e6 / wall), sum(counts.values()) - copies,
+             copies))
     for what, keys in (("the port's run-boundary", ("run_offsets_kernel",
                                        "seg_positions_kernel",
                                        "run_boundary_scan")),
                        ("torch's cummax/cummin", ("with_indices",)),
                        ("the port's overlap", ("overlap_kernel",)),
+                       ("the port's PE pair encode", ("pe_encode_kernel",)),
+                       ("the port's PE row decode", ("pe_decode_kernel",)),
                        ("the port's compaction", ("bucket_compact",
                                                   "compact_mask_kernel",
                                                   "compact_reg_")),
@@ -153,6 +198,7 @@ def report(label: str, prof, wall: float) -> None:
               "%d kernel launches (%.3f ms of device time), %d copies and "
               "fills inside" % (name, dev_spans.get(name, 0.0) / 1e3,
                                 t / 1e3, c, k, ku / 1e3, cp))
+    by_name_report(prof)
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]):
         if _is_copy(k):
             print("  copy  %-40s %.1f ms" % (k[:40], v / 1e3))
@@ -200,6 +246,9 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=320_000)
     ap.add_argument("--workers", default="8,1",
                     help="comma-separated worker counts, one profile each")
+    ap.add_argument("--stack", action="store_true",
+                    help="record each op's Python stack and name the line "
+                    "of the port that ran each range's torch kernels")
     ap.add_argument("--tree", default=ROOT,
                     help="the checkout whose repaq_tpu_torch and "
                          "chip_smoke.py are profiled (default: this one)")
@@ -242,7 +291,8 @@ def main() -> int:
         for label, argv in (("encode", enc), ("decode", dec)):
             torch.cuda.synchronize()
             with torch.profiler.profile(activities=acts,
-                                        record_shapes=True) as prof:
+                                        record_shapes=True,
+                                        with_stack=args.stack) as prof:
                 t0 = time.perf_counter()
                 if cli.main(argv, engine=eng.config()):
                     raise SystemExit("the CLI failed: %s" % argv)
