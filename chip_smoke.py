@@ -41,7 +41,7 @@ Phases, each of which must pass:
      also on FRONT_CASES (every byte value at every position of a 16-byte
      group, n = 63, 64, 65, one wave's bases and one either side, a view
      one byte off alignment, 2^24 + 5 bases, the PE chunk), one launch
-     each, and the byte form traced by torch.profiler as one kernel a
+     each, and the byte form captured in a CUDA graph as one kernel a
      call; these three streaming kernels (unpack, pack, byte form) also
      timed at 16 units (the fixed cost of one event-timed launch), at 32
      Mi units, back to back over 8 buffer sets and once after a flush
@@ -69,7 +69,7 @@ Phases, each of which must pass:
      ':' and once with wild tables), one launch each, against their plain
      versions and the cases' reads; then at one real PE chunk's calls
      recorded through repaq_tpu_torch.cli.main (pe_chunk_calls), each one
-     device kernel a call under torch.profiler (pairs_traced), exact and
+     device kernel a call in a CUDA graph capture (pairs_traced), exact and
      timed beside its bound (pairs_moved, rows_moved), its plain version
      and, in turns, the parent's torch composition (parent_pe_encode,
      parent_pe_decode).
@@ -103,8 +103,8 @@ Phases, each of which must pass:
      corpus, as the device path makes them (compact_shapes: the grouping
      of 12,582,912 bin ids, the N flags, the decode's token starts with
      their windows and the emission's three count >= 2 compactions), each
-     timed beside its bound, its device kernels a call counted under
-     torch.profiler (one for a mask, two for ids), and timed in turns
+     timed beside its bound, its device kernels a call counted in a CUDA
+     graph capture (one for a mask, two for ids), and timed in turns
      beside the parent's torch.sort of the same keys with its gather;
      after phase 5 both scans are held and timed again at the
      shapes the two corpora handed them (the SE and PE quality streams and
@@ -2011,46 +2011,26 @@ def compact_shapes(dev, reads: int = 80_000) -> list:
     return out
 
 
-# traces bucket_compact calls in a process of its own (compact_traced)
-_TRACE_COMPACT = """
-import json, sys
-sys.path.insert(0, sys.argv[1])
-import torch
-import chip_smoke as cs
-from repaq_tpu_torch.ops import kernels as TK
-dev = torch.device("cuda:0")
-if sys.argv[2] == "shapes":
-    calls = cs.chunk_compactions(dev)
-else:
-    calls = [cs.compact_args(cs.compact_seeded(
-        3 * TK.compact_tile(*form) + 5, form[1], "at", True), dev)
-        for form in json.loads(sys.argv[2])]
-print(json.dumps([cs.one_kernel_a_call(lambda a=a: TK.bucket_compact(*a))
-                  for a in calls]))
-"""
+def compact_traced(forms, dev=None) -> list:
+    """The device operations of one bucket_compact call at 3 tiles + 5
+    elements of each form in forms, a list of (is_mask, nbuckets), read
+    from a CUDA graph capture of it (kernels.captured_ops)."""
+    import torch
 
+    from repaq_tpu_torch.ops import kernels as TK
 
-def compact_traced(what) -> list:
-    """The device kernels of one bucket_compact call under torch.profiler,
-    at each of compact_shapes (what = "shapes") or at 3 tiles + 5
-    elements of each form in what, a list of (is_mask, nbuckets); in a
-    process of its own, since a trace taken after this process's earlier
-    phases showed none of the card's kernels."""
-    r = subprocess.run(
-        [sys.executable, "-c", _TRACE_COMPACT, ROOT,
-         what if isinstance(what, str) else json.dumps(what)],
-        capture_output=True, text=True, timeout=600)
-    check(r.returncode == 0, "tracing bucket_compact failed (rc %d): %s"
-          % (r.returncode, r.stderr.strip()[-2000:]))
-    return json.loads(r.stdout.strip().splitlines()[-1])
+    dev = dev or torch.device("cuda:0")
+    return [TK.captured_ops(lambda a=compact_args(compact_seeded(
+        3 * TK.compact_tile(*form) + 5, form[1], "at", True), dev):
+        TK.bucket_compact(*a)) for form in forms]
 
 
 def compact_kernel_phase(dev) -> dict:
     """bucket_compact on its edge cases, then at one SE chunk's calls
     (compact_shapes) exact against its plain version, timed beside its
     bound (compact_moved) and beside the parent's sort of the same keys
-    (the library call); its device kernels a call counted under
-    torch.profiler (compact_traced: one for a mask, two for ids); then
+    (the library call); its device kernels a call counted in a CUDA graph
+    capture (kernels.captured_ops: one for a mask, two for ids); then
     timed in turns with the sort: sort, kernel, kernel, sort."""
     import torch
 
@@ -2069,9 +2049,9 @@ def compact_kernel_phase(dev) -> dict:
            TK.compact_tile(False, 4), TK.compact_tile(False, 9),
            TK.compact_wave(True, 1, big), TK.compact_wave(False, 4)))
     res = None
-    traced = compact_traced("shapes")
-    for (label, bucket, k, cap, fill, payload, parent), kernels in zip(
-            compact_shapes(dev), traced):
+    for label, bucket, k, cap, fill, payload, parent in compact_shapes(dev):
+        kernels = TK.captured_ops(lambda: TK.bucket_compact(
+            bucket, k, cap, fill, payload))
         kept = int(TK.bucket_compact_plain(bucket, k, 0, fill)[2].sum())
 
         def kern():
@@ -2642,31 +2622,22 @@ def pair_edge_cases(dev, names=PAIR_CASES + PAIR_LONG_CASES) -> int:
     return calls
 
 
-# traces one pe_encode_pairs and one pe_decode_rows call of a real PE chunk
-# in a process of its own (pairs_traced)
-_TRACE_PAIRS = """
-import json, sys
-sys.path.insert(0, sys.argv[1])
-import torch
-import chip_smoke as cs
-from repaq_tpu_torch.ops import kernels as TK
-rec = cs.pe_chunk_calls(torch.device("cuda:0"))
-enc, dec = rec["pe_encode_pairs"], rec["pe_decode_rows"]
-print(json.dumps([cs.one_kernel_a_call(lambda: TK.pe_encode_pairs(*enc)),
-                  cs.one_kernel_a_call(lambda: TK.pe_decode_rows(*dec))]))
-"""
+def pairs_traced(rec=None) -> list:
+    """[the device operations of one pe_encode_pairs call, of one
+    pe_decode_rows call] at a real PE chunk's calls (rec, pe_chunk_calls'
+    record; made here when None), read from CUDA graph captures of them
+    (kernels.captured_ops). The encode works in place: it is handed copies
+    of the grids."""
+    import torch
 
+    from repaq_tpu_torch.ops import kernels as TK
 
-def pairs_traced() -> list:
-    """[the device kernels of one pe_encode_pairs call, of one
-    pe_decode_rows call] at a real PE chunk's calls under torch.profiler,
-    in a process of its own (a trace taken after this process's earlier
-    phases showed none of the card's kernels)."""
-    r = subprocess.run([sys.executable, "-c", _TRACE_PAIRS, ROOT],
-                       capture_output=True, text=True, timeout=600)
-    check(r.returncode == 0, "tracing the pair kernels failed (rc %d): %s"
-          % (r.returncode, r.stderr.strip()[-2000:]))
-    return json.loads(r.stdout.strip().splitlines()[-1])
+    rec = rec or pe_chunk_calls(torch.device("cuda:0"))
+    seq_mat, qual_mat, *rest = rec["pe_encode_pairs"]
+    enc = (seq_mat.clone(), qual_mat.clone(), *rest)
+    dec = rec["pe_decode_rows"]
+    return [TK.captured_ops(lambda: TK.pe_encode_pairs(*enc)),
+            TK.captured_ops(lambda: TK.pe_decode_rows(*dec))]
 
 
 def pair_kernel_phase(dev) -> dict:
@@ -2690,13 +2661,13 @@ def pair_kernel_phase(dev) -> dict:
         "':', and with wild tables once), one launch each"
         % (pair_edge_cases(dev), TK.pe_pair_tile(150),
            ", ".join(PAIR_CASES + PAIR_LONG_CASES)))
-    traced = pairs_traced()
+    rec = pe_chunk_calls(dev)
+    traced = pairs_traced(rec)
     for name, kernels in zip(("pe_encode_pairs", "pe_decode_rows"), traced):
         check(len(kernels) == 1, "%s ran %d device kernels a call, not 1: %s"
               % (name, len(kernels), kernels))
     log("kernels pe_encode_pairs and pe_decode_rows: one device kernel a "
         "call at the real PE chunk (%s)" % "; ".join(k[0] for k in traced))
-    rec = pe_chunk_calls(dev)
     res = {}
 
     seq_mat, qual_mat, n_pairs, shift, search = rec["pe_encode_pairs"]
@@ -2946,21 +2917,6 @@ def front_edge_cases(dev) -> int:
     return runs
 
 
-def one_kernel_a_call(fn) -> list:
-    """The CUDA kernels a torch.profiler trace of one fn() call shows."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
 def fsm_inputs(dev, n: int, dtype, seed: int):
     """Seeded token-FSM inputs of the decode's quality stream: lengths
     {1, 1, 2, 4} and 0.1% forced restarts."""
@@ -3083,13 +3039,13 @@ def kernel_phase(dev) -> dict:
         "group, n = 63, 64, 65, one wave's bases and one either side, a view "
         "one byte off alignment, 2^24 + 5 and the PE chunk), one launch "
         "each; waves %s bases" % (front_edge_cases(dev), TK.frontend_waves()))
-    traced = one_kernel_a_call(lambda: TK.encode_frontend_bytes(
+    traced = TK.captured_ops(lambda: TK.encode_frontend_bytes(
         pe_seq_t, pe_qual_t, bins, major))
     check(len(traced) == 1 and "frontend_bytes_kernel" in traced[0],
-          "encode_frontend_bytes is not one kernel a call: the trace shows "
-          "%s" % traced)
-    log("kernel encode_frontend_bytes: one call at the PE chunk traces as "
-        "one kernel, %s" % traced[0])
+          "encode_frontend_bytes is not one kernel a call: its capture "
+          "holds %s" % traced)
+    log("kernel encode_frontend_bytes: one call at the PE chunk captures "
+        "as one kernel, %s" % traced[0])
     results["token_start_mask"]["by_shape"] = {
         fsm_shape + ", uint8 lengths": dict(results["token_start_mask"]),
         fsm_shape + ", int32 lengths": held_and_timed(

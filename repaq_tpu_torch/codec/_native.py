@@ -8,10 +8,12 @@ the test suite runs both paths.
 
 Build: at first use, ``repaq_tpu_torch/native/repaq_native.cpp`` is
 compiled with ``$CXX`` (default ``c++``) into ``repaq_tpu_torch/_build/``,
-under a name that carries a hash of the source, the compiler and the flags,
-so an edited source is rebuilt and a current build is reused by every later
-process. ``-march=native`` is tried first, then the build without it. With
-no compiler, or with REPAQ_TPU_NO_NATIVE set, the numpy fallbacks run.
+under a name that carries a hash of the source, the compiler, the flags and
+the CPU (``cpu_key``), so an edited source is rebuilt, a current build is
+reused by every later process, and a build carried to another CPU (a shared
+or copied tree) is never loaded there: ``-march=native`` is tried first,
+then the build without it. With no compiler, or with REPAQ_TPU_NO_NATIVE
+set, the numpy fallbacks run.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -58,25 +61,64 @@ def _scratch(key: str, nbytes: int) -> np.ndarray:
     return buf
 
 
-def build() -> str:
-    """Compile the host library unless a build of exactly this source,
-    compiler and flags exists; return its path. Raises RuntimeError with
-    the compiler's output when neither the -march=native build nor the
-    plain one succeeds."""
-    cxx = os.environ.get("CXX") or "c++"
-    with open(SOURCE, "rb") as f:
+def cpu_key(cxx: str) -> str:
+    """What ``-march=native`` builds for on this host: the ``flags`` line
+    of /proc/cpuinfo where there is one, else the target that ``cxx``
+    resolves ``-march=native`` to, else the machine's name."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    return " ".join(sorted(line.split(":", 1)[1].split()))
+    except OSError:
+        pass
+    try:
+        r = subprocess.run([cxx, "-march=native", "-Q", "--help=target"],
+                           capture_output=True, text=True, timeout=60)
+        if r.returncode == 0:
+            return " ".join(r.stdout.split())
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    return platform.machine()
+
+
+def _resolve(source, build_dir, flags, cxx):
+    return (source or SOURCE, build_dir or BUILD_DIR,
+            CXX_FLAGS if flags is None else flags,
+            cxx or os.environ.get("CXX") or "c++")
+
+
+def library_path(source: str | None = None, build_dir: str | None = None,
+                 flags: list | None = None, cxx: str | None = None) -> str:
+    """Where ``build`` puts the library: in build_dir, under a name that
+    hashes the source, the compiler, the flags and ``cpu_key``."""
+    source, build_dir, flags, cxx = _resolve(source, build_dir, flags, cxx)
+    with open(source, "rb") as f:
         h = hashlib.sha256(f.read())
-    h.update(" ".join([cxx] + CXX_FLAGS).encode())
-    path = os.path.join(BUILD_DIR,
+    h.update(" ".join([cxx] + flags).encode())
+    h.update(cpu_key(cxx).encode())
+    return os.path.join(build_dir,
                         "librepaq_native-%s.so" % h.hexdigest()[:16])
+
+
+def build(source: str | None = None, build_dir: str | None = None,
+          flags: list | None = None, cxx: str | None = None) -> str:
+    """Compile the C++ library `source` into `build_dir` with `flags` and
+    `cxx` (by default the host library: SOURCE into BUILD_DIR with
+    CXX_FLAGS and $CXX or c++) unless ``library_path`` already holds a
+    build; return that path. Raises RuntimeError with the compiler's
+    output when neither the -march=native build nor the plain one
+    succeeds."""
+    source, build_dir, flags, cxx = _resolve(source, build_dir, flags, cxx)
+    path = library_path(source, build_dir, flags, cxx)
     if os.path.exists(path):
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     tmp = "%s.tmp%d.so" % (path[:-3], os.getpid())
     failures = []
     for extra in (["-march=native"], []):
         try:
-            r = subprocess.run([cxx, *CXX_FLAGS, *extra, "-o", tmp, SOURCE],
+            r = subprocess.run([cxx, *flags, *extra, "-o", tmp, source],
                                capture_output=True, text=True, timeout=300)
         except (OSError, subprocess.TimeoutExpired) as e:
             failures.append("%s: %s" % (" ".join(extra) or "plain", e))
@@ -90,7 +132,7 @@ def build() -> str:
     if os.path.exists(tmp):
         os.remove(tmp)
     raise RuntimeError("%s failed building %s:\n%s"
-                       % (cxx, SOURCE, "\n".join(failures)))
+                       % (cxx, source, "\n".join(failures)))
 
 
 def _load():

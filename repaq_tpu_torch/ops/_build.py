@@ -187,6 +187,8 @@ def _bind(path: str) -> ctypes.CDLL:
         entry.restype = ll
     lib.repaq_bucket_compact_mask_switch.argtypes = []
     lib.repaq_bucket_compact_mask_switch.restype = ll
+    lib.repaq_graph_nodes.argtypes = [vp, vp, vp, ll, ll]
+    lib.repaq_graph_nodes.restype = ll
     return lib
 
 

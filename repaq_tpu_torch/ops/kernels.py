@@ -10,11 +10,14 @@ tensor runs the plain version, a CUDA tensor launches the kernel (built on
 first use by ``_build``) and raises if the launch is refused. There is no
 fallback from one to the other. ``launches`` counts kernel launches per
 wrapper, so a run can show that its main path went through the kernels;
-the rANS wrappers of ``rans_device`` count here too.
+the rANS wrappers of ``rans_device`` count here too. ``captured_ops``
+lists the device operations of one call, read from a CUDA graph that
+captures it (csrc/graph.cu), for the checks that count a call's kernels.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import torch
@@ -43,6 +46,57 @@ def reset_launches() -> None:
 def _counted(name: str) -> None:
     with _launch_lock:
         launches[name] += 1
+
+
+# cudaGraphNodeType's values of the nodes a stream capture of a wrapper
+# makes; "empty" nodes do no work and are left out
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 5: "empty"}
+_NAME_LEN = 1024
+_capture_streams = {}
+
+
+def captured_ops(fn) -> list:
+    """The device operations that one fn() call enqueues, in the order a
+    CUDA graph capture of the call records them: each kernel by its
+    demangled name, each other operation by its node type ("memcpy",
+    "memset", ...). The capture records every operation the call enqueues
+    on the current device and runs none of them. fn runs once uncaptured
+    on the capturing stream first, so that what a wrapper keeps for a
+    stream (the status words) exists before the capture; fn must not
+    synchronise with the host."""
+    lib = _build.library()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with _launch_lock:
+        if dev not in _capture_streams:
+            _capture_streams[dev] = torch.cuda.Stream(dev)
+        stream = _capture_streams[dev]
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        fn()
+    cap = 1 << 12
+    types = (ctypes.c_int * cap)()
+    names = ctypes.create_string_buffer(cap * _NAME_LEN)
+    n = lib.repaq_graph_nodes(graph.raw_cuda_graph(), ctypes.addressof(types),
+                              ctypes.addressof(names), cap, _NAME_LEN)
+    graph.reset()
+    if n < 0 or n > cap:
+        raise RuntimeError("reading the captured graph failed: %s"
+                           % ("error %d" % -n if n < 0
+                              else "%d nodes, more than %d" % (n, cap)))
+    ops = []
+    for i in range(n):
+        kind = _NODE_TYPES.get(types[i], "node type %d" % types[i])
+        if kind == "kernel":
+            raw = names.raw[i * _NAME_LEN:(i + 1) * _NAME_LEN]
+            ops.append(raw.split(b"\0", 1)[0].decode(errors="replace"))
+        elif kind != "empty":
+            ops.append(kind)
+    return ops
 
 
 def _on_cuda(*tensors) -> bool:

@@ -40,7 +40,7 @@ from chip_smoke import (COMPACT_CALLS, COMPACT_CAPS, COMPACT_CASES,
                         decode_case,
                         decode_case_inputs, fill_args, fill_case,
                         fill_chunk_inputs, fill_loop, front_case, fsm_case,
-                        layout_case, one_kernel_a_call, overlap_case,
+                        layout_case, overlap_case,
                         rans_case, rans_case_inputs, rans_shape_data,
                         run_case, seg_case)
 from test_device_engine import _mk_block
@@ -152,11 +152,11 @@ def test_front_kernels_on_edge_cases(cuda, case, kernel):
 
 @pytest.mark.cuda
 def test_frontend_bytes_is_one_kernel_a_call(cuda):
-    """At the PE chunk, a torch.profiler trace of one encode_frontend_bytes
-    call shows its kernel and nothing else: no torch pass after it."""
+    """At the PE chunk, a CUDA graph capture of one encode_frontend_bytes
+    call holds its kernel and nothing else: no torch pass after it."""
     seq, qual, table, major = _frontend_case(PE_BASES, 5, 0.01, True)
     args = [torch.from_numpy(a).to(cuda) for a in (seq, qual, table)]
-    traced = one_kernel_a_call(lambda: TK.encode_frontend_bytes(*args, major))
+    traced = TK.captured_ops(lambda: TK.encode_frontend_bytes(*args, major))
     assert len(traced) == 1 and "frontend_bytes_kernel" in traced[0], traced
 
 
@@ -551,7 +551,7 @@ def test_pair_kernels_at_a_real_pe_chunk(cuda):
     """The pair kernels at one real PE chunk's calls recorded through
     cli.main (chip_smoke.pe_chunk_calls: 40,000 pairs, b_cap 98,304):
     each equal to its plain version and to the parent's composition, and
-    one device kernel a call under torch.profiler."""
+    one device kernel a call in a CUDA graph capture."""
     rec = pe_chunk_calls(cuda)
     seq_mat, qual_mat, n_pairs, shift, search = rec["pe_encode_pairs"]
     s1, q1, s2, q2 = (x.clone() for x in (seq_mat, qual_mat) * 2)
@@ -570,8 +570,8 @@ def test_pair_kernels_at_a_real_pe_chunk(cuda):
                                                     nbq))
     assert torch.equal(got, parent_pe_decode(stored.clone(), qual.clone(),
                                              tables, L, nbq)())
-    # traced in a process of its own (chip_smoke.pairs_traced)
-    enc_kernels, dec_kernels = pairs_traced()
+    # captured in CUDA graphs (chip_smoke.pairs_traced)
+    enc_kernels, dec_kernels = pairs_traced(rec)
     assert len(enc_kernels) == 1 and "pe_encode_kernel" in enc_kernels[0]
     assert len(dec_kernels) == 1 and "pe_decode_kernel" in dec_kernels[0]
 
@@ -1073,12 +1073,33 @@ def test_bucket_compact_at_main_path_shapes(cuda, index):
 @pytest.mark.parametrize("form", [(True, 1), (False, 4), (False, 8),
                                   (False, 9)])
 def test_bucket_compact_device_kernels(cuda, form):
-    """A call's device kernels under torch.profiler (chip_smoke's
-    compact_traced, in a process of its own): one for a mask, two for ids
-    up to 8 buckets, three (the match route) above."""
-    (kernels,) = compact_traced([form])
+    """A call's device operations in a CUDA graph capture (chip_smoke's
+    compact_traced): one kernel for a mask, two for ids up to 8 buckets,
+    three (the match route) above, and no other operation."""
+    (kernels,) = compact_traced([form], cuda)
     assert len(kernels) == (1 if form[0] else 2 if form[1] <= 8 else 3), \
         kernels
+
+
+@pytest.mark.cuda
+def test_captured_ops_sees_every_launch(cuda):
+    """The means of the kernel-count checks: a capture of 300 launches
+    in a row (torch's kernels and the package's in turns) lists each of
+    them once, in order, and runs none of them."""
+    x = torch.zeros(4096, dtype=torch.int32, device=cuda)
+    case = compact_args(compact_seeded(1000, 1, "at", False), cuda)
+
+    def calls():
+        for _ in range(100):
+            x.add_(1)
+            TK.bucket_compact(*case)
+            x.view(torch.uint8)[:4].zero_()
+
+    ops = TK.captured_ops(calls)
+    assert len(ops) == 300, ops
+    assert all("compact" in op for op in ops[1::3]), ops[:6]
+    torch.cuda.synchronize()
+    assert int(x[1]) == 100  # the capture ran nothing, the warm-up once
 
 
 @pytest.mark.cuda

@@ -26,6 +26,10 @@ from repaq_tpu_torch.format.chunk import RfqChunk
 from repaq_tpu_torch.format.header import RfqHeader
 from repaq_tpu_torch.format.rfqz import RfqzReader
 from repaq_tpu_torch.parallel import distributed as PD
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FX = os.path.join(REPO, "tests", "fixtures")

@@ -34,6 +34,10 @@ from repaq_tpu_torch.codec import device_engine as DE
 from repaq_tpu_torch.codec.device_engine import DeviceEngine
 from repaq_tpu_torch.ops import device_streams as T
 from repaq_tpu_torch.ops import kernels as TK
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 def _t(a):

@@ -20,6 +20,10 @@ import torch
 from repaq_tpu.codec import kernels_np as K
 from repaq_tpu.ops import pallas_tpu as PT
 from repaq_tpu_torch.ops import kernels as TK
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 _U = np.uint32
 _LOW7, _HIGH = _U(0x7F7F7F7F), _U(0x80808080)

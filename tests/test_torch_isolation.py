@@ -23,6 +23,10 @@ from repaq_tpu_torch import cli as tcli
 from repaq_tpu_torch.codec import _native
 from repaq_tpu_torch.codec import rans_np as TR
 from repaq_tpu_torch.format import header as TH
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
@@ -156,3 +160,41 @@ def test_native_library_builds_from_the_port_source(tmp_path, monkeypatch):
     c = np.concatenate([codes[seq], np.zeros(-seq.shape[0] % 4, np.uint8)])
     want = c[0::4] | (c[1::4] << 2) | (c[2::4] << 4) | (c[3::4] << 6)
     assert np.array_equal(out, want)
+
+
+def test_native_library_name_is_keyed_on_the_cpu(tmp_path, monkeypatch):
+    """The same CPU key gives the same path, another key another path."""
+    monkeypatch.setattr(_native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_native, "cpu_key", lambda _cxx: "fpu sse2 avx2")
+    path = _native.library_path()
+    assert os.path.dirname(path) == str(tmp_path)
+    assert _native.library_path() == path
+    monkeypatch.setattr(_native, "cpu_key",
+                        lambda _cxx: "fpu sse2 avx2 avx512_fp16")
+    assert _native.library_path() != path
+
+
+def test_native_library_of_another_cpu_is_never_loaded(tmp_path,
+                                                       monkeypatch):
+    """A library built for another CPU key sits in the build directory
+    (a copied tree); on this CPU, with no compiler to build its own, the
+    loader takes the numpy fallbacks and not that library."""
+    cxx = os.environ.get("CXX") or "c++"
+    if shutil.which(cxx) is None:
+        pytest.skip("no C++ compiler (%s) to build the native library" % cxx)
+    monkeypatch.setattr(_native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_native, "cpu_key", lambda _cxx: "another cpu")
+    other = _native.build()
+    monkeypatch.setattr(_native, "cpu_key", lambda _cxx: "this cpu")
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    monkeypatch.delenv("REPAQ_TPU_NO_NATIVE", raising=False)
+    monkeypatch.setattr(_native, "_LIB", None)
+    monkeypatch.setattr(_native, "_TRIED", False)
+    loaded = []
+    monkeypatch.setattr(_native.ctypes, "CDLL",
+                        lambda path, *a, **k: loaded.append(path))
+    with pytest.raises(RuntimeError):
+        _native.build()
+    assert not _native.available()
+    assert loaded == []
+    assert os.listdir(tmp_path) == [os.path.basename(other)]

@@ -21,6 +21,10 @@ from repaq_tpu_torch.ops import _build
 from repaq_tpu_torch.ops import kernels as TK
 
 from test_torch_cuda import _frontend_case, _seq
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 @pytest.mark.parametrize("n_frac,esc", [(0.0, False), (0.001, True),

@@ -24,6 +24,10 @@ from repaq_tpu_torch.format.header import RfqFormatError
 from repaq_tpu_torch.parallel import mesh_engine as M
 
 from test_device_engine import _mk_block
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FX = os.path.join(REPO, "tests", "fixtures")

@@ -33,6 +33,10 @@ from repaq_tpu_torch.codec import vectorized
 from repaq_tpu_torch.ops import kernels as TK
 
 from test_device_engine import _mk_block
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 ACGTN = np.frombuffer(b"ACGTN", np.uint8)

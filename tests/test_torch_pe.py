@@ -32,6 +32,10 @@ from repaq_tpu_torch.ops import kernels as TK
 from chip_smoke import OVERLAP_CASES, overlap_case, pe_overlap_grid
 from test_device_engine import _mk_block
 from test_torch_cuda import _frontend_case
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FX = os.path.join(REPO, "tests", "fixtures")

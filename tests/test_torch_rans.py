@@ -32,6 +32,10 @@ from repaq_tpu_torch.ops import rans_device as T
 
 from chip_smoke import LAYOUT_CASES, _layout_case_makers, layout_case
 from test_device_engine import _mk_block
+from test_torch_reference import jax_cli_argv, jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 REPO = Path(__file__).resolve().parent.parent
 ALPHABET = np.frombuffer(b"\x00\x01\x01\x01\x02\x05\x80\xff\x41\x41", np.uint8)
@@ -602,7 +606,11 @@ def test_rfqz_section_coder_binds_the_device_only_under_engine_device():
 
 
 def _run(mod, *args):
-    r = subprocess.run([sys.executable, "-m", mod, *map(str, args)],
+    """python -m mod args; the JAX CLI with its native code bound to the
+    reference build (test_torch_reference.jax_cli_argv)."""
+    argv = (jax_cli_argv(*args) if mod == "repaq_tpu.cli"
+            else [sys.executable, "-m", mod, *map(str, args)])
+    r = subprocess.run(argv,
                        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
                             "JAX_PLATFORMS": "cpu"},
                        capture_output=True)

@@ -28,6 +28,10 @@ from repaq_tpu.ops import rans_device as D
 from repaq_tpu_torch.ops import rans_device as T
 
 from chip_smoke import DECODE_CASES, _decode_case_makers, decode_case
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import profile_rans  # noqa: E402

@@ -25,6 +25,10 @@ from repaq_tpu.ops import device_streams as D
 from repaq_tpu_torch.ops import device_streams as T
 from repaq_tpu_torch.ops import kernels as TK
 from test_torch_streams import _qual_case
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 def _t(a):

@@ -15,6 +15,10 @@ from repaq_tpu.format.header import RfqHeader
 from repaq_tpu.ops import device_streams as D
 from repaq_tpu_torch.codec.device_engine import _bucket
 from repaq_tpu_torch.ops import device_streams as T
+from test_torch_reference import jax_native  # noqa: F401
+
+# repaq_tpu's native code runs from its source built for this CPU
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 def _t(a):
