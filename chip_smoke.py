@@ -82,7 +82,7 @@ Phases, each of which must pass:
      index_put_ and the 73,138,176-entry run grid aimed at a dump byte),
      and at that chunk's modeled N deltas and N bases, then at every
      fill_runs call of one real SE chunk recorded through cli.main (the
-     encode's three layout writes, the decode's N deltas and N bases),
+     encode's coordinate layout write, the decode's N deltas and N bases),
      each beside its bound and index_put_ of its writes. The
      output-stationary
      run writes of the same source, fill_sorted_runs and concat_row_spans,
@@ -101,14 +101,27 @@ Phases, each of which must pass:
      cap, cap past n and 0, runs across tiles; against its plain version
      and a numpy argsort), then at every call of one SE chunk of phase 4's
      corpus, as the device path makes them (compact_shapes: the grouping
-     of 12,582,912 bin ids, the N flags, the decode's token starts with
-     their windows and the emission's three count >= 2 compactions), each
+     of 12,582,912 bin ids, the N flags, the coordinates' count >= 2
+     compaction and the decode's token starts with their windows; and the
+     quality and N streams' count >= 2 compactions, which only the
+     emission's plain versions make now, recorded by running them on the
+     chunk's emission calls), each
      timed beside its bound, its device kernels a call counted in a CUDA
      graph capture (one for a mask, two for ids), and timed in turns
-     beside the parent's torch.sort of the same keys with its gather;
+     beside the parent's torch.sort of the same keys with its gather.
+     The encode's gap/run emission (qualcol_emit, positions_emit) on every
+     EMIT_CASES, POS_CASES and EMIT_WAVE case placed by the built tile
+     (runs and bin ends either side of a tile edge, runs over 2 and 3
+     tiles, 4-byte gaps and escapes at an edge, one element, empty bins,
+     124 bins, caps at and below the count, an output shorter than the
+     stream, gaps of 2^29, 1,100 tiles), one launch each, then at one real
+     SE and one real PE chunk's calls recorded through cli.main, each
+     exact, its device operations a call counted in a CUDA graph capture,
+     timed beside its bound and, in turns, beside the parent's torch
+     composition (its plain version on the card);
      after phase 5 both scans are held and timed again at the
-     shapes the two corpora handed them (the SE and PE quality streams and
-     coordinate rows, and decode token counts), and after
+     shapes the two corpora handed them (the SE and PE coordinate rows and
+     decode token counts), and after
      phase 6 rans_encode is held and timed on the largest order-1 section
      the SE compress coded (real .rfq bytes), then tools/profile_rans.py's
      sweep of its block size, window and batch is logged at these shapes
@@ -126,14 +139,16 @@ Phases, each of which must pass:
      byte-compared with the host engine's output, decompressed and
      compared with the input; every chunk must have taken the device path
      and every kernel of the SE path must have launched on it,
-     run_offsets 3 times a chunk on compress and never on decompress,
+     run_offsets once a chunk on compress and never on decompress,
      seg_positions once a chunk on decompress and never on compress (the
      same in phases 7 and 8; pe_encode_pairs likewise once a PE compress
      chunk and pe_decode_rows once a PE decompress chunk and never
-     elsewhere, overlap_pairs never, fill_runs 3 times a compress chunk and
+     elsewhere, overlap_pairs never, qualcol_emit and positions_emit
+     once a compress chunk and never on decompress, fill_runs once a
+     compress chunk and
      twice a decompress chunk, fill_sorted_runs once a decompress chunk,
      concat_row_spans once a PE compress chunk,
-     bucket_compact 5 times a compress chunk and once a decompress
+     bucket_compact 3 times a compress chunk and once a decompress
      chunk), and the shapes they were handed are logged.
      The round
      trip runs twice: the first (cold) pays torch's lazy setup of each
@@ -264,6 +279,15 @@ KERNELS = [
     ("concat_row_spans", "repaq_tpu_torch/csrc/fill.cu",
      "repaq_tpu/codec/device_engine.py:606-618",
      ("pe", "mesh_pe", "shard_pe")),
+    # the encode's gap/run token emission after its grouping sort
+    ("qualcol_emit", "repaq_tpu_torch/csrc/emit.cu",
+     "repaq_tpu/ops/device_streams.py:423-622 (qualcol_encode_device after "
+     "its grouping sort: :258, :289, :316, :210, :160, :48)",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+    ("positions_emit", "repaq_tpu_torch/csrc/emit.cu",
+     "repaq_tpu/ops/device_streams.py:366 (_positions_from_gpos under "
+     "encode_positions_from_meta32, :383)",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
     # the compaction and grouping sorts
     ("bucket_compact", "repaq_tpu_torch/csrc/compact.cu",
      "repaq_tpu/ops/device_streams.py:136, :187, :237, :403-419, :502, "
@@ -904,9 +928,9 @@ def fill_kernel_phase(dev) -> dict:
     shapes of that chunk: the int32 deltas (786,432 entries, the starts
     kept) and the N bases (786,432 entries, -1 past the real ones, one
     value); then at every call of one real SE chunk recorded through
-    cli.main (chunk_calls, FILL_CALLS: the encode's three layout writes,
-    the decode's N deltas and N bases), each beside its bound and its
-    index_put_."""
+    cli.main (chunk_calls, FILL_CALLS: the encode's coordinate layout
+    write, the decode's N deltas and N bases), each beside its bound and
+    its index_put_."""
     import numpy as np
     import torch
 
@@ -1001,7 +1025,7 @@ def fill_kernel_phase(dev) -> dict:
                                    if "deltas" in label
                                    else (seq, pos_t, 1, ord("N")))))
     # every call of one real SE chunk as the main path makes it
-    # (chunk_calls): the encode's three layout writes and the decode's N
+    # (chunk_calls): the encode's coordinate layout write and the decode's N
     # deltas and N bases, in place on copies of the recorded outputs
     calls = chunk_calls(dev)["fill_runs"]
     check(len(calls) == len(FILL_CALLS), "the SE chunk called fill_runs %d "
@@ -1021,8 +1045,7 @@ def fill_kernel_phase(dev) -> dict:
 
 # fill_runs' calls in one SE chunk of the smoke corpora, in the order the
 # device path makes them
-FILL_CALLS = ("quality stream layout", "N-position stream layout",
-              "coordinate streams layout", "N deltas", "N bases")
+FILL_CALLS = ("coordinate streams layout", "N deltas", "N bases")
 
 
 def fill_library(out, start, count, value, keep=None):
@@ -1516,7 +1539,8 @@ def concat_writes(src, src_start, span, dest_off, length):
 
 
 # the PE chunk's calls pe_chunk_calls records, by name
-PE_RECORDED = ("concat_row_spans", "pe_encode_pairs", "pe_decode_rows")
+PE_RECORDED = ("concat_row_spans", "pe_encode_pairs", "pe_decode_rows",
+               "qualcol_emit", "positions_emit")
 _PE_CHUNK_CALLS: dict = {}
 
 
@@ -1549,16 +1573,10 @@ def pe_chunk_calls(dev, pairs: int = 40_000) -> dict:
         rec["elide"].append((tseq.clone(), ov.clone(), n_reads))
         return elide(tseq, ov, n_reads)
 
-    def recording(name):
-        def kernel(*args):
-            rec[name].append(tuple(_clone(a) for a in args))
-            return saved[name](*args)
-        return kernel
-
     eng = DE.DeviceEngine(dev)
     DE._elide = rec_elide
-    for name in PE_RECORDED:
-        setattr(TK, name, recording(name))
+    for name, fn in recorders(rec, saved).items():
+        setattr(TK, name, fn)
     try:
         make_pe_corpus(fqs, pairs, 150, seed=97)
         for argv in (["-c", "-i", fqs[0], "-I", fqs[1], "-o", rfq, "-k",
@@ -1885,16 +1903,33 @@ def compact_edge_cases(dev) -> int:
 
 
 # the bucket_compact calls of one SE chunk, in the order the device path
-# makes them: the compress's five, then the decompress's one
+# makes them on the CPU: the compress's five, then the decompress's one.
+# The quality and N streams' count >= 2 calls ([1], [3]) are the
+# emission's plain versions': on the CPU its wrappers run them inside the
+# main path, on a card the kernels run in their place and
+# emission_compactions records them apart.
 COMPACT_CALLS = ("grouping", "quality count >= 2", "N flags",
                  "N count >= 2", "coordinates count >= 2", "decode tokens")
 _CHUNK_CALLS: dict = {}
 # the kernels whose calls chunk_calls records
-RECORDED = ("bucket_compact", "fill_sorted_runs", "fill_runs")
+RECORDED = ("bucket_compact", "fill_sorted_runs", "fill_runs",
+            "qualcol_emit", "positions_emit")
 
 
 def _clone(a):
     return a.clone() if hasattr(a, "clone") else a
+
+
+def recorders(calls: dict, saved: dict) -> dict:
+    """name -> a stand-in for each kernel wrapper in saved that appends its
+    arguments, cloned, to calls[name] and runs it."""
+    def recording(name):
+        def kernel(*args):
+            calls[name].append(tuple(_clone(a) for a in args))
+            return saved[name](*args)
+        return kernel
+
+    return {name: recording(name) for name in saved}
 
 
 def chunk_calls(dev, reads: int = 80_000) -> dict:
@@ -1921,15 +1956,9 @@ def chunk_calls(dev, reads: int = 80_000) -> dict:
     calls = {name: [] for name in RECORDED}
     saved = {name: getattr(TK, name) for name in RECORDED}
 
-    def recording(name):
-        def kernel(*args):
-            calls[name].append(tuple(_clone(a) for a in args))
-            return saved[name](*args)
-        return kernel
-
     eng = DeviceEngine(dev)
-    for name in RECORDED:
-        setattr(TK, name, recording(name))
+    for name, fn in recorders(calls, saved).items():
+        setattr(TK, name, fn)
     try:
         make_corpus([fq], reads, 150, seed=96)
         for argv in (["-c", "-i", fq, "-o", rfq, "-k", "12000"],
@@ -1945,18 +1974,48 @@ def chunk_calls(dev, reads: int = 80_000) -> dict:
     check(len(calls["fill_sorted_runs"]) == 1, "the chunk's decode called "
           "fill_sorted_runs %d times, not once"
           % len(calls["fill_sorted_runs"]))
+    check(len(calls["qualcol_emit"]) == 1 == len(calls["positions_emit"]),
+          "the chunk's encode called qualcol_emit %d and positions_emit %d "
+          "times, not once each" % (len(calls["qualcol_emit"]),
+                                    len(calls["positions_emit"])))
     _CHUNK_CALLS[key] = calls
     return calls
 
 
+def emission_compactions(calls: dict) -> list:
+    """The arguments of the bucket_compact calls that the emission's plain
+    versions make at chunk_calls' qualcol_emit and positions_emit calls
+    (the quality stream's count >= 2, then the N stream's), recorded by
+    running them once on those calls' arguments."""
+    from repaq_tpu_torch.ops import kernels as TK
+
+    rec = {"bucket_compact": []}
+    saved = {"bucket_compact": TK.bucket_compact}
+    TK.bucket_compact = recorders(rec, saved)["bucket_compact"]
+    try:
+        for entry in ("qualcol_emit", "positions_emit"):
+            emit_plain(entry)(*calls[entry][0])
+    finally:
+        TK.bucket_compact = saved["bucket_compact"]
+    check(len(rec["bucket_compact"]) == 2, "the emission's plain versions "
+          "called bucket_compact %d times, not twice"
+          % len(rec["bucket_compact"]))
+    return rec["bucket_compact"]
+
+
 def chunk_compactions(dev, reads: int = 80_000) -> list:
     """The arguments (bucket, nbuckets, cap, fill, payload) of every
-    bucket_compact call of chunk_calls' SE chunk, in COMPACT_CALLS
-    order."""
+    bucket_compact call of chunk_calls' SE chunk, in COMPACT_CALLS order;
+    where the emission kernels ran (a card), its plain versions' two
+    (emission_compactions) in their places."""
     import torch
 
-    calls = [(c + (None,))[:5] for c in chunk_calls(dev, reads)[
-        "bucket_compact"]]
+    calls = chunk_calls(dev, reads)
+    made = calls["bucket_compact"]
+    if len(made) == len(COMPACT_CALLS) - 2:
+        quality, npos = emission_compactions(calls)
+        made = [made[0], quality, made[1], npos, made[2], made[3]]
+    calls = [(c + (None,))[:5] for c in made]
     forms = [c[0].dtype == torch.bool for c in calls]
     check(forms == [False] + [True] * 5, "the chunk's bucket_compact calls "
           "are not COMPACT_CALLS' ids and five masks: %s" % forms)
@@ -1994,7 +2053,9 @@ def compact_shapes(dev, reads: int = 80_000) -> list:
     stream's count >= 2 with its token fields riding, its N flags, the N
     stream's and the coordinates' count >= 2, and the decode's token
     starts with their windows riding (a dense head, then the buffer's
-    empty tail); parent: compact_library's sort of the same keys."""
+    empty tail); the quality and N count >= 2 calls are the emission's
+    plain versions' (COMPACT_CALLS); parent: compact_library's sort of the
+    same keys."""
     import torch
 
     out = []
@@ -2085,6 +2146,403 @@ def compact_kernel_phase(dev) -> dict:
             res = dict(r)
             res["by_shape"] = {}
         res["by_shape"][label] = r
+    return res
+
+
+# ---------------------------------------------------------------------------
+# gap/run token emission (qualcol_emit, positions_emit): csrc/emit.cu
+# ---------------------------------------------------------------------------
+
+# the quality stream's edge cases, placed by the built tile T in the
+# grouped order (bin 0's elements first): one element; runs of 31, 32, 33
+# and 65; gaps of 128/129 and 16384/16385; a run across a tile edge, a run
+# token at one, a run ending at one; runs over 2 and 3 tiles; a bin's end
+# at T - 1, T and T + 1; 4-byte gaps at the edge; escapes across it; empty
+# bins; 124 bins; the grouping's cap at the count and below it (bins cut);
+# an output shorter than the stream; no escapes with esc_cap 0; a seeded
+# chunk; gaps of 2^29. The N stream's: one position, a run across an edge
+# and over 3 tiles, 4-byte gaps at the edge, the gap sizes, fill past the
+# positions, a cap at the count, an output shorter than the stream and
+# gaps of 2^29. EMIT_WAVE: 1,100 tiles (more than one wave of blocks).
+EMIT_CASES = ("single", "runs", "gaps", "run_across_edge",
+              "run_token_at_edge", "run_ends_at_edge", "run_2_tiles",
+              "run_3_tiles", "bin_edge_m1", "bin_edge_0", "bin_edge_p1",
+              "gap4_edge", "esc_edge", "empty_bins", "many_bins",
+              "cap_exact", "cap_cut", "out_below_total", "esc_cap0",
+              "seeded", "gap_2_29")
+POS_CASES = ("pos_single", "pos_run_edge", "pos_run_3_tiles",
+             "pos_gap4_edge", "pos_gaps", "pos_fill", "pos_exact",
+             "pos_out_below_total", "pos_2_29")
+EMIT_WAVE = ("wave", "pos_wave")
+EMIT_MAJOR, EMIT_ESC = 70, 99
+
+
+def _emit_deltas(*parts):
+    """One int64 array of position deltas from ints and arrays."""
+    import numpy as np
+
+    return np.concatenate([np.asarray(p, np.int64).reshape(-1)
+                           for p in parts])
+
+
+def _run(length: int, lead: int = 3):
+    """A gap of `lead`, then `length` adjacent positions."""
+    import numpy as np
+
+    return np.concatenate([[lead], np.ones(length, np.int64)])
+
+
+def _gaps(d: int, k: int):
+    import numpy as np
+
+    return np.full(k, d, np.int64)
+
+
+def _emit_spec(name: str, tile: int):
+    """(bins, escapes, caps) of a quality case: each bin's and the escapes'
+    position deltas (in ranges of their own), and cap overrides."""
+    import numpy as np
+
+    T = tile
+    rng = np.random.default_rng(2200 + len(name))
+    edge = lambda before, *rest: _emit_deltas(_gaps(2, before), *rest)
+    return {
+        "single": ([[5]], None, {"nm_cap": 1}),
+        "runs": ([_emit_deltas(_run(31), _run(32), _gaps(7, 3), _run(33),
+                               _run(65), _run(64, 1)),
+                  _emit_deltas(1, 1, _run(65, 1), _run(31, 2)), []],
+                 None, {}),
+        "gaps": ([_emit_deltas(_gaps(128, 3), _gaps(129, 3), 16384, 16385,
+                               127, 2, 1 << 18, 16384, 1),
+                  _emit_deltas(129, 16385, 128)], None, {}),
+        "run_across_edge": ([edge(T - 33, _run(70))], None, {}),
+        "run_token_at_edge": ([edge(T - 32, _run(40)), _run(50)], None, {}),
+        "run_ends_at_edge": ([edge(T - 65, _run(64), _run(40)),
+                              edge(20, _run(33))], None, {}),
+        "run_2_tiles": ([edge(50, _run(2 * T + 100))], None, {}),
+        "run_3_tiles": ([edge(T - 5, _run(3 * T + 7), _gaps(3, 50))],
+                        None, {}),
+        "bin_edge_m1": ([edge(T - 40, _run(38)), _run(70, 1)], None, {}),
+        "bin_edge_0": ([edge(T - 40, _run(39)), _run(70, 1)], None, {}),
+        "bin_edge_p1": ([edge(T - 40, _run(40)), _run(70, 1)], None, {}),
+        "gap4_edge": ([edge(T - 2, _gaps(16385, 3), _gaps(2, 40),
+                            _gaps(1 << 20, 2))], None, {}),
+        "esc_edge": ([edge(T - 4)], _emit_deltas(_gaps(3, 6), _run(40)),
+                     {}),
+        "empty_bins": ([rng.integers(1, 300, 900), [], rng.integers(1, 9,
+                        3000), [], [], _run(100), rng.integers(1, 3, 2000),
+                        []], _gaps(5, 3), {}),
+        "many_bins": ([rng.integers(1, 40, int(k)) if k % 7 else []
+                       for k in rng.integers(0, 60, 124)], _gaps(11, 5),
+                      {}),
+        "cap_exact": ([rng.integers(1, 4, 3 * T), rng.integers(1, 200, 500)],
+                      _gaps(2, 9), {"nm_cap": "count"}),
+        "cap_cut": ([rng.integers(1, 4, 2 * T), rng.integers(1, 200, 500)],
+                    _gaps(2, 9), {"nm_cap": "count-100"}),
+        "out_below_total": ([rng.integers(1, 5, 2 * T + 300), _run(90)],
+                            _gaps(4, 7), {"out_size": "total-37"}),
+        "esc_cap0": ([rng.integers(1, 5, T + 300), _run(90)], None,
+                     {"esc_cap": 0}),
+        "seeded": None,
+        "gap_2_29": None,
+    }[name]
+
+
+def _emit_qual(bins, esc, pad: int = 64):
+    """The quality bytes of a case: major everywhere but each bin's and the
+    escapes' positions, laid out range after range; (qual, table)."""
+    import numpy as np
+
+    table = np.array([c for c in range(33, 200)
+                      if c not in (EMIT_MAJOR, EMIT_ESC)][:len(bins)],
+                     np.uint8)
+    parts, base = [], 0
+    for deltas in list(bins) + ([esc] if esc is not None else []):
+        pos = base + np.cumsum(np.asarray(deltas, np.int64)) - 1
+        parts.append(pos)
+        base = int(pos[-1]) + 1 if pos.shape[0] else base
+    qual = np.full(base + pad, EMIT_MAJOR, np.uint8)
+    for b, pos in enumerate(parts):
+        qual[pos] = table[b] if b < len(bins) else EMIT_ESC
+    return qual, table
+
+
+def emit_quality_case(name: str, tile: int) -> dict:
+    """A quality stream case as the engine would code it: qual (n,) u8,
+    its palette table, meta (the frontend's bin ids, an N flag on every
+    97th base), esc_cap and nm_cap by the engine's rule unless the case
+    sets them, and out_size (4 B + n + 8 unless set)."""
+    import numpy as np
+
+    from repaq_tpu_torch.codec.device_engine import _bucket
+
+    if name == "seeded" or name == "wave":
+        n = 40_000 if name == "seeded" else 16_000_000
+        rng = np.random.default_rng(2207)
+        quals = np.frombuffer(NOVA_QUALS, np.uint8)
+        qual = quals[rng.choice(4, size=n, p=NOVA_P)]
+        qual[rng.integers(0, n, size=5)] = EMIT_ESC
+        table = np.array([c for c in quals if c != EMIT_MAJOR], np.uint8)
+        spec = {}
+    else:
+        bins, esc, spec = _emit_spec(name, tile)
+        qual, table = _emit_qual(bins, esc)
+    nbins = table.shape[0]
+    lut = np.full(256, nbins, np.uint8)
+    lut[table] = np.arange(nbins, dtype=np.uint8)
+    lut[EMIT_MAJOR] = nbins + 1
+    bid = lut[qual]
+    nonmajor = int((bid != nbins + 1).sum())
+    n_esc = int((bid == nbins).sum())
+    nm_cap = spec.get("nm_cap", _bucket(nonmajor))
+    nm_cap = {"count": nonmajor, "count-100": nonmajor - 100}.get(nm_cap,
+                                                                 nm_cap)
+    esc_cap = spec.get("esc_cap", 0 if n_esc == 0 else _bucket(n_esc, lo=8))
+    n = qual.shape[0]
+    meta = bid | ((np.arange(n) % 97 == 0).astype(np.uint8) << 7)
+    return {"qual": qual, "table": table, "major": EMIT_MAJOR,
+            "meta": meta, "nbins": nbins, "nm_cap": nm_cap,
+            "esc_cap": esc_cap, "out_size": spec.get("out_size",
+                                                    4 * nbins + n + 8)}
+
+
+def emit_pos_case(name: str, tile: int) -> dict:
+    """An N-position case: the (n,) bool mask, pos_cap (its count unless
+    the case pads it) and out_size (4 bytes a position + 16 unless set)."""
+    import numpy as np
+
+    T = tile
+    rng = np.random.default_rng(2211 + len(name))
+    spec = {
+        "pos_single": (_emit_deltas(9), {}),
+        "pos_run_edge": (_emit_deltas(_gaps(2, T - 33), _run(70),
+                                      _gaps(130, 4)), {}),
+        "pos_run_3_tiles": (_emit_deltas(_gaps(3, 10), _run(3 * T + 7)),
+                            {}),
+        "pos_gap4_edge": (_emit_deltas(_gaps(2, T - 2), _gaps(16385, 3),
+                                       _gaps(1, 5)), {}),
+        "pos_gaps": (_emit_deltas(128, 129, 16384, 16385, 1, 1, 127, 130),
+                     {}),
+        "pos_fill": (rng.integers(1, 40, 3000), {"pos_cap": 4000}),
+        "pos_exact": (rng.integers(1, 6, 2 * T + 11), {}),
+        "pos_out_below_total": (rng.integers(1, 300, 2 * T), {
+            "out_size": "total-3"}),
+        "pos_wave": (rng.integers(1, 8, 1100 * T), {}),
+    }[name]
+    deltas, over = spec
+    pos = np.cumsum(deltas) - 1
+    n = int(pos[-1]) + 1 + 50
+    mask = np.zeros(n, bool)
+    mask[pos] = True
+    return {"mask": mask, "pos_cap": over.get("pos_cap", pos.shape[0]),
+            "out_size": over.get("out_size", 4 * pos.shape[0] + 16)}
+
+
+def emit_args(name: str, tile: int, dev="cpu") -> tuple:
+    """(entry, args) of a case at the kernel's interface, on dev: the
+    grouping's output for qualcol_emit, the compacted positions for
+    positions_emit, made by the plain versions on the CPU; an out_size of
+    "total-k" is set k bytes below the plain version's total."""
+    import numpy as np
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    if name == "gap_2_29":  # direct positions: no 2^29-byte buffer
+        g = np.array([3, 3 + (1 << 29), 4 + (1 << 29), 9 + (1 << 29),
+                      5, 6, 7, (1 << 29) + 100] + [1 << 30] * 4, np.int32)
+        qual = np.full(256, 35, np.uint8)
+        args = ("qualcol_emit", [torch.from_numpy(g),
+                                 torch.tensor([4, 4, 0], dtype=torch.int32),
+                                 torch.from_numpy(qual), 2, 0, 64])
+    elif name == "pos_2_29":
+        g = np.array([3, 3 + (1 << 29), 4 + (1 << 29), 9 + (1 << 29)]
+                     + [1 << 30] * 4, np.int32)
+        args = ("positions_emit", [torch.from_numpy(g), 1 << 30, 64])
+    elif name.startswith("pos_"):
+        c = emit_pos_case(name, tile)
+        mask = torch.from_numpy(c["mask"])
+        g = TK.bucket_compact_plain(mask, 1, c["pos_cap"], mask.shape[0])[0]
+        args = ("positions_emit", [g, mask.shape[0], c["out_size"]])
+    else:
+        c = emit_quality_case(name, tile)
+        g, _p, counts = TK.bucket_compact_plain(
+            torch.from_numpy(c["meta"] & 0x7F), c["nbins"] + 1,
+            c["nm_cap"], c["qual"].shape[0])
+        args = ("qualcol_emit", [g, counts, torch.from_numpy(c["qual"]),
+                                 c["nbins"], c["esc_cap"], c["out_size"]])
+    entry, a = args
+    if isinstance(a[-1], str):  # "total-k": k bytes below the total
+        below = int(a[-1].split("-")[1])
+        a[-1] = 1 << 20
+        a[-1] = int(emit_plain(entry)(*a)[1]) - below
+    return entry, [x.to(dev) if isinstance(x, torch.Tensor) else x
+                   for x in a]
+
+
+def emit_plain(entry: str):
+    """The plain version of an emission entry: the torch composition it
+    replaced, in device_streams (the parent's code)."""
+    from repaq_tpu_torch.ops import device_streams as DS
+
+    return getattr(DS, entry + "_plain")
+
+
+def emit_ref(entry: str, args) -> tuple:
+    """(out, total) of a qualcol_emit or positions_emit call by a numpy
+    loop over the grammar (csrc/emit.cu's header), element by element."""
+    import numpy as np
+
+    a = [x.cpu().numpy() if hasattr(x, "cpu") else x for x in args]
+    if entry == "qualcol_emit":
+        g, counts, qual, nbins, esc_cap, out_size = a
+        starts = [0] + np.cumsum(counts.astype(np.int64)).tolist()
+        limit, hdr = 1 << 32, 4 * nbins
+    else:
+        g, limit, out_size = a
+        nbins, esc_cap, qual, hdr = 1, 0, None, 0
+        starts = [0, 1 << 62, 1 << 62]
+    g = [int(x) for x in g]
+    m = len(g)
+    kinds, deltas = [], []
+    for i, p in enumerate(g):
+        if i >= starts[nbins]:
+            kinds.append("esc" if i < starts[nbins + 1] else None)
+            deltas.append(0)
+            continue
+        if p >= limit:
+            kinds.append(None)
+            deltas.append(0)
+            continue
+        seg = i == 0 or i in starts[1:nbins + 1]
+        d = (p + 1 if seg else p - g[i - 1])
+        d = (d + 2**31) % 2**32 - 2**31
+        deltas.append(d)
+        kinds.append("adj" if d == 1 and p > 1 else
+                     1 if d <= 128 else 2 if d <= 1 << 14 else 4)
+    toks = []
+    run_start = None
+    for i, k in enumerate(kinds):
+        v = (deltas[i] - 1) & 0xFFFFFFFF
+        if k == "adj":
+            run_start = i if run_start is None else run_start
+            if (i - run_start) % 32:
+                toks.append(b"")
+                continue
+            cov = 1
+            while cov < 32 and i + cov < m and kinds[i + cov] == "adj":
+                cov += 1
+            toks.append(bytes([(cov - 1) | 0xC0]))
+            continue
+        run_start = None
+        if k == 1:
+            toks.append(bytes([v & 0xFF]))
+        elif k == 2:
+            toks.append(bytes([((v >> 8) | 0x80) & 0xFF, v & 0xFF]))
+        elif k == 4:
+            toks.append(bytes([((v >> 24) | 0xE0) & 0xFF, (v >> 16) & 0xFF,
+                               (v >> 8) & 0xFF, v & 0xFF]))
+        elif k == "esc":
+            e = i - starts[nbins]
+            p = g[i] & 0xFFFFFFFF if esc_cap > 0 else 0
+            ch = (int(qual[min(max(g[i], 0), qual.shape[0] - 1)])
+                  if 0 < esc_cap and e < esc_cap else 0)
+            toks.append(bytes([ch]) + p.to_bytes(4, "little"))
+        else:
+            toks.append(b"")
+    table = b""
+    if entry == "qualcol_emit":
+        for b in range(nbins):
+            lo, hi = min(starts[b], m), min(starts[b + 1], m)
+            table += (sum(len(t) for t in toks[lo:hi])
+                      & 0xFFFFFFFF).to_bytes(4, "little")
+    stream = table + b"".join(toks)
+    out = np.zeros(out_size, np.uint8)
+    cut = np.frombuffer(stream[:out_size], np.uint8)
+    out[:cut.shape[0]] = cut
+    return out, hdr + len(stream) - len(table)
+
+
+def emit_moved(entry: str, args) -> int:
+    """The bytes an emission call must move: the grouped positions it
+    keeps (those of the bins and escapes, or those below n), the bin
+    counts, a quality byte an escape record it writes a char of, and the
+    output and its length written once."""
+    if entry == "qualcol_emit":
+        g, counts, _qual, nbins, esc_cap, out_size = args
+        kept = min(g.shape[0], int(counts.sum()))
+        esc = max(0, min(kept, int(counts.sum())) - int(counts[:nbins].sum()))
+        return (4 * kept + counts.numel() * 4 + min(esc, esc_cap)
+                + out_size + 4)
+    g, n, out_size = args
+    return 4 * int((g < n).sum()) + out_size + 4
+
+
+def emit_edge_cases(dev) -> int:
+    """Each EMIT_CASES, POS_CASES and EMIT_WAVE case, placed by the built
+    tile, through its entry on dev: exact against the plain version (the
+    whole buffer and the total), one launch each; returns the count."""
+    import torch
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    tile = TK.emit_tile()
+    for name in EMIT_CASES + POS_CASES + EMIT_WAVE:
+        entry, args = emit_args(name, tile, dev)
+        before = TK.launches[entry]
+        out, total = getattr(TK, entry)(*args)
+        check(TK.launches[entry] == before + 1, "%s launched %d times on %s"
+              % (entry, TK.launches[entry] - before, name))
+        pout, ptotal = emit_plain(entry)(*args)
+        check(int(total) == int(ptotal) and torch.equal(out, pout),
+              "%s differs from its plain version on %s (total %d, plain %d, "
+              "%d bytes differ)" % (entry, name, int(total), int(ptotal),
+                                    int((out != pout).sum())))
+    return len(EMIT_CASES + POS_CASES + EMIT_WAVE)
+
+
+def emit_kernel_phase(dev) -> dict:
+    """qualcol_emit and positions_emit on their edge cases, then at one
+    real SE and one real PE chunk's calls recorded through cli.main
+    (chunk_calls, pe_chunk_calls): exact against their plain versions,
+    timed beside their bound (emit_moved), their device operations a call
+    counted in a CUDA graph capture (at most 3), and timed in turns beside
+    the parent's torch composition (the plain version on the card, which
+    is the code the parent ran): parent, kernel, kernel, parent."""
+    from repaq_tpu_torch.ops import kernels as TK
+
+    log("kernels qualcol_emit and positions_emit exact on %d edge cases "
+        "(EMIT_CASES, POS_CASES and EMIT_WAVE at tiles of %d grouped "
+        "elements), one launch each" % (emit_edge_cases(dev),
+                                         TK.emit_tile()))
+    res = {}
+    se, pe = chunk_calls(dev), pe_chunk_calls(dev)
+    for entry in ("qualcol_emit", "positions_emit"):
+        for tag, args in (("SE", se[entry][0]), ("PE", pe[entry])):
+            args = list(args)
+            ops = TK.captured_ops(lambda: getattr(TK, entry)(*args))
+            check(1 <= len(ops) <= 3, "%s ran %d device operations a call "
+                  "at the %s chunk's call: %s" % (entry, len(ops), tag, ops))
+            label = "%s chunk's call: %d grouped, out %d bytes" % (
+                tag, args[0].shape[0], args[-1])
+
+            def kern(a=args):
+                return getattr(TK, entry)(*a)
+
+            def plain(a=args):
+                return emit_plain(entry)(*a)
+
+            r = held_and_timed(entry, kern, plain, (), label, plain_runs=15,
+                               moved=emit_moved(entry, args))
+            r["device_ops"] = ops
+            r["in_turns_ms"] = in_turns([("parent", plain), (entry, kern)],
+                                        "%s %s" % (entry, label))
+            log("kernel %s at the %s chunk's call: device operations %s"
+                % (entry, tag, ops))
+            if entry not in res:
+                res[entry] = dict(r)
+                res[entry]["by_shape"] = {}
+            res[entry]["by_shape"][label] = r
     return res
 
 
@@ -3620,7 +4078,7 @@ def rans_sweep_phase(dev, res: dict, dres: dict, real=None) -> None:
 def boundary_kernels_at_main_path_sizes(kres: dict, cres: dict) -> None:
     """run_offsets and seg_positions at the shapes the SE and PE corpora
     handed them (phases 4 and 5), added to their by-shape readings; the SE
-    quality stream's reading becomes run_offsets' headline, the SE decode
+    coordinate rows' reading becomes run_offsets' headline, the SE decode
     tokens' seg_positions'."""
     import torch
 
@@ -3630,7 +4088,7 @@ def boundary_kernels_at_main_path_sizes(kres: dict, cres: dict) -> None:
             res = boundary_kernels_at(torch.device("cuda:0"), name, shape,
                                       label, sum(shape))
             kres[name]["by_shape"][label] = res
-            if tag == "se" and what in ("quality stream", "decode tokens"):
+            if tag == "se" and what in ("coordinate rows", "decode tokens"):
                 kres[name].update(res)
 
 
@@ -3851,13 +4309,11 @@ def recorded_boundary_shapes(shapes: list):
 
 def main_path_boundary_shapes(shapes: list, cut: int) -> dict:
     """The run-boundary kernels' shapes in one round trip whose first `cut`
-    calls were the compress's, {(kernel, what): shape}: run_offsets' quality
-    stream (its largest 1-D call) and coordinate rows (its 2-D one), and
-    seg_positions' decode tokens (its largest call)."""
+    calls were the compress's, {(kernel, what): shape}: run_offsets'
+    coordinate rows (its one call, 2-D), and seg_positions' decode tokens
+    (its largest call)."""
     enc, dec = shapes[:cut], shapes[cut:]
-    pick = {("run_offsets", "quality stream"):
-            [s for _n, s in enc if len(s) == 1],
-            ("run_offsets", "coordinate rows"):
+    pick = {("run_offsets", "coordinate rows"):
             [s for _n, s in enc if len(s) == 2],
             ("seg_positions", "decode tokens"):
             [s for n, s in dec if n == "seg_positions"]}
@@ -3870,23 +4326,25 @@ def main_path_boundary_shapes(shapes: list, cut: int) -> dict:
 # coordinates, and no quality escapes
 def per_chunk(what: str, pe: bool) -> dict:
     """The launches a chunk of the kernels whose count a chunk fixes, on
-    compress or decompress: run_offsets 3 an encode, seg_positions 1 a
-    decode, pe_encode_pairs 1 a PE encode and pe_decode_rows 1 a PE decode
-    (none in the other direction, none on SE), overlap_pairs none; fill_runs
-    3 an encode (the quality, N-position and coordinate
-    streams' bytes) and 2 a decode (the N positions' deltas, the N bases);
-    fill_sorted_runs 1 a decode (the quality runs), concat_row_spans 1 a
-    PE encode (the elision); bucket_compact 5 an encode (the grouping by
-    bin, the quality and N streams' multi-byte tokens, the N flags, the
-    coordinates' multi-byte values) and 1 a decode (the quality tokens)."""
+    compress or decompress: run_offsets 1 an encode (the coordinate rows),
+    seg_positions 1 a decode, pe_encode_pairs 1 a PE encode and
+    pe_decode_rows 1 a PE decode (none in the other direction, none on
+    SE), overlap_pairs none; qualcol_emit and positions_emit 1 an encode
+    (the quality and N-position streams, whole); fill_runs 1 an encode
+    (the coordinate streams' bytes) and 2 a decode (the N positions'
+    deltas, the N bases); fill_sorted_runs 1 a decode (the quality runs),
+    concat_row_spans 1 a PE encode (the elision); bucket_compact 3 an
+    encode (the grouping by bin, the N flags, the coordinates' multi-byte
+    values) and 1 a decode (the quality tokens)."""
     enc = what == "compress"
-    return {"run_offsets": 3 * enc, "seg_positions": int(not enc),
+    return {"run_offsets": int(enc), "seg_positions": int(not enc),
             "overlap_pairs": 0, "pe_encode_pairs": int(enc and pe),
             "pe_decode_rows": int(pe and not enc),
-            "fill_runs": 3 if enc else 2,
+            "qualcol_emit": int(enc), "positions_emit": int(enc),
+            "fill_runs": 1 if enc else 2,
             "fill_sorted_runs": int(not enc),
             "concat_row_spans": int(enc and pe),
-            "bucket_compact": 5 if enc else 1}
+            "bucket_compact": 3 if enc else 1}
 
 
 def check_chunk_launches(where: str, what: str, launches: dict,
@@ -3987,7 +4445,8 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
     for what, counts in (("compress", enc), ("decompress", dec)):
         check_chunk_launches(tag, what, counts, len(chunks), pe)
     counted = per_chunk("compress", pe)
-    log("corpus %s: run-boundary, overlap, fill and compaction launches, "
+    log("corpus %s: run-boundary, overlap, emission, fill and compaction "
+        "launches, "
         "compress %s, decompress %s, for %d chunks"
         % (tag, {k: enc[k] for k in counted}, {k: dec[k] for k in counted},
            len(chunks)))
@@ -4556,6 +5015,7 @@ def main() -> int:
         kres["fill_runs"] = fill_kernel_phase(torch.device("cuda:0"))
         kres.update(sorted_runs_phase(torch.device("cuda:0")))
         kres["bucket_compact"] = compact_kernel_phase(torch.device("cuda:0"))
+        kres.update(emit_kernel_phase(torch.device("cuda:0")))
         kres.update(rans_kernel_phase(torch.device("cuda:0")))
         golden_phase()
         cres = {"se": corpus_phase("cuda:0", pe=False),

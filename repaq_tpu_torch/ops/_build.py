@@ -187,6 +187,13 @@ def _bind(path: str) -> ctypes.CDLL:
         entry.restype = ll
     lib.repaq_bucket_compact_mask_switch.argtypes = []
     lib.repaq_bucket_compact_mask_switch.restype = ll
+    lib.repaq_emit_tokens.argtypes = [vp, ll, vp, ci, vp, ll, ll, ll, vp, ll,
+                                      vp, vp, vp]
+    lib.repaq_emit_tokens.restype = ci
+    lib.repaq_emit_status_words.argtypes = [ll]
+    lib.repaq_emit_status_words.restype = ll
+    lib.repaq_emit_tile.argtypes = []
+    lib.repaq_emit_tile.restype = ll
     lib.repaq_graph_nodes.argtypes = [vp, vp, vp, ll, ll]
     lib.repaq_graph_nodes.restype = ll
     return lib

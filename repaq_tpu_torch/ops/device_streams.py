@@ -18,6 +18,15 @@ it and with repaq_tpu.codec.kernels_np. What differs from JAX:
   ``kernels.bucket_compact``, one stable bucket compaction that also
   gathers a payload and counts each bucket. The payload is 0 past the kept
   elements, where JAX's rides its fill keys; every caller masks it there.
+- After their grouping, the quality and N-position streams are written
+  whole by one emission kernel each (``kernels.qualcol_emit``,
+  ``kernels.positions_emit``: classification, run tokens, offsets, the
+  length table and the escape records in one launch). The torch
+  composition it replaced, JAX's chain of classification, token bytes,
+  compaction of the multi-byte tokens and layout sort, stays below as the
+  kernels' plain versions (``qualcol_emit_plain``, ``positions_emit_plain``
+  over ``_classify_stream_positions``, ``_stream_b0``, ``_emit_sort_pay``
+  and ``_emit_sort_lazy``), handed to ``kernels`` for CPU tensors.
 - JAX's layout sort, which places each candidate byte at its rank among
   the offsets, is a direct write of each byte at its offset
   (``kernels.fill_runs`` with count 1): the offsets are distinct and cover
@@ -256,91 +265,20 @@ def _stream_b0(delta, emits_run, covered, g1, g2, g4):
     return b0, counts, ttype
 
 
-def _positions_from_gpos(g_pos: torch.Tensor, n: int, out_size: int,
-                         pos_cap: int):
-    """Classify the sorted (pos_cap,) candidate positions (n = invalid
-    fill) and emit their gap/run stream; (out, length)."""
-    i = _arange(pos_cap, g_pos.device)
-    delta, emits_run, covered, g1, g2, g4 = _classify_stream_positions(
-        g_pos, i == 0, g_pos < n
-    )
-    b0, counts, ttype = _stream_b0(delta, emits_run, covered, g1, g2, g4)
-    cum, total = _exclusive_cumsum(counts)
-    return _emit_sort_pay(
-        b0, counts, out_size, cum - counts, total,
-        min(pos_cap, n // 64 + 4), fields=(delta << 2) | ttype, w=4,
-    )
-
-
-def _flag_positions(flag: torch.Tensor, n: int,
-                    pos_cap: int) -> torch.Tensor:
-    """The ascending (pos_cap,) int32 positions < n where flag is set,
-    filled with n (JAX compacts groups of flags first when they are
-    sparse, then sorts; one compaction gives the same positions)."""
-    return _compact(flag[:n], pos_cap, n)[0]
-
-
-def encode_positions_from_meta(meta: torch.Tensor, n: int, out_size: int,
-                               pos_cap: int | None = None):
-    """Gap/run stream of the 'N' positions (< n) flagged in bit 7 of the
-    frontend's meta bytes: the byte-form counterpart of JAX's
-    encode_positions_from_meta32. pos_cap: upper bound on the number of
-    Ns (the engine knows it exactly). Returns (out (out_size,) u8, len)."""
-    pos_cap = max(1, min(n if pos_cap is None else pos_cap, n))
-    g_pos = _flag_positions(meta[:n] >= 0x80, n, pos_cap)
-    return _positions_from_gpos(g_pos, n, out_size, pos_cap)
-
-
-def encode_positions_from_mask(mask: torch.Tensor, out_size: int,
-                               pos_cap: int | None = None):
-    """Gap/run stream of the True positions of the (n,) bool mask (JAX's
-    encode_positions_from_mask, the PE encode's N-position stream).
-    pos_cap: upper bound on the number of True positions (default n).
-    Returns (out (out_size,) u8, length)."""
-    n = mask.shape[0]
-    pos_cap = max(1, min(n if pos_cap is None else pos_cap, n))
-    g_pos = _flag_positions(mask, n, pos_cap)
-    return _positions_from_gpos(g_pos, n, out_size, pos_cap)
-
-
-# ---------------------------------------------------------------------------
-# encode side: by-column quality, coordinates
-# ---------------------------------------------------------------------------
-
-
-def qualcol_encode_device(meta: torch.Tensor | None, qual: torch.Tensor,
-                          nbins: int, esc_cap: int | None = None,
-                          nonmajor_cap: int | None = None,
-                          out_size: int | None = None,
-                          bid: torch.Tensor | None = None):
-    """By-column quality encode (reference rfqcodec.cpp:712-765) from the
-    frontend's bin ids: u32le per-bin lengths, the per-bin gap/run
-    streams, then 5-byte escape records (char + u32le position).
-
-    meta: (n,) u8 (bin id in bits 0-6: 0..B-1 stream, B escape, B+1
-    major), or None with bid: (n,) int bin ids in the same space (the
-    byte-form frontend's output, JAX's bid= form); qual: (n,) u8, read
-    only at escapes. esc_cap / nonmajor_cap: upper bounds on escape
-    records and on non-major positions (default n); esc_cap == 0 skips the
-    escape machinery. Returns (out (out_size,) u8, total_len)."""
+def qualcol_emit_plain(g_pos: torch.Tensor, bin_counts: torch.Tensor,
+                       qual: torch.Tensor, nbins: int, esc_cap: int,
+                       out_size: int):
+    """Plain torch version of ``kernels.qualcol_emit``: the torch
+    composition the kernel replaces (the classification, token bytes,
+    escape gather, length table and emitters above); the wrapper runs it
+    on CPU tensors."""
     dev = qual.device
     n = qual.shape[0]
-    if esc_cap is None:
-        esc_cap = n
-    nonmajor_cap = max(1, min(n if nonmajor_cap is None else nonmajor_cap,
-                              n))
-    if not nbins + 2 < 127:
-        raise ValueError("qualcol device path needs B < 125")
-    m = nonmajor_cap
-    # one compaction groups the emitting positions by bin (the streams,
-    # then the escapes, bucket B) and drops the major ones (B + 1); JAX
-    # sorts the keys bid << 24 | pos for the same order
-    bid = meta & 0x7F if bid is None else bid.to(torch.uint8)
-    g_pos, _p, bin_counts = kernels.bucket_compact(bid, nbins + 1, m, n)
-    # each grouped element's bin: one step up at each bin's end (the fill
-    # past the kept ones reads B + 1, as JAX's fill keys do)
+    m = g_pos.shape[0]
     bin_start = torch.cat([torch.zeros(1, dtype=_I32, device=dev),
                            _cumsum(bin_counts)])
+    # each grouped element's bin: one step up at each bin's end (the fill
+    # past the kept ones reads B + 1, as JAX's fill keys do)
     step = torch.zeros(m + 1, dtype=_I32, device=dev).index_add_(
         0, bin_start[1:].clamp(max=m).long(),
         torch.ones(nbins + 1, dtype=_I32, device=dev))
@@ -405,10 +343,7 @@ def qualcol_encode_device(meta: torch.Tensor | None, qual: torch.Tensor,
 
     # multi-byte elements: per bin the gap deltas sum to <= n, so 2- and
     # 4-byte gaps number < n/128 + n/16384 per bin; escapes <= esc_cap
-    multi_cap = min(nonmajor_cap, nbins * (n // 128 + n // 16384 + 8)
-                    + esc_cap)
-    if out_size is None:
-        out_size = 4 * nbins + n + 8
+    multi_cap = min(m, nbins * (n // 128 + n // 16384 + 8) + esc_cap)
     if esc_cap == 0:
         out, _ = _emit_sort_pay(
             b0, counts, out_size, dest, total, multi_cap,
@@ -422,6 +357,106 @@ def qualcol_encode_device(meta: torch.Tensor | None, qual: torch.Tensor,
         first_mask=(counts >= 1) & ~is_esc,
     )
     return out, total
+
+
+def positions_emit_plain(g_pos: torch.Tensor, n: int, out_size: int):
+    """Plain torch version of ``kernels.positions_emit``: the torch
+    composition the kernel replaces (the classification, token bytes and
+    emitter above)."""
+    pos_cap = g_pos.shape[0]
+    i = _arange(pos_cap, g_pos.device)
+    delta, emits_run, covered, g1, g2, g4 = _classify_stream_positions(
+        g_pos, i == 0, g_pos < n
+    )
+    b0, counts, ttype = _stream_b0(delta, emits_run, covered, g1, g2, g4)
+    cum, total = _exclusive_cumsum(counts)
+    return _emit_sort_pay(
+        b0, counts, out_size, cum - counts, total,
+        min(pos_cap, n // 64 + 4), fields=(delta << 2) | ttype, w=4,
+    )
+
+
+kernels.register_emit_plain(qualcol_emit_plain, positions_emit_plain)
+
+
+def _positions_from_gpos(g_pos: torch.Tensor, n: int, out_size: int,
+                         pos_cap: int):
+    """The gap/run stream of the sorted (pos_cap,) candidate positions (n =
+    invalid fill); (out, length). One ``kernels.positions_emit`` call."""
+    assert g_pos.shape[0] == pos_cap
+    return kernels.positions_emit(g_pos, n, out_size)
+
+
+def _flag_positions(flag: torch.Tensor, n: int,
+                    pos_cap: int) -> torch.Tensor:
+    """The ascending (pos_cap,) int32 positions < n where flag is set,
+    filled with n (JAX compacts groups of flags first when they are
+    sparse, then sorts; one compaction gives the same positions)."""
+    return _compact(flag[:n], pos_cap, n)[0]
+
+
+def encode_positions_from_meta(meta: torch.Tensor, n: int, out_size: int,
+                               pos_cap: int | None = None):
+    """Gap/run stream of the 'N' positions (< n) flagged in bit 7 of the
+    frontend's meta bytes: the byte-form counterpart of JAX's
+    encode_positions_from_meta32. pos_cap: upper bound on the number of
+    Ns (the engine knows it exactly). Returns (out (out_size,) u8, len)."""
+    pos_cap = max(1, min(n if pos_cap is None else pos_cap, n))
+    g_pos = _flag_positions(meta[:n] >= 0x80, n, pos_cap)
+    return _positions_from_gpos(g_pos, n, out_size, pos_cap)
+
+
+def encode_positions_from_mask(mask: torch.Tensor, out_size: int,
+                               pos_cap: int | None = None):
+    """Gap/run stream of the True positions of the (n,) bool mask (JAX's
+    encode_positions_from_mask, the PE encode's N-position stream).
+    pos_cap: upper bound on the number of True positions (default n).
+    Returns (out (out_size,) u8, length)."""
+    n = mask.shape[0]
+    pos_cap = max(1, min(n if pos_cap is None else pos_cap, n))
+    g_pos = _flag_positions(mask, n, pos_cap)
+    return _positions_from_gpos(g_pos, n, out_size, pos_cap)
+
+
+# ---------------------------------------------------------------------------
+# encode side: by-column quality, coordinates
+# ---------------------------------------------------------------------------
+
+
+def qualcol_encode_device(meta: torch.Tensor | None, qual: torch.Tensor,
+                          nbins: int, esc_cap: int | None = None,
+                          nonmajor_cap: int | None = None,
+                          out_size: int | None = None,
+                          bid: torch.Tensor | None = None):
+    """By-column quality encode (reference rfqcodec.cpp:712-765) from the
+    frontend's bin ids: u32le per-bin lengths, the per-bin gap/run
+    streams, then 5-byte escape records (char + u32le position).
+
+    meta: (n,) u8 (bin id in bits 0-6: 0..B-1 stream, B escape, B+1
+    major), or None with bid: (n,) int bin ids in the same space (the
+    byte-form frontend's output, JAX's bid= form); qual: (n,) u8, read
+    only at escapes. esc_cap / nonmajor_cap: upper bounds on escape
+    records and on non-major positions (default n); esc_cap == 0 skips the
+    escape machinery. Returns (out (out_size,) u8, total_len)."""
+    n = qual.shape[0]
+    if esc_cap is None:
+        esc_cap = n
+    nonmajor_cap = max(1, min(n if nonmajor_cap is None else nonmajor_cap,
+                              n))
+    if not nbins + 2 < 127:
+        raise ValueError("qualcol device path needs B < 125")
+    m = nonmajor_cap
+    # one compaction groups the emitting positions by bin (the streams,
+    # then the escapes, bucket B) and drops the major ones (B + 1); JAX
+    # sorts the keys bid << 24 | pos for the same order
+    bid = meta & 0x7F if bid is None else bid.to(torch.uint8)
+    g_pos, _p, bin_counts = kernels.bucket_compact(bid, nbins + 1, m, n)
+    if out_size is None:
+        out_size = 4 * nbins + n + 8
+    # the length table, the bins' tokens and the escape records: one
+    # emission kernel from the grouping
+    return kernels.qualcol_emit(g_pos, bin_counts, qual, nbins, esc_cap,
+                                out_size)
 
 
 def coords_encode2_device(values2: torch.Tensor, out_cap: int,

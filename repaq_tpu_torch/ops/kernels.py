@@ -2,8 +2,8 @@
 version; the counterpart of repaq_tpu/ops/pallas_tpu.py, and of the
 run-boundary scans, the PE overlap search, the PE steps' revcomp, overlap
 clamp and expansion, the decode's masked writes and the stream coders'
-compaction sorts that the JAX package left to XLA, and of the PE encode's
-elision sort.
+compaction sorts and the encode's gap/run token emission that the JAX
+package left to XLA, and of the PE encode's elision sort.
 
 Every wrapper decides by the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (built on
@@ -33,7 +33,7 @@ launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
             "rans_layout": 0, "rans_decode": 0, "overlap_pairs": 0,
             "pe_encode_pairs": 0, "pe_decode_rows": 0, "fill_runs": 0,
             "fill_sorted_runs": 0, "concat_row_spans": 0,
-            "bucket_compact": 0}
+            "bucket_compact": 0, "qualcol_emit": 0, "positions_emit": 0}
 _launch_lock = threading.Lock()
 
 
@@ -1194,3 +1194,121 @@ def bucket_compact(bucket: torch.Tensor, nbuckets: int, cap: int, fill: int,
                 None if scratch is None else scratch.data_ptr(),
                 status.data_ptr(), stream)
     return idx, pay, counts
+
+
+# ---------------------------------------------------------------------------
+# gap/run token emission (JAX: XLA code of the encode's stream coders after
+# their grouping, repaq_tpu/ops/device_streams.py:48, :160, :210, :258,
+# :289, :316, :366, :423-622)
+# ---------------------------------------------------------------------------
+
+_EMIT_MAX_BINS = 124  # qualcol's B < 125
+
+
+def emit_tile() -> int:
+    """Grouped elements per tile of the emission kernel, as the built
+    library reports it; the card tests and chip_smoke.py place edge cases
+    by it."""
+    return int(_build.library().repaq_emit_tile())
+
+
+# The emission's plain versions are the torch composition the kernel
+# replaces. It calls this module's bucket_compact, run_offsets and
+# fill_runs, so it lives above this module, beside its pieces
+# (device_streams.qualcol_emit_plain, positions_emit_plain), and
+# device_streams hands it in here when imported (the package's __init__
+# imports it).
+_emit_plain: dict = {}
+
+
+def register_emit_plain(qualcol_emit, positions_emit) -> None:
+    """Hand in the emission entries' plain versions, run on CPU tensors."""
+    _emit_plain.update(qualcol_emit=qualcol_emit,
+                       positions_emit=positions_emit)
+
+
+def _check_emit(g_pos: torch.Tensor, out_size: int, table: int) -> None:
+    if g_pos.dtype != torch.int32 or g_pos.dim() != 1 or g_pos.shape[0] < 1:
+        raise ValueError("g_pos must be a non-empty 1-D int32 tensor, got "
+                         "%s %s" % (g_pos.dtype, tuple(g_pos.shape)))
+    if g_pos.shape[0] >= 2**31 - 8192:
+        raise ValueError("%d grouped positions, more than the int32 "
+                         "offsets hold" % g_pos.shape[0])
+    if not table <= out_size < (1 << 30):
+        raise ValueError("out_size must hold the %d-byte length table and "
+                         "lie below 2^30, got %d" % (table, out_size))
+
+
+def _emit_launch(name: str, g_pos: torch.Tensor, bin_counts, nbins: int,
+                 qual, limit: int, esc_cap: int, out_size: int, lib=None):
+    """(out, total) from one zero fill and one launch: the kernel's status
+    words and out are one buffer (out a 16-byte aligned view of its
+    tail), so the fill clears both. lib: the package's build unless
+    another is given (a profiler's build of another tree)."""
+    dev = g_pos.device
+    m = g_pos.shape[0]
+    lib = lib or _build.library()
+    g_pos = _aligned(g_pos)
+    head = 8 * lib.repaq_emit_status_words(m)  # a multiple of 16
+    buf = torch.zeros(head + out_size, dtype=torch.uint8, device=dev)
+    status, out = buf[:head], buf[head:]
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        _launch(name, lib.repaq_emit_tokens, g_pos.data_ptr(), m,
+                None if bin_counts is None else bin_counts.data_ptr(), nbins,
+                None if qual is None else qual.data_ptr(),
+                0 if qual is None else qual.shape[0], limit, esc_cap,
+                out.data_ptr(), out_size, total.data_ptr(),
+                status.data_ptr(), stream)
+    return out, total
+
+
+def qualcol_emit(g_pos: torch.Tensor, bin_counts: torch.Tensor,
+                 qual: torch.Tensor, nbins: int, esc_cap: int,
+                 out_size: int):
+    """The by-column quality stream (reference rfqcodec.cpp:712-765) from
+    the grouping's output: g_pos (m,) int32, the grouped positions (bins
+    0..B-1, then the escapes, then fill), bin_counts (B + 1,) int32, each
+    bucket's full count; qual (n,) u8, read at the escapes. Writes the u32le
+    length table, each bin's gap/run tokens and the escape records (char,
+    u32le position; the char for the first esc_cap escapes, none of a
+    record with esc_cap 0) into a zeroed (out_size,) u8 buffer, dropping
+    bytes at offsets >= out_size. Returns (out, total), total an int32
+    tensor counting every byte. Exactly
+    ``device_streams.qualcol_emit_plain`` while the caps the engine gives
+    hold (esc_cap at least the escapes). One memset and one launch, no
+    host sync."""
+    _check_emit(g_pos, out_size, 4 * nbins)
+    if not 0 <= nbins <= _EMIT_MAX_BINS:
+        raise ValueError("nbins must be in 0..%d, got %d"
+                         % (_EMIT_MAX_BINS, nbins))
+    if bin_counts.dtype != torch.int32 or bin_counts.shape != (nbins + 1,):
+        raise ValueError("bin_counts must be (nbins + 1,) int32, got %s %s"
+                         % (bin_counts.dtype, tuple(bin_counts.shape)))
+    _check_u8("qual", qual)
+    if qual.shape[0] < 1 or esc_cap < 0:
+        raise ValueError("qual must be non-empty and esc_cap >= 0")
+    if not _on_cuda(g_pos, bin_counts, qual):
+        return _emit_plain["qualcol_emit"](g_pos, bin_counts, qual, nbins,
+                                           esc_cap, out_size)
+    return _emit_launch("qualcol_emit", g_pos, bin_counts.contiguous(),
+                        nbins, qual.contiguous(), 0, esc_cap,
+                        out_size)
+
+
+def positions_emit(g_pos: torch.Tensor, n: int, out_size: int):
+    """The N-position stream (reference rfqcodec.cpp:625-710) of the
+    ascending (pos_cap,) int32 positions g_pos, those below n one segment
+    (n: the fill): their gap/run tokens in a zeroed (out_size,) u8 buffer,
+    bytes at offsets >= out_size dropped. Returns (out, total), total an
+    int32 tensor counting every byte; exactly
+    ``device_streams.positions_emit_plain``. One memset and one launch, no
+    host sync."""
+    _check_emit(g_pos, out_size, 0)
+    if not 0 <= n < 2**31:
+        raise ValueError("n must be an int32, got %d" % n)
+    if not _on_cuda(g_pos):
+        return _emit_plain["positions_emit"](g_pos, n, out_size)
+    return _emit_launch("positions_emit", g_pos, None, 0, None, n, 0,
+                        out_size)

@@ -43,6 +43,8 @@ from chip_smoke import (COMPACT_CALLS, COMPACT_CAPS, COMPACT_CASES,
                         layout_case, overlap_case,
                         rans_case, rans_case_inputs, rans_shape_data,
                         run_case, seg_case)
+from chip_smoke import (EMIT_CASES, EMIT_WAVE, POS_CASES, emit_args,
+                        emit_plain, emit_ref)
 from test_device_engine import _mk_block
 
 
@@ -1187,3 +1189,107 @@ def test_fill_runs_refuses_a_mix_of_devices(cuda):
     out = torch.zeros(8, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError):
         TK.fill_runs(out, torch.zeros(2, dtype=torch.int32), 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# gap/run token emission (csrc/emit.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EMIT_CASES + POS_CASES + EMIT_WAVE)
+def test_emit_kernels_at_tile_edges(cuda, name):
+    """Each emission case placed by the built tile (runs and bin ends on
+    either side of a tile edge, runs over 2 and 3 tiles, 4-byte gaps and
+    escapes at an edge, one element, caps at and below the count, an
+    output shorter than the stream, 1,100 tiles): one launch, the whole
+    buffer and the total equal to the plain version's and, below 50,000
+    elements, to chip_smoke.emit_ref's numpy loop."""
+    entry, args = emit_args(name, TK.emit_tile(), cuda)
+    before = TK.launches[entry]
+    out, total = getattr(TK, entry)(*args)
+    assert TK.launches[entry] == before + 1
+    pout, ptotal = emit_plain(entry)(*args)
+    assert int(total) == int(ptotal), name
+    assert torch.equal(out, pout), int((out != pout).sum())
+    if args[0].shape[0] < 50_000:
+        rout, rtotal = emit_ref(entry, args)
+        assert int(total) == rtotal
+        assert np.array_equal(out.cpu().numpy(), rout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["run_3_tiles", "esc_edge", "pos_run_3_tiles"])
+def test_emit_device_operations_a_call(cuda, name):
+    """A call in a CUDA graph capture: at most 3 device operations (the
+    output's zero fill and the emission kernel), one of them the kernel."""
+    entry, args = emit_args(name, TK.emit_tile(), cuda)
+    ops = TK.captured_ops(lambda: getattr(TK, entry)(*args))
+    assert 1 <= len(ops) <= 3, ops
+    assert sum("emit" in op for op in ops) == 1, ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["qualcol_emit", "positions_emit"])
+@pytest.mark.parametrize("tag", ["SE", "PE"])
+def test_emit_at_real_chunk_calls(cuda, entry, tag):
+    """At one real SE chunk's and one real PE chunk's calls, recorded
+    through cli.main (chip_smoke.chunk_calls, pe_chunk_calls): the kernel
+    against its plain version, whole buffer and total."""
+    args = (chunk_calls(cuda)[entry][0] if tag == "SE"
+            else pe_chunk_calls(cuda)[entry])
+    out, total = getattr(TK, entry)(*args)
+    pout, ptotal = emit_plain(entry)(*args)
+    assert int(total) == int(ptotal)
+    assert torch.equal(out, pout)
+
+
+@pytest.mark.cuda
+def test_emit_calls_from_threads(cuda):
+    """Calls from 8 threads on one stream, 5 each, every one exact: each
+    call's status words are zeroed with its own output, so no call sees
+    another's."""
+    import threading
+
+    cases = [emit_args(name, TK.emit_tile(), cuda)
+             for name in ("run_2_tiles", "empty_bins", "pos_exact")]
+    want = [emit_plain(e)(*a) for e, a in cases]
+    errors = []
+
+    def work(k):
+        for _ in range(5):
+            e, a = cases[k % len(cases)]
+            out, total = getattr(TK, e)(*a)
+            w_out, w_total = want[k % len(cases)]
+            if int(total) != int(w_total) or not torch.equal(out, w_out):
+                errors.append(k)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors
+
+
+@pytest.mark.cuda
+def test_engine_chunk_emission_launches(cuda):
+    """An SE chunk with Ns and coordinates through the engine on the card:
+    the quality and N-position streams one qualcol_emit and one
+    positions_emit launch, bucket_compact 3 launches on the encode (the
+    grouping, the N flags, the coordinates), run_offsets and fill_runs 1
+    (the coordinates), and the host engine's bytes."""
+    eng = DeviceEngine(cuda, min_bases=0)
+    block = _mk_block(600, 101, seed=5, nfrac=0.01)
+    header = vectorized.make_header_se(block)
+    TK.reset_launches()
+    got = eng.encode_chunk(header, block, False)
+    assert got.to_bytes() == vectorized.encode_chunk(header, block,
+                                                     False).to_bytes()
+    counts = {k: TK.launches[k] for k in ("qualcol_emit", "positions_emit",
+                                          "bucket_compact", "run_offsets",
+                                          "fill_runs")}
+    assert counts == {"qualcol_emit": 1, "positions_emit": 1,
+                      "bucket_compact": 3, "run_offsets": 1,
+                      "fill_runs": 1}, counts

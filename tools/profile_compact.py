@@ -2,8 +2,10 @@
 """Where ``kernels.bucket_compact``'s time goes on one NVIDIA GPU, at every
 call of one SE chunk as the device path makes them (chip_smoke.compact_shapes:
 a chunk of phase 4's corpus through repaq_tpu_torch.cli.main, its grouping
-of 12,582,912 bin ids, its N flags, its emission's three count >= 2
-compactions and its decode's token starts with their windows).
+of 12,582,912 bin ids, its N flags, its coordinates' count >= 2
+compaction and its decode's token starts with their windows; and the
+quality and N streams' count >= 2 compactions that the emission's plain
+versions make at its calls).
 
     python3 tools/profile_compact.py [--tree DIR] [--ablate]
 

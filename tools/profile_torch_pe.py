@@ -22,7 +22,7 @@ of the wall,
 the launches on the device (kernels, then copies and fills), the
 run-boundary kernels' device time and share (the port's kernels of
 csrc/scan.cu, and torch's cummax/cummin kernels should any run), and so
-for the overlap, compaction and run-write kernels, the
+for the overlap, compaction, emission and run-write kernels, the
 host-device copies, the kernels with the most device time, and the time
 inside each of the engine's named stage ranges (``enc.*`` / ``dec.*``,
 see repaq_tpu_torch/codec/device_engine.py and ops/device_streams.py) with
@@ -184,6 +184,7 @@ def report(label: str, prof, wall: float) -> None:
                        ("the port's compaction", ("bucket_compact",
                                                   "compact_mask_kernel",
                                                   "compact_reg_")),
+                       ("the port's emission", ("emit_kernel",)),
                        ("the port's run writes", ("fill_runs_kernel",)),
                        ("the port's sorted-run writes",
                         ("runs_check_kernel", "runs_tile_kernel"))):
