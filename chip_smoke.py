@@ -45,8 +45,8 @@ Phases, each of which must pass:
      call; these three streaming kernels (unpack, pack, byte form) also
      timed at 16 units (the fixed cost of one event-timed launch), at 32
      Mi units, back to back over 8 buffer sets and once after a flush
-     that leaves no dirty line in the L2. The run-boundary kernels (run_offsets on encode,
-     seg_positions on decode) at a whole chunk's 11,829,248 elements and
+     that leaves no dirty line in the L2. The run-boundary kernels (run_offsets on encode;
+     seg_positions, on no path since the parse) at a whole chunk's 11,829,248 elements and
      run_offsets at (2, 80000) coordinate rows, and both at n = 1,
      tile - 1, tile, tile + 1, 3 tiles + 5 and past 3,000 tiles
      (run_offsets 1-D and as 2 rows) on every RUN_KINDS and SEG_KINDS
@@ -82,7 +82,8 @@ Phases, each of which must pass:
      index_put_ and the 73,138,176-entry run grid aimed at a dump byte),
      and at that chunk's modeled N deltas and N bases, then at every
      fill_runs call of one real SE chunk recorded through cli.main (the
-     encode's coordinate layout write, the decode's N deltas and N bases),
+     encode's coordinate layout write, the decode's N bases from
+     positions_parse's runs),
      each beside its bound and index_put_ of its writes. The
      output-stationary
      run writes of the same source, fill_sorted_runs and concat_row_spans,
@@ -118,10 +119,23 @@ Phases, each of which must pass:
      SE and one real PE chunk's calls recorded through cli.main, each
      exact, its device operations a call counted in a CUDA graph capture,
      timed beside its bound and, in turns, beside the parent's torch
-     composition (its plain version on the card);
-     after phase 5 both scans are held and timed again at the
-     shapes the two corpora handed them (the SE and PE coordinate rows and
-     decode token counts), and after
+     composition (its plain version on the card). The decode's gap/run
+     parse (qualcol_parse, positions_parse) on every PARSE_CASES,
+     PARSE_POS_CASES and PARSE_WAVE case placed by the built tile (tokens
+     and bin starts across tile edges, 4-byte gaps to 2^29 and advances
+     past 2^31, runs of 32, 33 and 64, empty bins, a table alone, tok_cap
+     cuts, escapes, FSM entry states that never meet, 124 bins, corrupt
+     tables, 1,100 tiles), one launch each, against its plain version and
+     a numpy loop (parse_ref), then at one real SE and one real PE chunk's
+     calls recorded through cli.main, each exact against both, its device
+     operations a call counted in a CUDA graph capture, timed beside its
+     bound (parse_moved) and, in turns, beside the parent's composition
+     (its plain version on the card: B3, bucket_compact, seg_positions
+     and the torch passes); and one SE chunk's qualcol_decode_device's
+     device operations against the parent's;
+     after phase 5 run_offsets is held and timed again at the
+     shapes the two corpora handed it (the SE and PE coordinate rows),
+     and after
      phase 6 rans_encode is held and timed on the largest order-1 section
      the SE compress coded (real .rfq bytes), then tools/profile_rans.py's
      sweep of its block size, window and batch is logged at these shapes
@@ -140,16 +154,16 @@ Phases, each of which must pass:
      compared with the input; every chunk must have taken the device path
      and every kernel of the SE path must have launched on it,
      run_offsets once a chunk on compress and never on decompress,
-     seg_positions once a chunk on decompress and never on compress (the
-     same in phases 7 and 8; pe_encode_pairs likewise once a PE compress
-     chunk and pe_decode_rows once a PE decompress chunk and never
-     elsewhere, overlap_pairs never, qualcol_emit and positions_emit
-     once a compress chunk and never on decompress, fill_runs once a
-     compress chunk and
-     twice a decompress chunk, fill_sorted_runs once a decompress chunk,
-     concat_row_spans once a PE compress chunk,
-     bucket_compact 3 times a compress chunk and once a decompress
-     chunk), and the shapes they were handed are logged.
+     seg_positions and token_start_mask never (the same in phases 7 and
+     8; pe_encode_pairs likewise once a PE compress chunk and
+     pe_decode_rows once a PE decompress chunk and never elsewhere,
+     overlap_pairs never, qualcol_emit and positions_emit once a compress
+     chunk and never on decompress, qualcol_parse and positions_parse
+     once a decompress chunk and never on compress, fill_runs once a
+     chunk each way, fill_sorted_runs once a decompress chunk,
+     concat_row_spans once a PE compress chunk, bucket_compact 3 times a
+     compress chunk and never on decompress), and the shapes they were
+     handed are logged.
      The round
      trip runs twice: the first (cold) pays torch's lazy setup of each
      operator, the second (warm) is the steady rate. The token FSM is then
@@ -192,9 +206,11 @@ Phases, each of which must pass:
      stats and kernel launches, then `--num_shards 2` decompress of that
      .rfq; the bytes must equal the serial run's of phase 4 or 5, the
      decode must give the inputs back, every rank's chunks must have taken
-     the device both ways, and encode_frontend, unpack_bases and
-     token_start_mask must have launched in every rank (their sums are
-     the launches of the shard_se and shard_pe paths). On one card both
+     the device both ways, and the kernels of SHARD_KERNELS
+     (encode_frontend, run_offsets, bucket_compact and fill_runs on
+     compress; unpack_bases, qualcol_parse, positions_parse, fill_runs and
+     fill_sorted_runs on decompress) must have launched in every rank
+     (their sums are the launches of the shard_se and shard_pe paths). On one card both
      ranks share cuda:0; with more, rank r sees card r alone
      (CUDA_VISIBLE_DEVICES) and a run with one rank a card (at most 4) is
      added. (b) the transport, compress_distributed_torch: NCCL at world
@@ -238,15 +254,13 @@ KERNELS = [
      "repaq_tpu/ops/pallas_tpu.py:127",
      ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
     ("token_start_mask", "repaq_tpu_torch/csrc/token_fsm.cu",
-     "repaq_tpu/ops/pallas_tpu.py:175",
-     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+     "repaq_tpu/ops/pallas_tpu.py:175", ()),
     # the run-boundary and rANS kernels replace XLA code, not Pallas kernels
     ("run_offsets", "repaq_tpu_torch/csrc/scan.cu",
      "repaq_tpu/ops/device_streams.py:33, :37, :275-278, :726-730",
      ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
     ("seg_positions", "repaq_tpu_torch/csrc/scan.cu",
-     "repaq_tpu/ops/device_streams.py:1001, :1138",
-     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+     "repaq_tpu/ops/device_streams.py:1001, :1138", ()),
     ("rans_encode", "repaq_tpu_torch/csrc/rans.cu",
      "repaq_tpu/ops/rans_device.py:152", ("rfqz_se", "rfqz_pe")),
     ("rans_layout", "repaq_tpu_torch/csrc/rans.cu",
@@ -288,6 +302,16 @@ KERNELS = [
      "repaq_tpu/ops/device_streams.py:366 (_positions_from_gpos under "
      "encode_positions_from_meta32, :383)",
      ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+    # the decode's gap/run token parse before its writes (with B3's FSM)
+    ("qualcol_parse", "repaq_tpu_torch/csrc/parse.cu",
+     "repaq_tpu/ops/device_streams.py:1010-1140, :1246-1255 "
+     "(qualcol_decode_device before its writes; its FSM "
+     "repaq_tpu/ops/pallas_tpu.py:175 via token_fsm_pallas :220)",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+    ("positions_parse", "repaq_tpu_torch/csrc/parse.cu",
+     "repaq_tpu/ops/device_streams.py:929-1007 (decode_positions_device, "
+     "its FSM repaq_tpu/ops/pallas_tpu.py:175 via token_fsm_pallas :220)",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
     # the compaction and grouping sorts
     ("bucket_compact", "repaq_tpu_torch/csrc/compact.cu",
      "repaq_tpu/ops/device_streams.py:136, :187, :237, :403-419, :502, "
@@ -304,6 +328,16 @@ NO_PATH = {
     "rans_decode": "none: the CLI reads .rfqz with the host decoder, as the "
                    "JAX CLI does; held against its plain version in phase 2 "
                    "and against rans_np on every section in phase 6",
+    "token_start_mask": "none: qualcol_parse and positions_parse run the "
+                        "token FSM inside their tiles on the decode path; "
+                        "the kernel keeps JAX's token_start_mask signature "
+                        "for the parse's plain versions, the tests and "
+                        "phase 2",
+    "seg_positions": "none: qualcol_parse and positions_parse run the "
+                     "segmented position sum inside their tiles on the "
+                     "decode path; the kernel stays in the parse's plain "
+                     "versions and decode_positions_device, held against "
+                     "its plain version in phase 2",
     "overlap_pairs": "none: pe_encode_pairs runs the same search inside its "
                      "tiles on the PE encode path; the search alone keeps "
                      "JAX's overlap_pairs_device signature for the tests "
@@ -435,6 +469,8 @@ def cuda_ms(fn, runs: int = 15, clean: bool = False, setup=None) -> float:
 def max_abs_err(got, want) -> int:
     if isinstance(got, tuple):
         return max(max_abs_err(g, w) for g, w in zip(got, want))
+    if got.numel() == 0:
+        return 0 if want.numel() == 0 else 1 << 62
     return int((got.long() - want.long()).abs().max().item())
 
 
@@ -929,8 +965,8 @@ def fill_kernel_phase(dev) -> dict:
     kept) and the N bases (786,432 entries, -1 past the real ones, one
     value); then at every call of one real SE chunk recorded through
     cli.main (chunk_calls, FILL_CALLS: the encode's coordinate layout
-    write, the decode's N deltas and N bases), each beside its bound and
-    its index_put_."""
+    write, the decode's N bases from positions_parse's runs), each beside
+    its bound and its index_put_."""
     import numpy as np
     import torch
 
@@ -1026,7 +1062,8 @@ def fill_kernel_phase(dev) -> dict:
                                    else (seq, pos_t, 1, ord("N")))))
     # every call of one real SE chunk as the main path makes it
     # (chunk_calls): the encode's coordinate layout write and the decode's N
-    # deltas and N bases, in place on copies of the recorded outputs
+    # bases (the N stream's runs from positions_parse), in place on copies
+    # of the recorded outputs
     calls = chunk_calls(dev)["fill_runs"]
     check(len(calls) == len(FILL_CALLS), "the SE chunk called fill_runs %d "
           "times, not %d" % (len(calls), len(FILL_CALLS)))
@@ -1045,7 +1082,7 @@ def fill_kernel_phase(dev) -> dict:
 
 # fill_runs' calls in one SE chunk of the smoke corpora, in the order the
 # device path makes them
-FILL_CALLS = ("coordinate streams layout", "N deltas", "N bases")
+FILL_CALLS = ("coordinate streams layout", "N bases")
 
 
 def fill_library(out, start, count, value, keep=None):
@@ -1540,7 +1577,8 @@ def concat_writes(src, src_start, span, dest_off, length):
 
 # the PE chunk's calls pe_chunk_calls records, by name
 PE_RECORDED = ("concat_row_spans", "pe_encode_pairs", "pe_decode_rows",
-               "qualcol_emit", "positions_emit")
+               "qualcol_emit", "positions_emit", "qualcol_parse",
+               "positions_parse")
 _PE_CHUNK_CALLS: dict = {}
 
 
@@ -1903,17 +1941,20 @@ def compact_edge_cases(dev) -> int:
 
 
 # the bucket_compact calls of one SE chunk, in the order the device path
-# makes them on the CPU: the compress's five, then the decompress's one.
+# makes them on the CPU: the compress's five, then the decompress's two.
 # The quality and N streams' count >= 2 calls ([1], [3]) are the
-# emission's plain versions': on the CPU its wrappers run them inside the
-# main path, on a card the kernels run in their place and
-# emission_compactions records them apart.
+# emission's plain versions', the decode's token calls ([5], [6]) the
+# parse's: on the CPU their wrappers run them inside the main path, on a
+# card the kernels run in their place and emission_compactions and
+# parse_compactions record them apart.
 COMPACT_CALLS = ("grouping", "quality count >= 2", "N flags",
-                 "N count >= 2", "coordinates count >= 2", "decode tokens")
+                 "N count >= 2", "coordinates count >= 2", "N decode tokens",
+                 "decode tokens")
 _CHUNK_CALLS: dict = {}
 # the kernels whose calls chunk_calls records
 RECORDED = ("bucket_compact", "fill_sorted_runs", "fill_runs",
-            "qualcol_emit", "positions_emit")
+            "qualcol_emit", "positions_emit", "qualcol_parse",
+            "positions_parse")
 
 
 def _clone(a):
@@ -1974,10 +2015,12 @@ def chunk_calls(dev, reads: int = 80_000) -> dict:
     check(len(calls["fill_sorted_runs"]) == 1, "the chunk's decode called "
           "fill_sorted_runs %d times, not once"
           % len(calls["fill_sorted_runs"]))
-    check(len(calls["qualcol_emit"]) == 1 == len(calls["positions_emit"]),
-          "the chunk's encode called qualcol_emit %d and positions_emit %d "
-          "times, not once each" % (len(calls["qualcol_emit"]),
-                                    len(calls["positions_emit"])))
+    for what, entries in (("encode", ("qualcol_emit", "positions_emit")),
+                          ("decode", ("positions_parse", "qualcol_parse"))):
+        check(all(len(calls[e]) == 1 for e in entries),
+              "the chunk's %s called %s %s times, not once each"
+              % (what, " and ".join(entries),
+                 " and ".join(str(len(calls[e])) for e in entries)))
     _CHUNK_CALLS[key] = calls
     return calls
 
@@ -2003,22 +2046,45 @@ def emission_compactions(calls: dict) -> list:
     return rec["bucket_compact"]
 
 
+def parse_compactions(calls: dict) -> list:
+    """The arguments of the bucket_compact calls that the parse's plain
+    versions make at chunk_calls' positions_parse and qualcol_parse calls
+    (the N stream's tokens, then the quality stream's), recorded by running
+    them once on those calls' arguments."""
+    from repaq_tpu_torch.ops import kernels as TK
+
+    rec = {"bucket_compact": []}
+    saved = {"bucket_compact": TK.bucket_compact}
+    TK.bucket_compact = recorders(rec, saved)["bucket_compact"]
+    try:
+        for entry in ("positions_parse", "qualcol_parse"):
+            parse_plain(entry)(*calls[entry][0])
+    finally:
+        TK.bucket_compact = saved["bucket_compact"]
+    check(len(rec["bucket_compact"]) == 2, "the parse's plain versions "
+          "called bucket_compact %d times, not twice"
+          % len(rec["bucket_compact"]))
+    return rec["bucket_compact"]
+
+
 def chunk_compactions(dev, reads: int = 80_000) -> list:
     """The arguments (bucket, nbuckets, cap, fill, payload) of every
     bucket_compact call of chunk_calls' SE chunk, in COMPACT_CALLS order;
-    where the emission kernels ran (a card), its plain versions' two
-    (emission_compactions) in their places."""
+    where the emission and parse kernels ran (a card), their plain
+    versions' four (emission_compactions, parse_compactions) in their
+    places."""
     import torch
 
     calls = chunk_calls(dev, reads)
     made = calls["bucket_compact"]
-    if len(made) == len(COMPACT_CALLS) - 2:
+    if len(made) == len(COMPACT_CALLS) - 4:
         quality, npos = emission_compactions(calls)
-        made = [made[0], quality, made[1], npos, made[2], made[3]]
+        made = [made[0], quality, made[1], npos, made[2],
+                *parse_compactions(calls)]
     calls = [(c + (None,))[:5] for c in made]
     forms = [c[0].dtype == torch.bool for c in calls]
-    check(forms == [False] + [True] * 5, "the chunk's bucket_compact calls "
-          "are not COMPACT_CALLS' ids and five masks: %s" % forms)
+    check(forms == [False] + [True] * 6, "the chunk's bucket_compact calls "
+          "are not COMPACT_CALLS' ids and six masks: %s" % forms)
     return calls
 
 
@@ -2543,6 +2609,535 @@ def emit_kernel_phase(dev) -> dict:
                 res[entry] = dict(r)
                 res[entry]["by_shape"] = {}
             res[entry]["by_shape"][label] = r
+    return res
+
+
+# ---------------------------------------------------------------------------
+# gap/run token parse (qualcol_parse, positions_parse): csrc/parse.cu
+# ---------------------------------------------------------------------------
+
+# the quality stream's edge cases, placed by the built tile T (tiles start
+# at the table's end rounded down to 16 bytes): one token; 4-byte and
+# 2-byte tokens across tile edges, gaps of 128/129, 16384/16385 and 2^29;
+# run tokens of 32, 33 and 64 positions and at tile edges; bin streams
+# starting at T - 1, T and T + 1; empty bins; a table and nothing else
+# (qual_len == 4 B); tok_cap below the tokens (2 and 1); escapes with
+# esc_cap at and above them, none with esc_cap 0; a stream whose four FSM
+# entry states never meet over 3 tiles; advances past 2^31 (the running
+# max's look-back) with a bin after them; 124 bins; and the corrupt tables
+# the plain version takes: a length with bit 31 set (stream starts out of
+# order), streams past qual_len (blocks past the known grid), a stream end
+# before the table, a token whose window wraps past the buffer's end
+PARSE_CASES = ("single", "gap_edges", "runs", "bin_edges", "empty_bins",
+               "table_only", "tok_cap_cut", "tok_cap_1", "escapes",
+               "esc_cap_above", "no_merge", "wrap_2_31", "bins124",
+               "unsorted", "past_qual_len", "end_before_table",
+               "window_wrap")
+PARSE_POS_CASES = ("pos_single", "pos_edges", "pos_no_merge", "pos_short",
+                   "pos_empty", "pos_cap_cut", "pos_window_wrap",
+                   "pos_gap_2_29")
+PARSE_WAVE = ("wave", "pos_wave")
+
+
+def _tok(kind: str, v: int = 1) -> bytes:
+    """One token's bytes: ("gap", d) of 1, 2 or 4 bytes by size, ("gap2",
+    d) and ("gap4", d) forced to that size, ("run", k) covering k <= 32."""
+    if kind == "run":
+        return bytes([0xC0 | (v - 1)])
+    d = v - 1
+    if kind == "gap4" or (kind == "gap" and v > 0x4000):
+        return bytes([0xE0 | (d >> 24), (d >> 16) & 0xFF, (d >> 8) & 0xFF,
+                      d & 0xFF])
+    if kind == "gap2" or (kind == "gap" and v > 0x80):
+        return bytes([0x80 | (d >> 8), d & 0xFF])
+    return bytes([d])
+
+
+def _fill_to(at: int, target: int, step: int = 2) -> bytes:
+    """1-byte gap tokens (of `step`) from absolute offset `at` to
+    `target`."""
+    return _tok("gap", step) * max(0, target - at)
+
+
+def _parse_quality_spec(name: str, T: int):
+    """(bins' stream bytes, escape records, nbins, extra kwargs) of a
+    quality case; offsets are absolute in the buffer, the streams after
+    the 4 B table."""
+    nbins = {"bins124": 124, "empty_bins": 6, "bin_edges": 4,
+             "table_only": 5, "wrap_2_31": 2, "unsorted": 3}.get(name, 1)
+    hdr = 4 * nbins
+    bins, esc, kw = [], [], {}
+    if name == "single":
+        bins = [_tok("gap", 5)]
+    elif name == "gap_edges":
+        s = _fill_to(hdr, T - 3) + _tok("gap4", 1 << 29)
+        s += _fill_to(hdr + len(s), 2 * T - 1) + _tok("gap2", 129)
+        s += _fill_to(hdr + len(s), 3 * T - 2) + _tok("gap4", 16385)
+        s += _fill_to(hdr + len(s), 4 * T - 1) + _tok("gap4", 70000)
+        s += b"".join(_tok("gap", d) for d in (128, 129, 16384, 16385, 1,
+                                                (1 << 29) - 7, 2))
+        bins = [s]
+    elif name == "runs":
+        s = b"".join(_tok("run", k) for k in (32, 1, 32, 32)) + _tok("gap", 3)
+        s += _fill_to(hdr + len(s), T - 1) + _tok("run", 32) + _tok("run", 32)
+        s += _tok("run", 1) + _fill_to(0, 7) + _tok("run", 17)
+        bins = [s]
+    elif name == "bin_edges":
+        b0 = _fill_to(hdr, T - 1)
+        b1 = _tok("gap", 3)
+        b2 = _fill_to(hdr + len(b0) + len(b1), 2 * T + 1)
+        b3 = _tok("gap4", 99999) + _fill_to(0, 40)
+        bins = [b0, b1, b2, b3]
+    elif name == "empty_bins":
+        bins = [b"", _fill_to(0, 300), b"", b"", _fill_to(0, T) +
+                _tok("run", 9), b""]
+    elif name == "table_only":
+        bins = [b""] * 5
+    elif name in ("tok_cap_cut", "tok_cap_1"):
+        bins = [_fill_to(0, 2 * T + 99)]
+        kw["tok_cap"] = 2 * T + 99 - 5000 if name == "tok_cap_cut" else 1
+    elif name in ("escapes", "esc_cap_above"):
+        bins = [_fill_to(0, T - 2) + _tok("gap4", 1 << 20)]
+        esc = [(33 + 7 * i % 94, 37 + 101 * i) for i in range(700)]
+        if name == "esc_cap_above":
+            kw["esc_cap"] = 900
+    elif name == "no_merge":
+        # gap2 tokens 0x80 0x80: read from either byte, the stream is the
+        # same tokens one byte apart, so the entry states never meet
+        bins = [bytes([0x80]) * (3 * T + 2) + _tok("gap", 2)]
+    elif name == "wrap_2_31":
+        s = _tok("gap", 2) + _tok("gap4", 1 << 29) * (T // 2)
+        bins = [s + _tok("run", 5), _tok("gap4", 1 << 29) * 9 + _tok("gap", 1)]
+    elif name == "bins124":
+        bins = [b"" if b % 7 == 3 else _fill_to(0, 5 + (b * 37) % 200, 3)
+                for b in range(124)]
+    elif name == "unsorted":
+        bins = [_fill_to(0, 900), _fill_to(0, 500), _fill_to(0, 300)]
+        kw["lens"] = [900, 0xFFFFFFF0, 300]
+    elif name == "past_qual_len":
+        bins = [_fill_to(0, 3 * T + 50)]
+        kw["qual_len"] = 4 + 40
+    elif name == "end_before_table":
+        bins = [_fill_to(0, 70)]
+        kw["lens"] = [(1 << 32) - 30]
+        kw["esc_cap"] = 9
+    elif name == "window_wrap":
+        bins = [_fill_to(0, 2 * T + 5) + _tok("gap4", 1 << 28)]
+        kw["pad"] = 0
+        kw["tail"] = 2   # the last token's bytes cut by the buffer's end
+    return bins, esc, nbins, kw
+
+
+def parse_quality_case(name: str, tile: int) -> dict:
+    """(buf, qual_len, nbins, tok_cap, esc_cap) of a PARSE_CASES case as
+    numpy and ints, with "length": the positions a decode of it writes."""
+    import numpy as np
+
+    bins, esc, nbins, kw = _parse_quality_spec(name, tile)
+    lens = kw.get("lens", [len(b) for b in bins])
+    table = b"".join((v & 0xFFFFFFFF).to_bytes(4, "little") for v in lens)
+    recs = b"".join(bytes([c]) + p.to_bytes(4, "little") for c, p in esc)
+    stream = table + b"".join(bins) + recs
+    if "tail" in kw:
+        stream = stream[:len(stream) - kw["tail"]]
+    qual_len = kw.get("qual_len", len(stream))
+    pad = kw.get("pad", 64)
+    if name == "past_qual_len":
+        pad = 5 * tile   # garbage bytes past the stream
+    buf = np.zeros(len(stream) + pad, np.uint8)
+    buf[:len(stream)] = np.frombuffer(stream, np.uint8)
+    if name == "past_qual_len":
+        buf[len(stream):] = np.random.default_rng(5).integers(
+            0, 256, pad, dtype=np.uint8)
+    tok_cap = kw.get("tok_cap", buf.shape[0])
+    esc_cap = kw.get("esc_cap", len(esc))
+    return {"buf": buf, "qual_len": qual_len, "nbins": nbins,
+            "tok_cap": tok_cap, "esc_cap": esc_cap,
+            "length": 1 << 24 if name in ("gap_edges",) else 1 << 20}
+
+
+def parse_pos_case(name: str, tile: int) -> dict:
+    """(buf, valid_len, cap) of a PARSE_POS_CASES case."""
+    import numpy as np
+
+    T = tile
+    valid, pad, cap = None, 64, None
+    if name == "pos_single":
+        s = _tok("gap", 9)
+    elif name == "pos_edges":
+        s = _fill_to(0, T - 1) + _tok("gap4", 70000)
+        s += _fill_to(len(s), 2 * T - 2) + _tok("gap4", 1 << 20)
+        s += _fill_to(len(s), 3 * T - 3) + _tok("gap4", 1 << 29)
+        s += _fill_to(len(s), 4 * T - 1) + _tok("gap2", 200) + _tok("run", 32)
+        s += _fill_to(len(s), 5 * T - 1) + _tok("run", 32) + _tok("run", 2)
+    elif name == "pos_no_merge":
+        s = bytes([0x80]) * (2 * T + 7)
+    elif name == "pos_short":
+        s = _fill_to(0, T + 10) + _tok("gap4", 1 << 16)
+        valid = len(s) - 2   # a token cut by valid_len, garbage after
+    elif name == "pos_empty":
+        s, valid = _fill_to(0, 50), 0
+    elif name == "pos_cap_cut":
+        s, cap = _fill_to(0, 3 * T), 2 * T + 1
+    elif name == "pos_window_wrap":
+        s, pad = _fill_to(0, T + 3) + _tok("gap4", 1 << 18)[:3], 0
+    elif name == "pos_gap_2_29":
+        s = (_tok("gap4", 1 << 29) + _tok("run", 3)) * 20 + _tok("gap", 1)
+    buf = np.zeros(len(s) + pad, np.uint8)
+    buf[:len(s)] = np.frombuffer(s, np.uint8)
+    if name == "pos_short":
+        buf[len(s):] = 0xE7
+    valid = len(s) if valid is None else valid
+    return {"buf": buf, "valid_len": valid,
+            "cap": cap if cap is not None else max(1, valid)}
+
+
+def parse_args(name: str, tile: int, dev="cpu") -> tuple:
+    """(entry, args) of a PARSE_CASES, PARSE_POS_CASES or PARSE_WAVE case:
+    the arguments of qualcol_parse or positions_parse, tensors on dev."""
+    import numpy as np
+    import torch
+
+    if name in ("wave", "pos_wave"):
+        # 1,100 tiles of seeded tokens (gaps of every size, runs)
+        rng = np.random.default_rng(1100)
+        kinds = (b"\x05", b"\x83\x10", b"\xe0\x01\x00\x00", b"\xc7",
+                 b"\x00")
+        pick = rng.choice(len(kinds), size=1100 * tile // 2,
+                          p=[0.5, 0.2, 0.05, 0.15, 0.1])
+        s = b"".join(kinds[k] for k in pick)[:1100 * tile]
+        if name == "pos_wave":
+            buf = np.zeros(len(s) + 64, np.uint8)
+            buf[:len(s)] = np.frombuffer(s, np.uint8)
+            return "positions_parse", [torch.from_numpy(buf).to(dev),
+                                       len(s), len(s)]
+        cut = len(s) // 3
+        lens = [cut, len(s) - cut]
+        stream = b"".join(v.to_bytes(4, "little") for v in lens) + s
+        buf = np.zeros(len(stream) + 64, np.uint8)
+        buf[:len(stream)] = np.frombuffer(stream, np.uint8)
+        return "qualcol_parse", [torch.from_numpy(buf).to(dev), len(stream),
+                                 2, len(s), 0]
+    if name in PARSE_POS_CASES:
+        c = parse_pos_case(name, tile)
+        return "positions_parse", [torch.from_numpy(c["buf"]).to(dev),
+                                   c["valid_len"], c["cap"]]
+    c = parse_quality_case(name, tile)
+    return "qualcol_parse", [torch.from_numpy(c["buf"]).to(dev),
+                             c["qual_len"], c["nbins"], c["tok_cap"],
+                             c["esc_cap"]]
+
+
+def parse_plain(entry: str):
+    """The plain version of a parse entry: the torch composition it
+    replaced, in device_streams (the parent's code)."""
+    from repaq_tpu_torch.ops import device_streams as DS
+
+    return getattr(DS, entry + "_plain")
+
+
+def _wrap32(v: int) -> int:
+    return (v + 2**31) % 2**32 - 2**31
+
+
+def _upper_bound(sb: list, v: int) -> int:
+    """torch.searchsorted(sb, v, right=True) as its binary search runs,
+    sorted or not."""
+    lo, hi = 0, len(sb)
+    while lo < hi:
+        mid = lo + ((hi - lo) >> 1)
+        if not sb[mid] > v:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _parse_fast(buf, m, nbins, lo, end, sb, cap):
+    """(start, count, tokens before each bin, kept) of a valid stream (the
+    stream starts in order, inside the buffer) by numpy: each bin's token
+    starts by the host coder's walk (the FSM restarts at each bin's start,
+    as the force does), its positions from an int64 sum; None where a sum
+    reaches 2^31 (the byte loop's running max then decides)."""
+    import numpy as np
+
+    from repaq_tpu_torch.codec import kernels_np as KN
+
+    bounds = sb + [end] if nbins else [lo, end]
+    toks, per_bin = [], []
+    for b in range(len(bounds) - 1):
+        seg = buf[bounds[b]:bounds[b + 1]]
+        st = (KN._token_starts(seg, KN._stream_token_lens(seg))
+              if seg.shape[0] else np.zeros(0, np.int64))
+        toks.append(st.astype(np.int64) + bounds[b])
+        per_bin.append(st.shape[0])
+    i = np.concatenate(toks) if toks else np.zeros(0, np.int64)
+    win = [buf.take(i + q, mode="wrap").astype(np.int64) for q in range(4)]
+    b0, b1, b2, b3 = win
+    npos = np.where((b0 >= 0xC0) & (b0 < 0xE0), (b0 & 0x1F) + 1, 1)
+    dist = np.where(b0 < 0x80, b0 + 1, np.where(
+        b0 < 0xC0, (((b0 & 0x3F) << 8) | b1) + 1, np.where(
+            b0 >= 0xE0, (((b0 & 0x1F) << 24) | (b1 << 16) | (b2 << 8) | b3)
+            + 1, 1)))
+    adv = dist + npos - 1
+    R = np.cumsum(adv) - adv
+    if i.shape[0] and R[-1] + adv[-1] >= 2**31:
+        return None
+    first = np.cumsum([0] + per_bin)
+    base = np.repeat(R[first[:-1][np.array(per_bin) > 0]],
+                     np.array([c for c in per_bin if c > 0], np.int64))
+    kept = min(i.shape[0], cap)
+    start = np.zeros(cap, np.int32)
+    count = np.zeros(cap, np.int32)
+    start[:kept] = ((R + dist - 1 - base)[:kept] + 2**31) % 2**32 - 2**31
+    count[:kept] = npos[:kept]
+    return start, count, first, kept
+
+
+def parse_ref(entry: str, args, fast=None) -> tuple:
+    """The outputs of a qualcol_parse or positions_parse call by a numpy
+    loop over the grammar, byte by byte (csrc/parse.cu's header): the FSM,
+    each token's run with int32 positions restarting at each bin (the
+    running max of the bin starts' wrapped sums), the bins' first tokens
+    and the escape records. A valid stream of more than 100,000 bytes (or
+    with fast=True) takes _parse_fast's numpy route for the tokens and
+    their runs; the CPU tests hold the two routes equal."""
+    import numpy as np
+
+    a = [x.cpu().numpy() if hasattr(x, "cpu") else x for x in args]
+    arr = np.asarray(a[0])
+    m = arr.shape[0]
+    if entry == "qualcol_parse":
+        _b, qual_len, nbins, cap, esc_cap = a
+        lens = [_wrap32(int.from_bytes(arr[4 * b:4 * b + 4].tobytes(),
+                                       "little")) for b in range(nbins)]
+        sb, at = [], 0
+        for v in lens:
+            sb.append(_wrap32(4 * nbins + at))
+            at = _wrap32(at + v)
+        end = _wrap32(4 * nbins + at)
+        lo = 4 * nbins
+        forced = {min(max(v, 0), m) for v in sb}
+    else:
+        _b, valid_len, cap = a
+        nbins, esc_cap, lo, end, forced = 1, 0, 0, min(valid_len, m), set()
+        sb = [0]
+    valid = (lo <= end <= m and all(v >= 0 for v in
+                                    (lens if entry == "qualcol_parse"
+                                     else [0])))
+    quick = None
+    if valid and (fast or (fast is None and m > 100_000)):
+        quick = _parse_fast(arr, m, nbins if entry == "qualcol_parse" else 0,
+                            lo, end, sb if entry == "qualcol_parse" else [],
+                            cap)
+    if quick is not None:
+        start, count, first, kept = quick
+        if entry == "positions_parse":
+            return start, count
+        seg_off = np.minimum(first[:nbins + 1], kept).astype(np.int32)
+        if nbins:
+            seg_off[nbins] = kept
+    else:
+        buf = [int(x) for x in arr]
+        toks, state = [], 0
+        for i in range(m):
+            ins = lo <= i < end
+            b0 = buf[i]
+            ln = (1 if b0 < 0x80 else 2 if b0 < 0xC0 else 1 if b0 < 0xE0
+                  else 4) if ins else 1
+            if state == 0 or (ins and i in forced):
+                if ins:
+                    toks.append(i)
+                state = ln - 1
+            else:
+                state -= 1
+        start = np.zeros(cap, np.int32)
+        count = np.zeros(cap, np.int32)
+        bins = []
+        R, M = 0, None
+        for k, i in enumerate(toks):
+            b0, b1, b2, b3 = (buf[(i + q) % m] for q in range(4))
+            npos = (b0 & 0x1F) + 1 if 0xC0 <= b0 < 0xE0 else 1
+            dist = (b0 + 1 if b0 < 0x80 else
+                    (((b0 & 0x3F) << 8) | b1) + 1 if b0 < 0xC0 else
+                    (((b0 & 0x1F) << 24) | (b1 << 16) | (b2 << 8) | b3) + 1
+                    if b0 >= 0xE0 else 1)
+            bn = min(max(_upper_bound(sb, i) - 1, 0), max(nbins - 1, 0))
+            if k == 0 or bn != bins[-1]:
+                M = _wrap32(R) if M is None else max(M, _wrap32(R))
+            bins.append(bn)
+            if k < cap:
+                start[k] = _wrap32(R + dist - 1 - max(M, 0))
+                count[k] = npos
+            R += dist + npos - 1
+        if entry == "positions_parse":
+            return start, count
+        kept = min(len(toks), cap)
+        tok_bin = bins[:kept] + [max(nbins - 1, 0)] * (cap - kept)
+        seg_off = np.array([min(next((k for k, v in enumerate(tok_bin)
+                                      if v >= s), cap), kept)
+                            for s in range(nbins + 1)], np.int32)
+    esc_pos = np.full(esc_cap, -1, np.int32)
+    esc_char = np.zeros(esc_cap, np.uint8)
+    for e in range(esc_cap):
+        rec = _wrap32(end + 5 * e)
+        if _wrap32(rec + 4) < qual_len:
+            # the window at min(rec, m - 5) of the windows and 3 zero
+            # words, a negative index counted from the end as torch does
+            r = min(rec, m - 5)
+            w = r + m + 3 if r < 0 else r
+            we = 0 if w >= m else sum(int(arr[(w + q) % m]) << (8 * q)
+                                      for q in range(4))
+            esc_char[e] = we & 0xFF
+            esc_pos[e] = _wrap32(((we >> 8) & 0xFFFFFF)
+                                 | int(arr[min(r + 4, m - 1)]) << 24)
+    return start, count, seg_off, esc_pos, esc_char
+
+
+def parse_moved(entry: str, args) -> int:
+    """The bytes a parse call must move: the stream's bytes read once (the
+    table and the streams, or the valid bytes), and every output written
+    once: 8 bytes a token slot, the bins' offsets, 5 bytes an escape
+    slot and the escape records' bytes read."""
+    if entry == "qualcol_parse":
+        buf, qual_len, nbins, tok_cap, esc_cap = args
+        return (min(qual_len, buf.shape[0]) + 8 * tok_cap + 4 * (nbins + 1)
+                + 5 * esc_cap + 5 * esc_cap)
+    buf, valid_len, cap = args
+    return min(valid_len, buf.shape[0]) + 8 * cap
+
+
+def parse_edge_cases(dev) -> int:
+    """Each PARSE_CASES, PARSE_POS_CASES and PARSE_WAVE case, placed by the
+    built tile, through its entry on dev: exact against the plain version
+    and (but the waves) parse_ref, one launch each; returns the count."""
+    import numpy as np
+
+    from repaq_tpu_torch.ops import kernels as TK
+
+    tile = TK.parse_tile()
+    names = PARSE_CASES + PARSE_POS_CASES + PARSE_WAVE
+    for name in names:
+        entry, args = parse_args(name, tile, dev)
+        before = TK.launches[entry]
+        got = getattr(TK, entry)(*args)
+        check(TK.launches[entry] == before + 1, "%s launched %d times on %s"
+              % (entry, TK.launches[entry] - before, name))
+        want = parse_plain(entry)(*args)
+        err = max_abs_err(got, want)
+        check(err == 0, "%s differs from its plain version on %s (max abs "
+              "err %d)" % (entry, name, err))
+        if name not in PARSE_WAVE:
+            ref = parse_ref(entry, args)
+            check(all(np.array_equal(g.cpu().numpy(), r)
+                      for g, r in zip(got, ref)),
+                  "%s differs from parse_ref on %s" % (entry, name))
+    return len(names)
+
+
+def parent_parse(entry: str, args):
+    """The parent's composition of a parse call's work, as a function of no
+    arguments: the plain version on the card (token_start_mask,
+    bucket_compact, seg_positions and the torch passes around them), the
+    code the decode ran before the parse kernel."""
+    return lambda: parse_plain(entry)(*args)
+
+
+def profiled_ops(fn) -> list:
+    """The device operations (kernels, copies, fills) of one fn() call
+    under torch.profiler, by name, after one call untimed."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def parse_kernel_phase(dev) -> dict:
+    """qualcol_parse and positions_parse on their edge cases, then at one
+    real SE and one real PE chunk's calls recorded through cli.main
+    (chunk_calls, pe_chunk_calls): exact against their plain versions and
+    parse_ref, timed beside their bound (parse_moved), their device
+    operations a call counted in a CUDA graph capture (at most 2), and
+    timed in turns beside the parent's composition: parent, kernel,
+    kernel, parent. Then one SE chunk's qualcol_decode_device, its device
+    operations counted (at most 6, a CUDA graph capture) against the
+    parent's (torch.profiler)."""
+    import numpy as np
+
+    from repaq_tpu_torch.ops import device_streams as DS
+    from repaq_tpu_torch.ops import kernels as TK
+
+    log("kernels qualcol_parse and positions_parse exact on %d edge cases "
+        "(PARSE_CASES, PARSE_POS_CASES and PARSE_WAVE at tiles of %d stream "
+        "bytes), one launch each" % (parse_edge_cases(dev), TK.parse_tile()))
+    res = {}
+    se, pe = chunk_calls(dev), pe_chunk_calls(dev)
+    for entry in ("qualcol_parse", "positions_parse"):
+        for tag, args in (("SE", se[entry][0]), ("PE", pe[entry])):
+            args = list(args)
+            ops = TK.captured_ops(lambda: getattr(TK, entry)(*args))
+            check(1 <= len(ops) <= 2, "%s ran %d device operations a call "
+                  "at the %s chunk's call: %s" % (entry, len(ops), tag, ops))
+            label = "%s chunk's call: %d stream bytes of %d, %d token slots" % (
+                tag, args[1], args[0].shape[0], args[-2 if entry ==
+                                                     "qualcol_parse" else -1])
+            ref = parse_ref(entry, args)
+            got = getattr(TK, entry)(*args)
+            check(all(np.array_equal(g.cpu().numpy(), r)
+                      for g, r in zip(got, ref)),
+                  "%s differs from parse_ref at the %s chunk's call"
+                  % (entry, tag))
+
+            def kern(a=args):
+                return getattr(TK, entry)(*a)
+
+            parent = parent_parse(entry, args)
+            r = held_and_timed(entry, kern, parent, (), label, plain_runs=15,
+                               moved=parse_moved(entry, args))
+            r["device_ops"] = ops
+            r["in_turns_ms"] = in_turns([("parent", parent), (entry, kern)],
+                                        "%s %s" % (entry, label))
+            log("kernel %s at the %s chunk's call: device operations %s"
+                % (entry, tag, ops))
+            if entry not in res:
+                res[entry] = dict(r)
+                res[entry]["by_shape"] = {}
+            res[entry]["by_shape"][label] = r
+    # one SE chunk's quality decode, whole: its device operations now and
+    # with the parent's composition in place of the parse
+    buf, qual_len, nbins, tok_cap, esc_cap = se["qualcol_parse"][0]
+    length, major, _s, _c, _o, bins = se["fill_sorted_runs"][0]
+
+    def decode():
+        return DS.qualcol_decode_device(buf, nbins, bins, major, length,
+                                        qual_len, tok_cap=tok_cap,
+                                        esc_cap=esc_cap)
+
+    ops = TK.captured_ops(decode)
+    saved = TK.qualcol_parse
+    TK.qualcol_parse = parse_plain("qualcol_parse")
+    try:
+        # the parent's composition copies a host scalar, which a graph
+        # capture refuses: its device operations are counted by the
+        # profiler
+        parent_ops = profiled_ops(decode)
+    finally:
+        TK.qualcol_parse = saved
+    check(len(ops) <= 6, "one SE chunk's qualcol_decode_device ran %d device "
+          "operations, more than 6: %s" % (len(ops), ops))
+    res["qualcol_parse"]["decode_ops"] = {"this": len(ops),
+                                          "parent": len(parent_ops)}
+    log("qualcol_decode_device at the SE chunk's call: %d device operations "
+        "(%s), the parent's composition %d" % (len(ops), ", ".join(ops),
+                                                len(parent_ops)))
     return res
 
 
@@ -4076,10 +4671,10 @@ def rans_sweep_phase(dev, res: dict, dres: dict, real=None) -> None:
 
 
 def boundary_kernels_at_main_path_sizes(kres: dict, cres: dict) -> None:
-    """run_offsets and seg_positions at the shapes the SE and PE corpora
-    handed them (phases 4 and 5), added to their by-shape readings; the SE
-    coordinate rows' reading becomes run_offsets' headline, the SE decode
-    tokens' seg_positions'."""
+    """run_offsets at the shapes the SE and PE corpora handed it (phases 4
+    and 5; seg_positions is on no path since the parse), added to its
+    by-shape readings; the SE coordinate rows' reading becomes its
+    headline."""
     import torch
 
     for tag in ("se", "pe"):
@@ -4088,7 +4683,7 @@ def boundary_kernels_at_main_path_sizes(kres: dict, cres: dict) -> None:
             res = boundary_kernels_at(torch.device("cuda:0"), name, shape,
                                       label, sum(shape))
             kres[name]["by_shape"][label] = res
-            if tag == "se" and what in ("coordinate rows", "decode tokens"):
+            if tag == "se":
                 kres[name].update(res)
 
 
@@ -4274,8 +4869,8 @@ def read_chunks(rfq: str):
 
 
 def qual_buffer_sizes(header, chunks) -> list:
-    """Per chunk, the quality buffer the device decode runs the token FSM
-    over, as the engine sizes it."""
+    """Per chunk, the quality buffer the device decode parses (the size the
+    token FSM ran over before the parse), as the engine sizes it."""
     from repaq_tpu_torch.codec.device_engine import DeviceEngine
 
     return [DeviceEngine.decode_caps(header, c)[0] for c in chunks]
@@ -4310,15 +4905,11 @@ def recorded_boundary_shapes(shapes: list):
 def main_path_boundary_shapes(shapes: list, cut: int) -> dict:
     """The run-boundary kernels' shapes in one round trip whose first `cut`
     calls were the compress's, {(kernel, what): shape}: run_offsets'
-    coordinate rows (its one call, 2-D), and seg_positions' decode tokens
-    (its largest call)."""
-    enc, dec = shapes[:cut], shapes[cut:]
-    pick = {("run_offsets", "coordinate rows"):
-            [s for _n, s in enc if len(s) == 2],
-            ("seg_positions", "decode tokens"):
-            [s for n, s in dec if n == "seg_positions"]}
-    return {k: max(v, key=lambda s: (s[-1], s)) for k, v in pick.items()
-            if v}
+    coordinate rows (its one call, 2-D; the decode makes none since the
+    parse)."""
+    rows = [s for _n, s in shapes[:cut] if len(s) == 2]
+    return ({("run_offsets", "coordinate rows"): max(rows)} if rows
+            else {})
 
 
 # launches a chunk of the kernels whose count a chunk fixes, by direction:
@@ -4327,24 +4918,27 @@ def main_path_boundary_shapes(shapes: list, cut: int) -> dict:
 def per_chunk(what: str, pe: bool) -> dict:
     """The launches a chunk of the kernels whose count a chunk fixes, on
     compress or decompress: run_offsets 1 an encode (the coordinate rows),
-    seg_positions 1 a decode, pe_encode_pairs 1 a PE encode and
-    pe_decode_rows 1 a PE decode (none in the other direction, none on
-    SE), overlap_pairs none; qualcol_emit and positions_emit 1 an encode
-    (the quality and N-position streams, whole); fill_runs 1 an encode
-    (the coordinate streams' bytes) and 2 a decode (the N positions'
-    deltas, the N bases); fill_sorted_runs 1 a decode (the quality runs),
-    concat_row_spans 1 a PE encode (the elision); bucket_compact 3 an
-    encode (the grouping by bin, the N flags, the coordinates' multi-byte
-    values) and 1 a decode (the quality tokens)."""
+    seg_positions and token_start_mask none (the parse runs both inside
+    its tiles), pe_encode_pairs 1 a PE encode and pe_decode_rows 1 a PE
+    decode (none in the other direction, none on SE), overlap_pairs none;
+    qualcol_emit and positions_emit 1 an encode (the quality and
+    N-position streams, whole), qualcol_parse and positions_parse 1 a
+    decode (their runs); fill_runs 1 an encode (the coordinate streams'
+    bytes) and 1 a decode (the N bases); fill_sorted_runs 1 a decode (the
+    quality runs), concat_row_spans 1 a PE encode (the elision);
+    bucket_compact 3 an encode (the grouping by bin, the N flags, the
+    coordinates' multi-byte values) and none a decode."""
     enc = what == "compress"
-    return {"run_offsets": int(enc), "seg_positions": int(not enc),
-            "overlap_pairs": 0, "pe_encode_pairs": int(enc and pe),
+    return {"run_offsets": int(enc), "seg_positions": 0,
+            "token_start_mask": 0, "overlap_pairs": 0,
+            "pe_encode_pairs": int(enc and pe),
             "pe_decode_rows": int(pe and not enc),
             "qualcol_emit": int(enc), "positions_emit": int(enc),
-            "fill_runs": 1 if enc else 2,
+            "qualcol_parse": int(not enc), "positions_parse": int(not enc),
+            "fill_runs": 1,
             "fill_sorted_runs": int(not enc),
             "concat_row_spans": int(enc and pe),
-            "bucket_compact": 3 if enc else 1}
+            "bucket_compact": 3 if enc else 0}
 
 
 def check_chunk_launches(where: str, what: str, launches: dict,
@@ -4457,7 +5051,7 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
            "boundary_shapes": main_path_boundary_shapes(seen["shapes"], cut)}
     log("corpus %s: run-boundary kernels' shapes on the main path: %s"
         % (tag, res["boundary_shapes"]))
-    log("corpus %s: quality buffers of the token FSM on decode: %s bytes"
+    log("corpus %s: quality buffers of the decode's parse: %s bytes"
         % (tag, res["qual_bufs"]))
     if pe:
         check(header.encode_pe_by_overlap(), "pe: no overlap elision")
@@ -4805,9 +5399,9 @@ RANK_TIMEOUT_S = 300
 # the kernels each direction of a shard must launch in every rank
 SHARD_KERNELS = {"compress": ("encode_frontend", "run_offsets",
                               "bucket_compact", "fill_runs"),
-                 "decompress": ("unpack_bases", "token_start_mask",
-                                "seg_positions", "fill_runs",
-                                "fill_sorted_runs", "bucket_compact")}
+                 "decompress": ("unpack_bases", "qualcol_parse",
+                                "positions_parse", "fill_runs",
+                                "fill_sorted_runs")}
 
 
 def rank_env(rank: int, per_card: bool) -> dict:
@@ -5016,6 +5610,7 @@ def main() -> int:
         kres.update(sorted_runs_phase(torch.device("cuda:0")))
         kres["bucket_compact"] = compact_kernel_phase(torch.device("cuda:0"))
         kres.update(emit_kernel_phase(torch.device("cuda:0")))
+        kres.update(parse_kernel_phase(torch.device("cuda:0")))
         kres.update(rans_kernel_phase(torch.device("cuda:0")))
         golden_phase()
         cres = {"se": corpus_phase("cuda:0", pe=False),

@@ -554,7 +554,7 @@ class DeviceEngine:
         caps = self.decode_caps(header, chunk, n_cap)
         if caps is None:
             return None  # corrupt quality stream: the host path raises
-        qb_cap, nb_cap, np_cap, qcaps = caps
+        qb_cap, nb_cap, _np_cap, qcaps = caps
 
         packed = np.zeros(n_cap // 4, dtype=np.uint8)
         packed[: len(chunk.seq_buf)] = np.frombuffer(chunk.seq_buf,
@@ -569,7 +569,7 @@ class DeviceEngine:
         return self._decode_step(
             self._upload(packed), self._upload(qual_buf), qual_len,
             self._upload(npos_buf), npos_len, bins, major, nbins,
-            np_cap=np_cap, qcaps=qcaps,
+            qcaps=qcaps,
             has_npos=bool(header.encode_n_pos()),
             nbq=int(header.n_base_qual), **pe,
         ).cpu().numpy()
@@ -579,8 +579,10 @@ class DeviceEngine:
         """The device decode's caps for a chunk padded to n_cap bases (by
         default as decode_chunk pads it): (quality buffer, N-position
         buffer, N positions, quality-stream caps), or None for a
-        length-corrupt quality stream. The token FSM runs over the quality
-        buffer."""
+        length-corrupt quality stream. The parse reads the quality buffer;
+        the N positions' cap is the JAX engine's, which the tests hand
+        both packages (the port's decode parses the N stream into runs
+        and reads none)."""
         if n_cap is None:
             n_cap = _decode_n_cap(bool(chunk.flags & BIT_PE_INTERLEAVED),
                                   chunk.read_lengths())
@@ -626,7 +628,7 @@ class DeviceEngine:
         return qb_cap, nb_cap, np_cap, (tok_cap, pos_cap, esc_cap, run_cap)
 
     def _decode_step(self, packed, qual_buf, qual_len, npos_buf, npos_len,
-                     bins, major, nbins, *, np_cap, qcaps, has_npos, nbq,
+                     bins, major, nbins, *, qcaps, has_npos, nbq,
                      L=None, tables=None):
         """The device work of one decode: one u8 payload of the (n_cap,)
         bases and the (n_cap,) quality chars. L: a PE-interleaved chunk of
@@ -638,12 +640,12 @@ class DeviceEngine:
         tok_cap, pos_cap, esc_cap, run_cap = qcaps
         with _span("dec.unpack"):
             seq = kernels.unpack_bases(packed)
-            if has_npos:  # in stored (elided) space
-                pos, _cnt = ds.decode_positions_device(npos_buf, npos_len,
-                                                       np_cap)
+            if has_npos and npos_len:  # in stored (elided) space
+                # each token's run of N positions, at most one a byte
+                start, count = kernels.positions_parse(npos_buf, npos_len,
+                                                       npos_len)
                 with _span("dec.nscatter"):
-                    # the -1 padding of pos lies outside seq: no write
-                    kernels.fill_runs(seq, pos, 1, _N)
+                    kernels.fill_runs(seq, start, count, _N)
         restore_n = not has_npos and nbq < 128
         with _span("dec.qual"):
             qual = ds.qualcol_decode_device(

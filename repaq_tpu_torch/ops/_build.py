@@ -194,6 +194,15 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_emit_status_words.restype = ll
     lib.repaq_emit_tile.argtypes = []
     lib.repaq_emit_tile.restype = ll
+    lib.repaq_parse_tokens.argtypes = [vp, ll, ci, ll, ll, ll, vp, vp, vp, vp,
+                                       vp, vp, ll, ll, vp]
+    lib.repaq_parse_tokens.restype = ci
+    lib.repaq_parse_max_tiles.argtypes = [ll, ci, ll]
+    lib.repaq_parse_max_tiles.restype = ll
+    lib.repaq_parse_status_words.argtypes = [ll]
+    lib.repaq_parse_status_words.restype = ll
+    lib.repaq_parse_tile.argtypes = []
+    lib.repaq_parse_tile.restype = ll
     lib.repaq_graph_nodes.argtypes = [vp, vp, vp, ll, ll]
     lib.repaq_graph_nodes.restype = ll
     return lib

@@ -36,14 +36,21 @@ it and with repaq_tpu.codec.kernels_np. What differs from JAX:
 - The overlap search is ``kernels.overlap_pairs``, exact where JAX
   hashes: the CUDA kernel for CUDA tensors, its plain version for CPU
   tensors; it returns no collision flags.
-- The token FSM is ``kernels.token_start_mask``: the CUDA kernel for CUDA
-  tensors at every size, its plain version for CPU tensors.
-- The run-boundary scans (JAX's ``lax.cummax`` and flipped ``lax.cummin``)
-  and the arithmetic around them are two kernels, the same dispatch:
-  ``kernels.run_offsets`` on encode (each element's offset in its run and
-  the elements left of it, up to 32; the coordinates' two rows at once)
-  and ``kernels.seg_positions`` on decode (the segmented prefix sum of the
-  position advances).
+- The decode's gap/run parse (the length table, the token FSM, the token
+  compaction carrying each token's window, the token arithmetic, the bins
+  and the segmented position sum, the escape records) is one kernel a
+  stream (``kernels.qualcol_parse``, ``kernels.positions_parse``), whose
+  output is each token's run (start, count). The torch composition it
+  replaced stays below as the kernels' plain versions
+  (``qualcol_parse_plain``, ``positions_parse_plain``), which call the
+  token FSM ``kernels.token_start_mask``, ``kernels.bucket_compact`` and
+  the segmented prefix sum ``kernels.seg_positions``, as
+  ``decode_positions_device`` still does (it keeps JAX's signature for the
+  tests and runs on no main path).
+- The encode's run-boundary scan (JAX's ``lax.cummax`` and flipped
+  ``lax.cummin`` with the arithmetic around them) is
+  ``kernels.run_offsets`` (each element's offset in its run and the
+  elements left of it, up to 32; the coordinates' two rows at once).
 """
 
 from __future__ import annotations
@@ -610,9 +617,10 @@ def decode_positions_device(buf: torch.Tensor, valid_len, max_positions: int,
     return torch.where(k < count, positions, -1), count
 
 
-def _scatter_escapes(qual, buf, w32, stream_end, total_len, esc_cap: int):
-    """Write the 5-byte escape records in [stream_end, total_len) into the
-    (length,) qual; a record's position outside it writes nothing."""
+def _escape_records(buf, w32, stream_end, total_len: int, esc_cap: int):
+    """(pos, char) of the first esc_cap 5-byte escape records from
+    stream_end: (esc_cap,) int32 positions, -1 for a record past
+    total_len, and (esc_cap,) u8 chars, 0 there."""
     m = buf.shape[0]
     dev = buf.device
     rec = stream_end + 5 * _arange(esc_cap, dev)
@@ -622,37 +630,46 @@ def _scatter_escapes(qual, buf, w32, stream_end, total_len, esc_cap: int):
     ch = (we & 0xFF).to(torch.uint8)
     pos = ((we >> 8) & 0xFFFFFF) | (
         buf[(recc + 4).clamp(max=m - 1).long()].to(_I32) << 24)
-    kernels.fill_runs(qual, pos, 1, ch, rec_ok)
+    return torch.where(rec_ok, pos, -1), torch.where(rec_ok, ch, 0)
 
 
-def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
-                          major: int, length: int, total_len,
-                          tok_cap: int | None = None,
-                          pos_cap: int | None = None,
-                          esc_cap: int | None = None,
-                          run_cap: int | None = None) -> torch.Tensor:
-    """By-column quality decode (reference rfqcodec.cpp:1009-1047) in
-    compact token space: one token-FSM pass over the concatenated per-bin
-    streams (stream boundaries force restarts), token compaction
-    (``kernels.bucket_compact``) carrying each token's 4-byte window, per-token gap/run arithmetic, then
-    the writes of each token's run of (position -> bin char) over the
-    major, the bins as sorted segments (``kernels.fill_sorted_runs``), then
-    of the escape records (``kernels.fill_runs``).
+def _scatter_escapes(qual, esc_pos, esc_char):
+    """Write the escape records' chars into the (length,) qual; a position
+    outside it (-1 for no record) writes nothing."""
+    kernels.fill_runs(qual, esc_pos, 1, esc_char)
 
-    buf: (m,) u8 padded with >= 5 zero bytes; total_len: true qual_buf
-    size. tok_cap / esc_cap: upper bounds on token and escape-record
-    counts. pos_cap and run_cap keep JAX's signature and select nothing
-    here: JAX picks its slot-space rebuild (a delta scattered at each
-    token's first slot, one cumsum, pos_cap slots) when run_cap is None,
-    else token-space writes with a (run_cap, 4, 31) grid extending the
-    runs; both give these bytes while the caps hold the chunk's counts.
-    Returns qual (length,) u8."""
+
+def _tokens(starts, w32, cap: int):
+    """(tok_i, n_tok, npos, adv) of the first cap tokens of a start mask:
+    one compaction carrying each token's 4-byte window, then the per-token
+    gap/run arithmetic (npos and adv 0 past the tokens)."""
+    tok_i, tok_w, n_tok = kernels.bucket_compact(starts, 1, cap, _INF, w32)
+    valid = tok_i < _INF
+    b0 = tok_w & 0xFF
+    dist, is_run = _token_dist(b0, (tok_w >> 8) & 0xFF, (tok_w >> 16) & 0xFF,
+                               (tok_w >> 24) & 0xFF)
+    npos = torch.where(valid, torch.where(is_run, (b0 & 0x1F) + 1, 1),
+                       0).to(_I32)
+    adv = torch.where(valid, dist + npos - 1, 0).to(_I32)
+    return tok_i, n_tok, npos, adv
+
+
+def _runs(npos, adv, seg_start):
+    """Each token's first position from the segmented position sum (0
+    where it covers none)."""
+    pos_end = kernels.seg_positions(adv, seg_start)
+    return torch.where(npos > 0, pos_end - npos + 1, 0)
+
+
+def qualcol_parse_plain(buf: torch.Tensor, qual_len: int, nbins: int,
+                        tok_cap: int, esc_cap: int):
+    """Plain torch version of ``kernels.qualcol_parse``: the torch
+    composition the kernel replaces (the length table and forced restarts,
+    the token FSM, the token compaction carrying each token's window, the
+    token arithmetic, the bin search and the segmented position sum, the
+    escape records); the wrapper runs it on CPU tensors."""
     m = buf.shape[0]
     dev = buf.device
-    major = int(major)
-    tok_cap = max(1, min(m if tok_cap is None else tok_cap, m))
-    if esc_cap is None:
-        esc_cap = m // 5 + 1
     lens_table = (buf[0: 4 * nbins: 4].to(_I32)
                   | (buf[1: 4 * nbins + 1: 4].to(_I32) << 8)
                   | (buf[2: 4 * nbins + 2: 4].to(_I32) << 16)
@@ -669,43 +686,80 @@ def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
 
     lens_dev = torch.where(in_streams, _stream_lens_device(buf), 1)
     starts = kernels.token_start_mask(lens_dev, force) & in_streams
-
-    # each token's 4-byte window rides the compaction as payload
     w32 = _window32(buf)
-    tok_i, tok_w, n_tok = kernels.bucket_compact(starts, 1, tok_cap, _INF,
-                                                 w32)
-    valid = tok_i < _INF
-
-    b0 = tok_w & 0xFF
-    dist, is_run = _token_dist(b0, (tok_w >> 8) & 0xFF, (tok_w >> 16) & 0xFF,
-                               (tok_w >> 24) & 0xFF)
-    npos = torch.where(valid, torch.where(is_run, (b0 & 0x1F) + 1, 1),
-                       0).to(_I32)
-    adv = torch.where(valid, dist + npos - 1, 0).to(_I32)
+    tok_i, n_tok, npos, adv = _tokens(starts, w32, tok_cap)
 
     # bin id per token and segment starts (per-bin `last` restarts at -1)
     tok_bin = (torch.searchsorted(stream_begin, tok_i, right=True) - 1).clamp(
         0, max(nbins - 1, 0)).to(_I32)
     seg_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                            tok_bin[1:] != tok_bin[:-1]])
-    pos_end = kernels.seg_positions(adv, seg_start)
-    pos_first = pos_end - npos + 1
+    start = _runs(npos, adv, seg_start)
+    # the bins are the segments, in token order: tok_bin never falls (tok_i
+    # rises and a binary search's answer rises with its query, sorted table
+    # or not), so bin s is the tokens from the first with tok_bin >= s, and
+    # the valid count ends the last
+    seg_off = torch.minimum(
+        torch.searchsorted(tok_bin, _arange(nbins + 1, dev), out_int32=True),
+        n_tok.clamp(max=tok_cap))
+    esc_pos, esc_char = _escape_records(buf, w32, stream_end, qual_len,
+                                        esc_cap)
+    return start, npos, seg_off, esc_pos, esc_char
 
+
+def positions_parse_plain(buf: torch.Tensor, valid_len: int, cap: int):
+    """Plain torch version of ``kernels.positions_parse``: the torch
+    composition of decode_positions_device up to its tokens (the token
+    FSM, the token compaction, the token arithmetic, the position sum),
+    its runs in token space."""
+    m = buf.shape[0]
+    dev = buf.device
+    in_range = _arange(m, dev) < valid_len
+    lens = torch.where(in_range, _stream_lens_device(buf), 1)
+    starts = kernels.token_start_mask(lens) & in_range
+    _tok_i, _n, npos, adv = _tokens(starts, _window32(buf), cap)
+    return _runs(npos, adv, _arange(cap, dev) == 0), npos
+
+
+kernels.register_parse_plain(qualcol_parse_plain, positions_parse_plain)
+
+
+def qualcol_decode_device(buf: torch.Tensor, nbins: int, bins: torch.Tensor,
+                          major: int, length: int, total_len,
+                          tok_cap: int | None = None,
+                          pos_cap: int | None = None,
+                          esc_cap: int | None = None,
+                          run_cap: int | None = None) -> torch.Tensor:
+    """By-column quality decode (reference rfqcodec.cpp:1009-1047): the
+    stream's runs from one parse (``kernels.qualcol_parse``: on a card one
+    kernel for the token FSM over the concatenated per-bin streams, stream
+    boundaries forcing restarts, the token compaction, the per-token
+    gap/run arithmetic and the bins), then the writes of each token's run
+    of (position -> bin char) over the major, the bins as sorted segments
+    (``kernels.fill_sorted_runs``), then of the escape records
+    (``kernels.fill_runs``).
+
+    buf: (m,) u8 padded with >= 5 zero bytes; total_len: true qual_buf
+    size. tok_cap / esc_cap: upper bounds on token and escape-record
+    counts. pos_cap and run_cap keep JAX's signature and select nothing
+    here: JAX picks its slot-space rebuild (a delta scattered at each
+    token's first slot, one cumsum, pos_cap slots) when run_cap is None,
+    else token-space writes with a (run_cap, 4, 31) grid extending the
+    runs; both give these bytes while the caps hold the chunk's counts.
+    Returns qual (length,) u8."""
+    m = buf.shape[0]
+    tok_cap = max(1, min(m if tok_cap is None else tok_cap, m))
+    if esc_cap is None:
+        esc_cap = m // 5 + 1
+    start, count, seg_off, esc_pos, esc_char = kernels.qualcol_parse(
+        buf, int(total_len), nbins, tok_cap, esc_cap)
     with _span("dec.qual.fill"):
-        # the bins are the segments, in token order: tok_bin never falls
-        # (tok_i rises and a binary search's answer rises with its query,
-        # sorted table or not), so bin s is the tokens from the first with
-        # tok_bin >= s, and the valid count ends the last
-        seg_off = torch.minimum(
-            torch.searchsorted(tok_bin, _arange(nbins + 1, dev),
-                               out_int32=True),
-            n_tok.clamp(max=tok_cap))
-        qual = kernels.fill_sorted_runs(length, major, pos_first, npos,
+        qual = kernels.fill_sorted_runs(length, int(major), start, count,
                                         seg_off, bins.to(torch.uint8))
     if esc_cap > 0:
         # a second launch, so that an escape lands over a stream's write
         with _span("dec.qual.esc"):
-            _scatter_escapes(qual, buf, w32, stream_end, total_len, esc_cap)
+            _scatter_escapes(qual, esc_pos, esc_char)
     return qual
 
 

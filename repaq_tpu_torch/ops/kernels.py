@@ -2,8 +2,9 @@
 version; the counterpart of repaq_tpu/ops/pallas_tpu.py, and of the
 run-boundary scans, the PE overlap search, the PE steps' revcomp, overlap
 clamp and expansion, the decode's masked writes and the stream coders'
-compaction sorts and the encode's gap/run token emission that the JAX
-package left to XLA, and of the PE encode's elision sort.
+compaction sorts, the encode's gap/run token emission and the decode's
+token parse that the JAX package left to XLA, and of the PE encode's
+elision sort.
 
 Every wrapper decides by the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (built on
@@ -33,7 +34,8 @@ launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
             "rans_layout": 0, "rans_decode": 0, "overlap_pairs": 0,
             "pe_encode_pairs": 0, "pe_decode_rows": 0, "fill_runs": 0,
             "fill_sorted_runs": 0, "concat_row_spans": 0,
-            "bucket_compact": 0, "qualcol_emit": 0, "positions_emit": 0}
+            "bucket_compact": 0, "qualcol_emit": 0, "positions_emit": 0,
+            "qualcol_parse": 0, "positions_parse": 0}
 _launch_lock = threading.Lock()
 
 
@@ -1312,3 +1314,123 @@ def positions_emit(g_pos: torch.Tensor, n: int, out_size: int):
         return _emit_plain["positions_emit"](g_pos, n, out_size)
     return _emit_launch("positions_emit", g_pos, None, 0, None, n, 0,
                         out_size)
+
+
+# ---------------------------------------------------------------------------
+# gap/run token parse (JAX: XLA code of the decode's stream coders before
+# their writes, with the Pallas FSM pallas_tpu._fsm_kernel,
+# repaq_tpu/ops/device_streams.py:929-1007, :1049-1140, :1246-1255)
+# ---------------------------------------------------------------------------
+
+
+def parse_tile() -> int:
+    """Stream bytes per tile of the parse kernel, as the built library
+    reports it; the card tests and chip_smoke.py place edge cases by it."""
+    return int(_build.library().repaq_parse_tile())
+
+
+# The parse's plain versions are the torch composition the kernel replaces
+# (token_start_mask, bucket_compact, seg_positions and the passes around
+# them), in device_streams beside its pieces, handed in as the emission's.
+_parse_plain: dict = {}
+
+
+def register_parse_plain(qualcol_parse, positions_parse) -> None:
+    """Hand in the parse entries' plain versions, run on CPU tensors."""
+    _parse_plain.update(qualcol_parse=qualcol_parse,
+                        positions_parse=positions_parse)
+
+
+def _check_parse(buf: torch.Tensor, limit: int, tok_cap: int) -> None:
+    _check_u8("buf", buf)
+    if not 5 <= buf.shape[0] < 2**31 - 8192:
+        raise ValueError("buf must hold 5 to 2^31 - 8192 bytes, got %d"
+                         % buf.shape[0])
+    if not 0 <= limit < 2**31 or not 1 <= tok_cap < 2**31:
+        raise ValueError("the length must be in [0, 2^31) and tok_cap in "
+                         "[1, 2^31), got %d and %d" % (limit, tok_cap))
+
+
+def _rounded(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _parse_launch(name: str, buf: torch.Tensor, nbins: int, limit: int,
+                  tok_cap: int, esc_cap: int, lib=None):
+    """The parse's outputs from one zero fill and one launch: the status
+    words and every output are views of one buffer, so the fill clears
+    them all. nbins -1: the N-position stream. lib: the package's build
+    unless another is given (a profiler's build of another tree)."""
+    dev = buf.device
+    m = buf.shape[0]
+    lib = lib or _build.library()
+    buf = _aligned(buf)
+    max_tiles = lib.repaq_parse_max_tiles(m, nbins, limit)
+    tile = lib.repaq_parse_tile()
+    # the grid covers the bytes the caller knows of; a longer stream (a
+    # table claiming more) is taken by the same blocks in turn
+    first = (4 * max(nbins, 0)) & ~15
+    grid = max(1, min(max_tiles, -(-(min(limit, m) - first) // tile)))
+    table = nbins >= 0
+    sizes = [8 * lib.repaq_parse_status_words(max_tiles), 4 * tok_cap,
+             4 * tok_cap, 4 * (nbins + 1) if table else 0, 4 * esc_cap,
+             esc_cap]
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + _rounded(n))
+    whole = torch.zeros(offs[-1], dtype=torch.uint8, device=dev)
+    part = [whole[offs[i]:offs[i] + sizes[i]] for i in range(len(sizes))]
+    status = part[0]
+    start, count, seg_off, esc_pos = (t.view(torch.int32)
+                                      for t in part[1:5])
+    esc_char = part[5]
+    with torch.cuda.device(dev):
+        _launch(name, lib.repaq_parse_tokens, buf.data_ptr(), m, nbins,
+                limit, tok_cap, esc_cap, start.data_ptr(), count.data_ptr(),
+                seg_off.data_ptr(), esc_pos.data_ptr(), esc_char.data_ptr(),
+                status.data_ptr(), max_tiles, grid, _stream(dev))
+    return start, count, seg_off, esc_pos, esc_char
+
+
+def qualcol_parse(buf: torch.Tensor, qual_len: int, nbins: int,
+                  tok_cap: int, esc_cap: int):
+    """The runs of the by-column quality stream (reference
+    rfqcodec.cpp:1009-1047) in the (m,) u8 buf: the u32le length table of
+    nbins bins, their gap/run streams back to back (each restarts its
+    positions at -1), then the escape records up to qual_len bytes.
+    Returns (start, count, seg_off, esc_pos, esc_char): each token's first
+    position and position count, (tok_cap,) int32 in token order (the
+    first tok_cap tokens; 0 and 0 past the last); seg_off (nbins + 1,)
+    int32, the bins as the segments fill_sorted_runs reads; the first
+    esc_cap escape records' positions ((esc_cap,) int32, -1 for a record
+    past qual_len) and chars ((esc_cap,) u8, 0 there). The 4-byte window
+    of a token at the buffer's end wraps to its start, as the plain
+    version's torch.roll (the engine pads the buffer with zeros). Exactly
+    ``device_streams.qualcol_parse_plain``. One memset and one launch, no
+    host sync."""
+    qual_len, nbins = int(qual_len), int(nbins)
+    _check_parse(buf, qual_len, tok_cap)
+    if not 0 <= nbins <= _EMIT_MAX_BINS or 4 * nbins > buf.shape[0]:
+        raise ValueError("nbins must be in 0..%d with its table inside buf, "
+                         "got %d" % (_EMIT_MAX_BINS, nbins))
+    if not 0 <= esc_cap < 2**31:
+        raise ValueError("esc_cap must be in [0, 2^31), got %d" % esc_cap)
+    if not _on_cuda(buf):
+        return _parse_plain["qualcol_parse"](buf, qual_len, nbins, tok_cap,
+                                             esc_cap)
+    return _parse_launch("qualcol_parse", buf, nbins, qual_len, tok_cap,
+                         esc_cap)
+
+
+def positions_parse(buf: torch.Tensor, valid_len: int, cap: int):
+    """The runs of the N-position stream (reference rfqcodec.cpp:957-1007)
+    whose tokens lie in [0, valid_len) of the (m,) u8 buf: (start, count),
+    (cap,) int32, each token's first position and position count in token
+    order (the first cap tokens; 0 and 0 past the last). Exactly
+    ``device_streams.positions_parse_plain``. One memset and one launch, no
+    host sync."""
+    valid_len = int(valid_len)
+    _check_parse(buf, valid_len, cap)
+    if not _on_cuda(buf):
+        return _parse_plain["positions_parse"](buf, valid_len, cap)
+    return _parse_launch("positions_parse", buf, -1, valid_len, cap, 0)[:2]

@@ -45,6 +45,8 @@ from chip_smoke import (COMPACT_CALLS, COMPACT_CAPS, COMPACT_CASES,
                         run_case, seg_case)
 from chip_smoke import (EMIT_CASES, EMIT_WAVE, POS_CASES, emit_args,
                         emit_plain, emit_ref)
+from chip_smoke import (PARSE_CASES, PARSE_POS_CASES, PARSE_WAVE,
+                        parent_parse, parse_args, parse_plain, parse_ref)
 from test_device_engine import _mk_block
 
 
@@ -318,9 +320,12 @@ def test_engine_on_cuda_matches_host(cuda):
     assert np.array_equal(back.seq_flat, block.seq_flat)
     assert np.array_equal(back.qual_flat, block.qual_flat)
     assert eng.stats["device_chunks"] == eng.stats["device_decodes"] == 1
-    for name in ("encode_frontend", "unpack_bases", "token_start_mask",
-                 "run_offsets", "seg_positions"):
+    for name in ("encode_frontend", "unpack_bases", "qualcol_parse",
+                 "positions_parse", "run_offsets"):
         assert TK.launches[name] > 0, TK.launches
+    # the parse runs the token FSM and the position sums in its tiles
+    assert TK.launches["token_start_mask"] == 0
+    assert TK.launches["seg_positions"] == 0
 
 
 @pytest.mark.cuda
@@ -340,9 +345,12 @@ def test_pe_engine_on_cuda_matches_host(cuda):
     assert np.array_equal(back.seq_flat, block.seq_flat)
     assert np.array_equal(back.qual_flat, block.qual_flat)
     assert eng.stats["device_chunks"] == eng.stats["device_decodes"] == 1
-    for name in ("encode_frontend", "unpack_bases", "token_start_mask",
-                 "run_offsets", "seg_positions"):
+    for name in ("encode_frontend", "unpack_bases", "qualcol_parse",
+                 "positions_parse", "run_offsets"):
         assert TK.launches[name] > 0, TK.launches
+    # the parse runs the token FSM and the position sums in its tiles
+    assert TK.launches["token_start_mask"] == 0
+    assert TK.launches["seg_positions"] == 0
     # the pair work: one launch of each pair kernel a chunk, the search
     # inside the encode's, none of the search alone
     assert TK.launches["pe_encode_pairs"] == 1
@@ -1293,3 +1301,111 @@ def test_engine_chunk_emission_launches(cuda):
     assert counts == {"qualcol_emit": 1, "positions_emit": 1,
                       "bucket_compact": 3, "run_offsets": 1,
                       "fill_runs": 1}, counts
+
+
+# ---------------------------------------------------------------------------
+# the decode's gap/run token parse (csrc/parse.cu)
+# ---------------------------------------------------------------------------
+
+
+def _same_outputs(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w.to(g.device) if hasattr(w, "to")
+                           else torch.from_numpy(w).to(g.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PARSE_CASES + PARSE_POS_CASES + PARSE_WAVE)
+def test_parse_kernels_at_tile_edges(cuda, name):
+    """Each parse case placed by the built tile (tokens and bin starts
+    across tile edges, 4-byte gaps to 2^29 and advances past 2^31, runs of
+    32, 33 and 64, empty bins, a table alone, tok_cap cuts, escapes, FSM
+    entry states that never meet, 124 bins, corrupt tables, 1,100 tiles):
+    one launch, every output equal to the plain version's and, but the
+    waves, to chip_smoke.parse_ref's numpy loop."""
+    entry, args = parse_args(name, TK.parse_tile(), cuda)
+    before = TK.launches[entry]
+    got = getattr(TK, entry)(*args)
+    assert TK.launches[entry] == before + 1
+    _same_outputs(got, parse_plain(entry)(*args))
+    if name not in PARSE_WAVE:
+        _same_outputs(got, parse_ref(entry, args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["no_merge", "wrap_2_31", "pos_edges"])
+def test_parse_device_operations_a_call(cuda, name):
+    """A call in a CUDA graph capture: at most 2 device operations (the
+    zero fill of the status words with the outputs, and the parse
+    kernel), one of them the kernel."""
+    entry, args = parse_args(name, TK.parse_tile(), cuda)
+    ops = TK.captured_ops(lambda: getattr(TK, entry)(*args))
+    assert 1 <= len(ops) <= 2, ops
+    assert sum("parse" in op for op in ops) == 1, ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["qualcol_parse", "positions_parse"])
+@pytest.mark.parametrize("tag", ["SE", "PE"])
+def test_parse_at_real_chunk_calls(cuda, entry, tag):
+    """At one real SE chunk's and one real PE chunk's calls, recorded
+    through cli.main (chip_smoke.chunk_calls, pe_chunk_calls): the kernel
+    against its plain version (the parent's composition) and
+    chip_smoke.parse_ref."""
+    args = (chunk_calls(cuda)[entry][0] if tag == "SE"
+            else pe_chunk_calls(cuda)[entry])
+    got = getattr(TK, entry)(*args)
+    _same_outputs(got, parent_parse(entry, args)())
+    _same_outputs(got, parse_ref(entry, args))
+
+
+@pytest.mark.cuda
+def test_parse_calls_from_threads(cuda):
+    """Calls from 8 threads on one stream, 5 each, every one exact: each
+    call's status words are zeroed with its own outputs."""
+    import threading
+
+    cases = [parse_args(name, TK.parse_tile(), cuda)
+             for name in ("gap_edges", "wrap_2_31", "pos_edges")]
+    want = [parse_plain(e)(*a) for e, a in cases]
+    errors = []
+
+    def work(k):
+        for _ in range(5):
+            e, a = cases[k % len(cases)]
+            got = getattr(TK, e)(*a)
+            if not all(torch.equal(g, w) for g, w in
+                       zip(got, want[k % len(cases)])):
+                errors.append(k)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors
+
+
+@pytest.mark.cuda
+def test_engine_chunk_parse_launches(cuda):
+    """An SE chunk with Ns and escape records decoded by the engine on the
+    card: one qualcol_parse and one positions_parse launch, fill_sorted_runs
+    1, fill_runs 2 (the N bases, the escapes), and no token_start_mask,
+    seg_positions or bucket_compact launch; the input back."""
+    eng = DeviceEngine(cuda, min_bases=0)
+    header = vectorized.make_header_se(_mk_block(600, 101, seed=5))
+    block = _mk_block(600, 101, seed=6, esc=True, nfrac=0.01)
+    got = eng.encode_chunk(header, block, False)
+    TK.reset_launches()
+    back = eng.decode_chunk(header, got)
+    assert np.array_equal(back.seq_flat, block.seq_flat)
+    assert np.array_equal(back.qual_flat, block.qual_flat)
+    counts = {k: TK.launches[k] for k in (
+        "qualcol_parse", "positions_parse", "fill_sorted_runs", "fill_runs",
+        "token_start_mask", "seg_positions", "bucket_compact")}
+    assert counts == {"qualcol_parse": 1, "positions_parse": 1,
+                      "fill_sorted_runs": 1, "fill_runs": 2,
+                      "token_start_mask": 0, "seg_positions": 0,
+                      "bucket_compact": 0}, counts

@@ -504,15 +504,16 @@ def test_decode_positions_matches_jax(density, forced):
 
 def test_decode_writes_have_no_dump_slot():
     """The port's decode writes go through kernels.fill_runs: in
-    decode_positions_device, _scatter_escapes, qualcol_decode_device and
-    DeviceEngine._decode_step the only subscript assignments left are the
-    stream-start marks (one a bin); the PE revcomp's row copies went into
+    decode_positions_device, _scatter_escapes, qualcol_decode_device,
+    qualcol_parse_plain and DeviceEngine._decode_step the only subscript
+    assignments left are the stream-start marks (one a bin) of the parse's
+    plain version; the PE revcomp's row copies went into
     kernels.pe_decode_rows."""
     pkg = pathlib.Path(T.__file__).resolve().parent.parent
     found = {}
     for path, names in (("ops/device_streams.py",
                          ("decode_positions_device", "_scatter_escapes",
-                          "qualcol_decode_device")),
+                          "qualcol_decode_device", "qualcol_parse_plain")),
                         ("codec/device_engine.py", ("_decode_step",))):
         tree = ast.parse((pkg / path).read_text())
         for node in ast.walk(tree):
@@ -524,6 +525,7 @@ def test_decode_writes_have_no_dump_slot():
     assert found == {
         "decode_positions_device": [],
         "_scatter_escapes": [],
-        "qualcol_decode_device": ["force[stream_begin.clamp(0, m).long()]"],
+        "qualcol_decode_device": [],
+        "qualcol_parse_plain": ["force[stream_begin.clamp(0, m).long()]"],
         "_decode_step": [],
     }

@@ -26,8 +26,10 @@ for the overlap, compaction, emission and run-write kernels, the
 host-device copies, the kernels with the most device time, and the time
 inside each of the engine's named stage ranges (``enc.*`` / ``dec.*``,
 see repaq_tpu_torch/codec/device_engine.py and ops/device_streams.py) with
-the kernels (and their device time) and the copies and fills launched
-inside it, every
+the torch kernels (and their device time) and the copies and fills
+launched inside it, and every kernel whose device start lies in its
+device-side window (the port's kernels, launched through ctypes under no
+torch op, are placed in a range only so), every
 ``aten::index_put_`` (a scatter) by the range it ran in and by its target
 and value shapes, with its device time and calls, the sort kernels'
 device time and launches, and every ``aten::sort`` by the range it ran in
@@ -146,8 +148,42 @@ def index_put_report(prof) -> None:
                              list(values)))
 
 
+# the port's kernels (repaq_tpu_torch/csrc/*.cu), by the start of their
+# names after "(anonymous namespace)::"
+_PORT_KERNELS = ("bucket_compact_", "compact_", "emit_kernel", "fill_runs_",
+                 "runs_check_", "runs_tile_", "frontend_", "pack_kernel",
+                 "overlap_kernel", "pe_encode_", "pe_decode_", "parse_kernel",
+                 "rans_", "run_offsets_", "seg_positions_", "token_fsm_",
+                 "unpack_kernel")
+
+
+def _is_port(name: str) -> bool:
+    at = name.find("(anonymous namespace)::")
+    return at >= 0 and name[at + 23:].startswith(_PORT_KERNELS)
+
+
+def _in_windows(windows: list, kernels: list) -> dict:
+    """range name -> (all kernels, their device us, the port's kernels,
+    their device us) of the kernels whose device start lies inside one of
+    the range's device-side windows (the ranges of one worker's serial
+    chunks do not overlap; a nested range's kernels count for both). The
+    port's kernels launch through ctypes, under no torch op, so only their
+    device time places them in a range."""
+    out = {}
+    for name, lo, hi in windows:
+        n, us, pn, pus = out.get(name, (0, 0.0, 0, 0.0))
+        for kname, start, dur in kernels:
+            if lo <= start <= hi:
+                n, us = n + 1, us + dur
+                if _is_port(kname):
+                    pn, pus = pn + 1, pus + dur
+        out[name] = (n, us, pn, pus)
+    return out
+
+
 def report(label: str, prof, wall: float) -> None:
     dev_spans, host_spans, kernels, counts = {}, {}, {}, {}
+    windows, kevents = [], []
     busy = 0.0
     for e in prof.events():
         ranged = e.name.startswith(("enc.", "dec."))
@@ -162,7 +198,10 @@ def report(label: str, prof, wall: float) -> None:
         us = e.time_range.elapsed_us()
         if ranged:  # the device-side extent of a named range
             dev_spans[e.name] = dev_spans.get(e.name, 0.0) + us
+            windows.append((e.name, e.time_range.start, e.time_range.end))
         else:
+            if not _is_copy(e.name):
+                kevents.append((e.name, e.time_range.start, us))
             busy += us
             kernels[e.name] = kernels.get(e.name, 0.0) + us
             counts[e.name] = counts.get(e.name, 0) + 1
@@ -185,6 +224,7 @@ def report(label: str, prof, wall: float) -> None:
                                                   "compact_mask_kernel",
                                                   "compact_reg_")),
                        ("the port's emission", ("emit_kernel",)),
+                       ("the port's parse", ("parse_kernel",)),
                        ("the port's run writes", ("fill_runs_kernel",)),
                        ("the port's sorted-run writes",
                         ("runs_check_kernel", "runs_tile_kernel"))):
@@ -193,12 +233,16 @@ def report(label: str, prof, wall: float) -> None:
         print("  kernels (%s) %.3f ms, %.2f%% of the device "
               "time, %d launches" % (what, us / 1e3, 100 * us / max(busy, 1e-9),
                                      sum(counts[k] for k in hit)))
+    placed = _in_windows(windows, kevents)
     for name in sorted(set(dev_spans) | set(host_spans)):
         t, c, k, cp, ku = host_spans.get(name, (0.0, 0, 0, 0, 0.0))
+        n, us, pn, pus = placed.get(name, (0, 0.0, 0, 0.0))
         print("  range %-15s device extent %.3f ms, host %.1f ms, %d calls; "
               "%d kernel launches (%.3f ms of device time), %d copies and "
-              "fills inside" % (name, dev_spans.get(name, 0.0) / 1e3,
-                                t / 1e3, c, k, ku / 1e3, cp))
+              "fills inside; in its device window %d kernels (%.3f ms), of "
+              "them the port's %d (%.3f ms)"
+              % (name, dev_spans.get(name, 0.0) / 1e3, t / 1e3, c, k,
+                 ku / 1e3, cp, n, us / 1e3, pn, pus / 1e3))
     by_name_report(prof)
     for k, v in sorted(kernels.items(), key=lambda kv: -kv[1]):
         if _is_copy(k):
