@@ -45,9 +45,10 @@ Phases, each of which must pass:
      call; these three streaming kernels (unpack, pack, byte form) also
      timed at 16 units (the fixed cost of one event-timed launch), at 32
      Mi units, back to back over 8 buffer sets and once after a flush
-     that leaves no dirty line in the L2. The run-boundary kernels (run_offsets on encode;
-     seg_positions, on no path since the parse) at a whole chunk's 11,829,248 elements and
-     run_offsets at (2, 80000) coordinate rows, and both at n = 1,
+     that leaves no dirty line in the L2. The run-boundary kernels (on no
+     path: coords_emit and the parse carry their runs and sums) at a whole
+     chunk's 11,829,248 elements and run_offsets at the SE and PE
+     coordinate rows, (2, 98304) and (2, 49152), and both at n = 1,
      tile - 1, tile, tile + 1, 3 tiles + 5 and past 3,000 tiles
      (run_offsets 1-D and as 2 rows) on every RUN_KINDS and SEG_KINDS
      input: runs of 31-33 at the edges of steps, warps and tiles, a run of
@@ -82,8 +83,7 @@ Phases, each of which must pass:
      index_put_ and the 73,138,176-entry run grid aimed at a dump byte),
      and at that chunk's modeled N deltas and N bases, then at every
      fill_runs call of one real SE chunk recorded through cli.main (the
-     encode's coordinate layout write, the decode's N bases from
-     positions_parse's runs),
+     decode's N bases from positions_parse's runs),
      each beside its bound and index_put_ of its writes. The
      output-stationary
      run writes of the same source, fill_sorted_runs and concat_row_spans,
@@ -132,11 +132,24 @@ Phases, each of which must pass:
      bound (parse_moved) and, in turns, beside the parent's composition
      (its plain version on the card: B3, bucket_compact, seg_positions
      and the torch passes); and one SE chunk's qualcol_decode_device's
-     device operations against the parent's;
-     after phase 5 run_offsets is held and timed again at the
-     shapes the two corpora handed it (the SE and PE coordinate rows),
-     and after
-     phase 6 rans_encode is held and timed on the largest order-1 section
+     device operations against the parent's. The encode's coordinate
+     streams (coords_emit) on every COORDS_CASES case placed by the built
+     tile (runs of 31-33, 64, 65 and across, ending and starting at tile
+     edges, over 3 tiles and to B; a leading 1000; n_valid 0, 1, inside a
+     run, at a tile edge and B; wrapping differences, negative values,
+     values past 2^21; T - 1, T, T + 1 and 40 T + 3 elements), as given
+     and as an unaligned view, and the first chunk's quality scan
+     (qual_stats) on every STATS_CASES case (no N, an N first and last,
+     all N, quals >= 128, invalid bases, the first N at a tile edge and in
+     a late tile, 1,100 tiles), one launch each, against their plain
+     versions, then at one real SE and one real PE chunk's calls recorded
+     through cli.main, each exact, its device operations a call counted
+     in a CUDA graph capture (2 for coords_emit), timed beside its bound,
+     in turns beside the parent's composition (its plain version on the
+     card) and, for qual_stats, beside torch.bincount; then
+     coords_encode2_device and DeviceEngine.quality_stats under
+     torch.profiler, which must run no device kernel but the port's;
+     after phase 6 rans_encode is held and timed on the largest order-1 section
      the SE compress coded (real .rfq bytes), then tools/profile_rans.py's
      sweep of its block size, window and batch is logged at these shapes
      (every build exact against the package's), with the floor its state
@@ -153,17 +166,18 @@ Phases, each of which must pass:
      byte-compared with the host engine's output, decompressed and
      compared with the input; every chunk must have taken the device path
      and every kernel of the SE path must have launched on it,
-     run_offsets once a chunk on compress and never on decompress,
-     seg_positions and token_start_mask never (the same in phases 7 and
-     8; pe_encode_pairs likewise once a PE compress chunk and
+     run_offsets, seg_positions and token_start_mask never, coords_emit
+     once a compress chunk and never on decompress, qual_stats once a
+     compressed file and never on decompress (the same in phases 7 and 8,
+     where every shard rank derives the header and rank 0 again to
+     assemble; pe_encode_pairs likewise once a PE compress chunk and
      pe_decode_rows once a PE decompress chunk and never elsewhere,
      overlap_pairs never, qualcol_emit and positions_emit once a compress
      chunk and never on decompress, qualcol_parse and positions_parse
      once a decompress chunk and never on compress, fill_runs once a
-     chunk each way, fill_sorted_runs once a decompress chunk,
-     concat_row_spans once a PE compress chunk, bucket_compact 3 times a
-     compress chunk and never on decompress), and the shapes they were
-     handed are logged.
+     decompress chunk and never on compress, fill_sorted_runs once a
+     decompress chunk, concat_row_spans once a PE compress chunk,
+     bucket_compact twice a compress chunk and never on decompress).
      The round
      trip runs twice: the first (cold) pays torch's lazy setup of each
      operator, the second (warm) is the steady rate. The token FSM is then
@@ -207,7 +221,7 @@ Phases, each of which must pass:
      .rfq; the bytes must equal the serial run's of phase 4 or 5, the
      decode must give the inputs back, every rank's chunks must have taken
      the device both ways, and the kernels of SHARD_KERNELS
-     (encode_frontend, run_offsets, bucket_compact and fill_runs on
+     (encode_frontend, qual_stats, coords_emit and bucket_compact on
      compress; unpack_bases, qualcol_parse, positions_parse, fill_runs and
      fill_sorted_runs on decompress) must have launched in every rank
      (their sums are the launches of the shard_se and shard_pe paths). On one card both
@@ -257,8 +271,7 @@ KERNELS = [
      "repaq_tpu/ops/pallas_tpu.py:175", ()),
     # the run-boundary and rANS kernels replace XLA code, not Pallas kernels
     ("run_offsets", "repaq_tpu_torch/csrc/scan.cu",
-     "repaq_tpu/ops/device_streams.py:33, :37, :275-278, :726-730",
-     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+     "repaq_tpu/ops/device_streams.py:33, :37, :275-278, :726-730", ()),
     ("seg_positions", "repaq_tpu_torch/csrc/scan.cu",
      "repaq_tpu/ops/device_streams.py:1001, :1138", ()),
     ("rans_encode", "repaq_tpu_torch/csrc/rans.cu",
@@ -317,6 +330,16 @@ KERNELS = [
      "repaq_tpu/ops/device_streams.py:136, :187, :237, :403-419, :502, "
      ":536, :1094",
      ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+    # the encode's coordinate streams, whole
+    ("coords_emit", "repaq_tpu_torch/csrc/coords.cu",
+     "repaq_tpu/ops/device_streams.py:691-787 (coords_encode2_device: "
+     "the scans :724-731, the byte planes, the layout sort of _emit_sort)",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
+    # the first chunk's quality scan (the header's histogram)
+    ("qual_stats", "repaq_tpu_torch/csrc/stats.cu",
+     "repaq_tpu/codec/device_engine.py:172-235 (DeviceEngine.quality_stats"
+     "' stats_step)",
+     ("se", "pe", "mesh_se", "mesh_pe", "shard_se", "shard_pe")),
 ]
 
 # why a kernel is on no main path (its launches there are 0)
@@ -338,6 +361,11 @@ NO_PATH = {
                      "decode path; the kernel stays in the parse's plain "
                      "versions and decode_positions_device, held against "
                      "its plain version in phase 2",
+    "run_offsets": "none: coords_emit carries the coordinate rows' runs "
+                   "inside its tiles on the encode path, and the emission "
+                   "kernels theirs; the kernel stays in their plain "
+                   "versions, held against its plain version in phase 2 at "
+                   "the SE and PE coordinate rows",
     "overlap_pairs": "none: pe_encode_pairs runs the same search inside its "
                      "tiles on the PE encode path; the search alone keeps "
                      "JAX's overlap_pairs_device signature for the tests "
@@ -964,9 +992,8 @@ def fill_kernel_phase(dev) -> dict:
     shapes of that chunk: the int32 deltas (786,432 entries, the starts
     kept) and the N bases (786,432 entries, -1 past the real ones, one
     value); then at every call of one real SE chunk recorded through
-    cli.main (chunk_calls, FILL_CALLS: the encode's coordinate layout
-    write, the decode's N bases from positions_parse's runs), each beside
-    its bound and its index_put_."""
+    cli.main (chunk_calls, FILL_CALLS: the decode's N bases from
+    positions_parse's runs), each beside its bound and its index_put_."""
     import numpy as np
     import torch
 
@@ -1061,9 +1088,8 @@ def fill_kernel_phase(dev) -> dict:
                                    if "deltas" in label
                                    else (seq, pos_t, 1, ord("N")))))
     # every call of one real SE chunk as the main path makes it
-    # (chunk_calls): the encode's coordinate layout write and the decode's N
-    # bases (the N stream's runs from positions_parse), in place on copies
-    # of the recorded outputs
+    # (chunk_calls): the decode's N bases (the N stream's runs from
+    # positions_parse), in place on a copy of the recorded output
     calls = chunk_calls(dev)["fill_runs"]
     check(len(calls) == len(FILL_CALLS), "the SE chunk called fill_runs %d "
           "times, not %d" % (len(calls), len(FILL_CALLS)))
@@ -1081,8 +1107,8 @@ def fill_kernel_phase(dev) -> dict:
 
 
 # fill_runs' calls in one SE chunk of the smoke corpora, in the order the
-# device path makes them
-FILL_CALLS = ("coordinate streams layout", "N bases")
+# device path makes them (the encode makes none since coords_emit)
+FILL_CALLS = ("N bases",)
 
 
 def fill_library(out, start, count, value, keep=None):
@@ -1578,7 +1604,7 @@ def concat_writes(src, src_start, span, dest_off, length):
 # the PE chunk's calls pe_chunk_calls records, by name
 PE_RECORDED = ("concat_row_spans", "pe_encode_pairs", "pe_decode_rows",
                "qualcol_emit", "positions_emit", "qualcol_parse",
-               "positions_parse")
+               "positions_parse", "coords_emit", "qual_stats")
 _PE_CHUNK_CALLS: dict = {}
 
 
@@ -1942,10 +1968,10 @@ def compact_edge_cases(dev) -> int:
 
 # the bucket_compact calls of one SE chunk, in the order the device path
 # makes them on the CPU: the compress's five, then the decompress's two.
-# The quality and N streams' count >= 2 calls ([1], [3]) are the
-# emission's plain versions', the decode's token calls ([5], [6]) the
-# parse's: on the CPU their wrappers run them inside the main path, on a
-# card the kernels run in their place and emission_compactions and
+# The quality, N and coordinate streams' count >= 2 calls ([1], [3], [4])
+# are the emission's plain versions', the decode's token calls ([5], [6])
+# the parse's: on the CPU their wrappers run them inside the main path, on
+# a card the kernels run in their place and emission_compactions and
 # parse_compactions record them apart.
 COMPACT_CALLS = ("grouping", "quality count >= 2", "N flags",
                  "N count >= 2", "coordinates count >= 2", "N decode tokens",
@@ -1954,7 +1980,7 @@ _CHUNK_CALLS: dict = {}
 # the kernels whose calls chunk_calls records
 RECORDED = ("bucket_compact", "fill_sorted_runs", "fill_runs",
             "qualcol_emit", "positions_emit", "qualcol_parse",
-            "positions_parse")
+            "positions_parse", "coords_emit", "qual_stats")
 
 
 def _clone(a):
@@ -2015,7 +2041,8 @@ def chunk_calls(dev, reads: int = 80_000) -> dict:
     check(len(calls["fill_sorted_runs"]) == 1, "the chunk's decode called "
           "fill_sorted_runs %d times, not once"
           % len(calls["fill_sorted_runs"]))
-    for what, entries in (("encode", ("qualcol_emit", "positions_emit")),
+    for what, entries in (("encode", ("qualcol_emit", "positions_emit",
+                                      "coords_emit", "qual_stats")),
                           ("decode", ("positions_parse", "qualcol_parse"))):
         check(all(len(calls[e]) == 1 for e in entries),
               "the chunk's %s called %s %s times, not once each"
@@ -2027,21 +2054,22 @@ def chunk_calls(dev, reads: int = 80_000) -> dict:
 
 def emission_compactions(calls: dict) -> list:
     """The arguments of the bucket_compact calls that the emission's plain
-    versions make at chunk_calls' qualcol_emit and positions_emit calls
-    (the quality stream's count >= 2, then the N stream's), recorded by
-    running them once on those calls' arguments."""
+    versions make at chunk_calls' qualcol_emit, positions_emit and
+    coords_emit calls (the quality stream's count >= 2, the N stream's,
+    the coordinates'), recorded by running them once on those calls'
+    arguments."""
     from repaq_tpu_torch.ops import kernels as TK
 
     rec = {"bucket_compact": []}
     saved = {"bucket_compact": TK.bucket_compact}
     TK.bucket_compact = recorders(rec, saved)["bucket_compact"]
     try:
-        for entry in ("qualcol_emit", "positions_emit"):
+        for entry in ("qualcol_emit", "positions_emit", "coords_emit"):
             emit_plain(entry)(*calls[entry][0])
     finally:
         TK.bucket_compact = saved["bucket_compact"]
-    check(len(rec["bucket_compact"]) == 2, "the emission's plain versions "
-          "called bucket_compact %d times, not twice"
+    check(len(rec["bucket_compact"]) == 3, "the emission's plain versions "
+          "called bucket_compact %d times, not 3 times"
           % len(rec["bucket_compact"]))
     return rec["bucket_compact"]
 
@@ -2071,15 +2099,15 @@ def chunk_compactions(dev, reads: int = 80_000) -> list:
     """The arguments (bucket, nbuckets, cap, fill, payload) of every
     bucket_compact call of chunk_calls' SE chunk, in COMPACT_CALLS order;
     where the emission and parse kernels ran (a card), their plain
-    versions' four (emission_compactions, parse_compactions) in their
+    versions' five (emission_compactions, parse_compactions) in their
     places."""
     import torch
 
     calls = chunk_calls(dev, reads)
     made = calls["bucket_compact"]
-    if len(made) == len(COMPACT_CALLS) - 4:
-        quality, npos = emission_compactions(calls)
-        made = [made[0], quality, made[1], npos, made[2],
+    if len(made) == len(COMPACT_CALLS) - 5:
+        quality, npos, coords = emission_compactions(calls)
+        made = [made[0], quality, made[1], npos, coords,
                 *parse_compactions(calls)]
     calls = [(c + (None,))[:5] for c in made]
     forms = [c[0].dtype == torch.bool for c in calls]
@@ -2119,8 +2147,8 @@ def compact_shapes(dev, reads: int = 80_000) -> list:
     stream's count >= 2 with its token fields riding, its N flags, the N
     stream's and the coordinates' count >= 2, and the decode's token
     starts with their windows riding (a dense head, then the buffer's
-    empty tail); the quality and N count >= 2 calls are the emission's
-    plain versions' (COMPACT_CALLS); parent: compact_library's sort of the
+    empty tail); the quality, N and coordinate count >= 2 calls are the
+    emission's plain versions' (COMPACT_CALLS); parent: compact_library's sort of the
     same keys."""
     import torch
 
@@ -3141,6 +3169,329 @@ def parse_kernel_phase(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# coordinate streams (coords_emit): csrc/coords.cu; the first chunk's
+# quality scan (qual_stats): csrc/stats.cu
+# ---------------------------------------------------------------------------
+
+# the coordinate rows' edge cases, placed by the built tile T, each row its
+# own values: one element; a leading repeat (the value before the first is
+# 1000); runs of 31, 32, 33, 64 and 65; a run across a tile edge, one
+# ending at one (T - 1), one starting at one, one of 32 ending at one; a
+# run over 3 tiles; a run to B with B no multiple of T; n_valid 0, 1,
+# inside a run, at a tile edge and B; int32 differences that wrap;
+# negative values; values past 2^21 up to 2^31 - 1; rows of T - 1, T,
+# T + 1 and 40 T + 3 elements.
+COORDS_CASES = ("single", "leading_1000", "runs", "run_across_edge",
+                "run_ends_at_edge", "run_starts_at_edge", "run_3_tiles",
+                "run_to_b", "n_valid_0", "n_valid_1", "n_valid_in_run",
+                "n_valid_at_edge", "n_valid_b", "wrap", "negative",
+                "past_2_21", "tile-1", "tile", "tile+1", "many_tiles")
+
+
+def coord_values(rng, n: int, lo: int = 0, hi: int = 1 << 21):
+    """(n,) int64 coordinate-like values: repeats, deltas of 1-64 and
+    absolute values in [lo, hi), about a third each."""
+    import numpy as np
+
+    kind = rng.random(n)
+    vals = np.empty(n, dtype=np.int64)
+    last = 1000
+    for i in range(n):
+        if kind[i] < 0.35:
+            pass
+        elif kind[i] < 0.65:
+            last += int(rng.integers(1, 65))
+        else:
+            last = int(rng.integers(lo, hi))
+        vals[i] = last
+    return vals
+
+
+def _coord_run(row, lo: int, hi: int, value: int) -> None:
+    """row[lo:hi] = value, the elements either side made to differ."""
+    row[lo:hi] = value
+    for i in (lo - 1, hi):
+        if 0 <= i < row.shape[0] and row[i] == value:
+            row[i] = value + 7
+
+
+def coords_case(name: str, tile: int):
+    """(values2 (2, B) int32, n_valid or None) of a COORDS_CASES case."""
+    import numpy as np
+
+    T = tile
+    rng = np.random.default_rng(COORDS_CASES.index(name) + 2024)
+    b = {"single": 1, "leading_1000": 300, "runs": 900, "run_3_tiles": 4 * T,
+         "run_to_b": 2 * T + 77, "n_valid_0": T + 5, "n_valid_1": T + 5,
+         "wrap": 600, "negative": 600, "past_2_21": 600, "tile-1": T - 1,
+         "tile": T, "tile+1": T + 1, "many_tiles": 40 * T + 3}.get(name,
+                                                                  2 * T + 9)
+    rows = [coord_values(rng, b), coord_values(rng, b)]
+    n_valid = None
+    x, y = rows
+    if name == "single":
+        x[0], y[0] = 1000, 7
+    elif name == "leading_1000":
+        x[:70], y[:33] = 1000, 1000
+        y[33] = 9
+    elif name == "runs":
+        at = 0
+        for r in (31, 32, 33, 64, 65, 1, 2, 96, 97):
+            _coord_run(x, at + 1, at + 2 + r, 5000 + at)
+            _coord_run(y, at + 3, at + 4 + r, 40000 + at)
+            at += r + 9
+    elif name == "run_across_edge":
+        _coord_run(x, T - 10, T + 25, 123)
+        _coord_run(y, T - 30, T + 35, 40000)
+    elif name == "run_ends_at_edge":
+        _coord_run(x, T - 40, T, 77)
+        _coord_run(y, T - 33, T, 99999)
+    elif name == "run_starts_at_edge":
+        _coord_run(x, T - 1, T + 40, 77)
+        _coord_run(y, T, T + 33, 99999)
+    elif name == "run_3_tiles":
+        _coord_run(x, 5, 3 * T + 10, 31)
+        _coord_run(y, T - 1, 3 * T + 2, 32768)
+    elif name == "run_to_b":
+        _coord_run(x, b - 100, b, 2000)
+        _coord_run(y, b - 33, b, 40000)
+    elif name in ("n_valid_0", "n_valid_1"):
+        n_valid = int(name[-1])
+    elif name == "n_valid_in_run":
+        _coord_run(x, T - 20, T + 20, 8)
+        _coord_run(y, T - 40, T + 1, 8)
+        n_valid = T
+    elif name == "n_valid_at_edge":
+        _coord_run(x, T - 64, T, 8)
+        n_valid = T
+    elif name == "n_valid_b":
+        n_valid = b
+    elif name == "wrap":
+        ext = np.array([2**31 - 1, -2**31, -2**31 + 63, -2**31 + 64,
+                        2**31 - 64, 0, 1000])
+        x[:] = rng.choice(ext, size=b)
+        y[:] = np.where(rng.random(b) < 0.5, rng.choice(ext, size=b), y)
+    elif name == "negative":
+        x[:] = np.where(rng.random(b) < 0.6, -coord_values(rng, b, 0, 2**31),
+                        x)
+        y[:] = -coord_values(rng, b, 0, 300)
+    elif name == "past_2_21":
+        x[:] = coord_values(rng, b, 1 << 21, 2**31 - 64)
+        y[:] = coord_values(rng, b, 32000, 2**31 - 64)
+    elif name == "many_tiles":
+        n_valid = b - 1000
+    return np.stack([x, y]).astype(np.int32), n_valid
+
+
+def coords_args(name: str, tile: int, dev="cpu") -> tuple:
+    """(values2, out_cap, n_valid) of a COORDS_CASES case on dev, out_cap
+    as the engine sizes it (3 B + 8)."""
+    import torch
+
+    xy, n_valid = coords_case(name, tile)
+    return (torch.from_numpy(xy).to(dev), 3 * xy.shape[1] + 8, n_valid)
+
+
+def coords_moved(args) -> int:
+    """The bytes a coords_emit call must move: both rows read once, the
+    output (both rows' buffers) and the two lengths written once."""
+    values2, out_cap, _n_valid = args
+    return 4 * values2.numel() + 2 * out_cap + 8
+
+
+# the quality scan's edge cases, placed by the built tile T: no N; an N
+# first, an N last, all N, one base; quals >= 128 (at the first N too);
+# invalid bases (lower case and others); sizes of T - 1, T and T + 1;
+# the first N at T, the first N in the 6th of 8 tiles; 1,100 tiles, more
+# than one wave of blocks.
+STATS_CASES = ("no_n", "n_first", "n_last", "all_n", "one_base", "ge128",
+               "invalid", "tile-1", "tile", "tile+1", "n_at_edge", "n_late",
+               "many_tiles")
+
+
+def stats_case(name: str, tile: int):
+    """(seq, qual) (n,) u8 of a STATS_CASES case: NovaSeq-like qualities,
+    bases with ~0.1% N unless the case says otherwise."""
+    import numpy as np
+
+    T = tile
+    rng = np.random.default_rng(STATS_CASES.index(name) + 77)
+    n = {"one_base": 1, "tile-1": T - 1, "tile": T, "tile+1": T + 1,
+         "n_late": 8 * T - 3, "many_tiles": 1100 * T + 7}.get(name,
+                                                              3 * T + 100)
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].copy()
+    qual = np.frombuffer(NOVA_QUALS, np.uint8)[
+        rng.choice(4, size=n, p=NOVA_P)].copy()
+    if name not in ("no_n", "n_first", "n_last", "n_at_edge", "n_late"):
+        seq[rng.random(n) < 0.001] = ord("N")
+    if name == "n_first":
+        seq[0] = ord("N")
+        seq[rng.integers(1, n, 20)] = ord("N")
+    elif name == "n_last":
+        seq[-1] = ord("N")
+    elif name == "all_n":
+        seq[:] = ord("N")
+    elif name == "one_base":
+        seq[0], qual[0] = ord("N"), ord(":")
+    elif name == "ge128":
+        hi = rng.random(n) < 0.01
+        qual[hi] = rng.integers(128, 256, int(hi.sum()))
+        at = np.flatnonzero(seq == ord("N"))
+        qual[at[0]] = 200
+        qual[at[::2]] = 200
+    elif name == "invalid":
+        bad = rng.integers(0, n, 30)
+        seq[bad] = np.frombuffer(b"acgtnRYX.", np.uint8)[
+            rng.integers(0, 9, 30)]
+    elif name == "n_at_edge":
+        seq[T] = ord("N")
+        seq[rng.integers(T + 1, n, 10)] = ord("N")
+    elif name == "n_late":
+        at = 5 * T + 1234
+        seq[at] = ord("N")
+        seq[rng.integers(at + 1, n, 10)] = ord("N")
+    return seq, qual
+
+
+def stats_moved(seq) -> int:
+    """The bytes a qual_stats call must move: seq and qual read once, the
+    134 int64 words written once."""
+    return 2 * seq.shape[0] + 8 * 134
+
+
+def coords_stats_edge_cases(dev) -> tuple:
+    """Each COORDS_CASES case through coords_emit and each STATS_CASES case
+    through qual_stats on dev, placed by the built tiles: exact against
+    their plain versions, one launch each, the coordinate rows also as an
+    unaligned view; returns the two case counts."""
+    import torch
+
+    from repaq_tpu_torch.ops import device_streams as DS
+    from repaq_tpu_torch.ops import kernels as TK
+
+    for name in COORDS_CASES:
+        args = coords_args(name, TK.coords_tile(), dev)
+        wide = torch.zeros((2, args[0].shape[1] + 1), dtype=torch.int32,
+                           device=dev)
+        wide[:, 1:] = args[0]
+        for values2 in (args[0], wide[:, 1:]):
+            before = TK.launches["coords_emit"]
+            got = TK.coords_emit(values2, *args[1:])
+            check(TK.launches["coords_emit"] == before + 1, "coords_emit "
+                  "launched %d times on %s"
+                  % (TK.launches["coords_emit"] - before, name))
+            want = DS.coords_emit_plain(values2, *args[1:])
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  "coords_emit differs from its plain version on %s "
+                  "(lengths %d, %d; plain %d, %d)"
+                  % (name, int(got[1]), int(got[2]), int(want[1]),
+                     int(want[2])))
+    for name in STATS_CASES:
+        seq, qual = (torch.from_numpy(a).to(dev)
+                     for a in stats_case(name, TK.stats_tile()))
+        before = TK.launches["qual_stats"]
+        got = TK.qual_stats(seq, qual)
+        check(TK.launches["qual_stats"] == before + 1, "qual_stats launched "
+              "%d times on %s" % (TK.launches["qual_stats"] - before, name))
+        want = TK.qual_stats_plain(seq, qual)
+        check(torch.equal(got, want), "qual_stats differs from its plain "
+              "version on %s: %s against %s" % (name, got[128:].tolist(),
+                                                 want[128:].tolist()))
+    return len(COORDS_CASES), len(STATS_CASES)
+
+
+def coords_stats_kernel_phase(dev) -> dict:
+    """coords_emit and qual_stats on their edge cases, then at one real SE
+    and one real PE chunk's calls recorded through cli.main (chunk_calls,
+    pe_chunk_calls): exact against their plain versions, timed beside
+    their bound (coords_moved, stats_moved), their device operations a
+    call counted in a CUDA graph capture (2 and at most 3), and timed in
+    turns beside the parent's composition (the plain version on the card,
+    which is the code the parent ran): parent, kernel, kernel, parent;
+    qual_stats also beside torch.bincount(qual, minlength=256), the
+    histogram's library call. Then the engine's coordinate streams and
+    quality scan under torch.profiler: no device kernel but the port's."""
+    import types
+
+    import torch
+
+    from repaq_tpu_torch.codec.device_engine import DeviceEngine
+    from repaq_tpu_torch.ops import device_streams as DS
+    from repaq_tpu_torch.ops import kernels as TK
+
+    log("kernels coords_emit and qual_stats exact on %d and %d edge cases "
+        "(COORDS_CASES as given and as unaligned views, at tiles of %d "
+        "elements; STATS_CASES at tiles of %d bases), one launch each"
+        % (*coords_stats_edge_cases(dev), TK.coords_tile(),
+           TK.stats_tile()))
+    res = {}
+    se, pe = chunk_calls(dev), pe_chunk_calls(dev)
+    for entry in ("coords_emit", "qual_stats"):
+        for tag, args in (("SE", se[entry][0]), ("PE", pe[entry])):
+            args = list(args)
+            ops = TK.captured_ops(lambda: getattr(TK, entry)(*args))
+            check(len(ops) == 2 if entry == "coords_emit" else
+                  1 <= len(ops) <= 3, "%s ran %d device operations a call "
+                  "at the %s chunk's call: %s" % (entry, len(ops), tag, ops))
+            if entry == "coords_emit":
+                plain = DS.coords_emit_plain
+                moved = coords_moved(args)
+                label = "%s chunk's call: rows (2, %d), %s valid, out_cap %d" % (
+                    tag, args[0].shape[1], args[2], args[1])
+                library = None
+            else:
+                plain = TK.qual_stats_plain
+                moved = stats_moved(args[0])
+                label = "%s chunk's call: %d bases, %d N" % (
+                    tag, args[0].shape[0], int((args[0] == ord("N")).sum()))
+
+                def library(q=args[1]):
+                    return torch.bincount(q, minlength=256)
+
+            def kern(a=args):
+                return getattr(TK, entry)(*a)
+
+            def parent(a=args, f=plain):
+                return f(*a)
+
+            r = held_and_timed(entry, kern, parent, (), label, plain_runs=15,
+                               moved=moved, library=library)
+            r["device_ops"] = ops
+            r["in_turns_ms"] = in_turns([("parent", parent), (entry, kern)],
+                                        "%s %s" % (entry, label))
+            log("kernel %s at the %s chunk's call: device operations %s"
+                % (entry, tag, ops))
+            if entry not in res:
+                res[entry] = dict(r)
+                res[entry]["by_shape"] = {}
+            res[entry]["by_shape"][label] = r
+    # the engine's paths, whole: the coordinate streams from the (2, B)
+    # rows, the quality scan from the host block (its uploads, the
+    # wrapper's zero fill, the kernel, one copy back)
+    xy, out_cap, n_valid = se["coords_emit"][0]
+    seq, qual = se["qual_stats"][0]
+    block = types.SimpleNamespace(seq_flat=seq.cpu().numpy(),
+                                  qual_flat=qual.cpu().numpy())
+    eng = DeviceEngine(dev)
+    for what, fn, kernel in (
+            ("coords_encode2_device", lambda: DS.coords_encode2_device(
+                xy, out_cap, n_valid=n_valid), "coords_kernel"),
+            ("DeviceEngine.quality_stats", lambda: eng.quality_stats(block),
+             "stats_kernel")):
+        # the engine's named range shows as a device event of its own
+        ops = [o for o in profiled_ops(fn) if not o.startswith("enc.")]
+        fills = [o for o in ops if "FillFunctor" in o or "Memset" in o]
+        others = [o for o in ops if kernel not in o and "Memcpy" not in o
+                  and o not in fills]
+        check(not others and len(fills) <= 1
+              and sum(kernel in o for o in ops) == 1, "%s ran device "
+              "operations other than one zero fill, copies and the port's "
+              "%s: %s" % (what, kernel, ops))
+        log("%s at the SE chunk's call: device operations %s" % (what, ops))
+    return res
+
+
 def _overlap_case_makers() -> dict:
     """name -> a maker of (r1, r2) u8 pair rows from an rng, for the
     overlap search's edge cases: the smallest and largest o, minlen 11 and
@@ -4112,12 +4463,14 @@ def kernel_phase(dev) -> dict:
         % fsm_edge_cases(dev))
     log("kernel encode_frontend exact at n = %s (n %% 4 = 1, 2, 3, 'N' and "
         "the major qual in the tail)" % frontend_ragged_cases(dev))
-    # the run-boundary kernels at a whole chunk's bases (the ceiling) and
-    # run_offsets at the coordinates' two rows of a 12-Mbase SE chunk's
-    # 80,000 reads
+    # run_offsets at the coordinate rows of an SE and a PE chunk (the
+    # engine's b_cap 98,304 reads, 49,152 pairs), as coords_emit's plain
+    # version hands them to it, and the run-boundary kernels at a whole
+    # chunk's bases (the ceiling)
     for name, shape, label in (
+            ("run_offsets", (2, 98_304), "SE coordinate rows (2, 98304)"),
+            ("run_offsets", (2, 49_152), "PE coordinate rows (2, 49152)"),
             ("run_offsets", (n,), "%d elements, a whole chunk's bases" % n),
-            ("run_offsets", (2, 80_000), "(2, 80000) coordinate rows"),
             ("seg_positions", (n,), "%d elements, a whole chunk's bases"
              % n)):
         res = boundary_kernels_at(dev, name, shape, label, sum(shape))
@@ -4670,23 +5023,6 @@ def rans_sweep_phase(dev, res: dict, dres: dict, real=None) -> None:
         *RANS_SHAPES[0], "")]["chain_floor_ms"]
 
 
-def boundary_kernels_at_main_path_sizes(kres: dict, cres: dict) -> None:
-    """run_offsets at the shapes the SE and PE corpora handed it (phases 4
-    and 5; seg_positions is on no path since the parse), added to its
-    by-shape readings; the SE coordinate rows' reading becomes its
-    headline."""
-    import torch
-
-    for tag in ("se", "pe"):
-        for (name, what), shape in cres[tag]["boundary_shapes"].items():
-            label = "%s %s %s" % (tag.upper(), what, shape)
-            res = boundary_kernels_at(torch.device("cuda:0"), name, shape,
-                                      label, sum(shape))
-            kres[name]["by_shape"][label] = res
-            if tag == "se":
-                kres[name].update(res)
-
-
 # ---------------------------------------------------------------------------
 # phase 3: goldens through the CLI
 # ---------------------------------------------------------------------------
@@ -4876,69 +5212,34 @@ def qual_buffer_sizes(header, chunks) -> list:
     return [DeviceEngine.decode_caps(header, c)[0] for c in chunks]
 
 
-BOUNDARY_KERNELS = ("run_offsets", "seg_positions")
-
-
-@contextlib.contextmanager
-def recorded_boundary_shapes(shapes: list):
-    """Within the block, the run_offsets and seg_positions wrappers append
-    (name, shape) of each call to `shapes` and then run as they are."""
-    from repaq_tpu_torch.ops import kernels as TK
-
-    saved = {name: getattr(TK, name) for name in BOUNDARY_KERNELS}
-
-    def recording(name):
-        def kernel(x, *rest):
-            shapes.append((name, tuple(x.shape)))
-            return saved[name](x, *rest)
-        return kernel
-
-    for name in BOUNDARY_KERNELS:
-        setattr(TK, name, recording(name))
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(TK, name, fn)
-
-
-def main_path_boundary_shapes(shapes: list, cut: int) -> dict:
-    """The run-boundary kernels' shapes in one round trip whose first `cut`
-    calls were the compress's, {(kernel, what): shape}: run_offsets'
-    coordinate rows (its one call, 2-D; the decode makes none since the
-    parse)."""
-    rows = [s for _n, s in shapes[:cut] if len(s) == 2]
-    return ({("run_offsets", "coordinate rows"): max(rows)} if rows
-            else {})
-
-
 # launches a chunk of the kernels whose count a chunk fixes, by direction:
 # the smoke corpora's chunks all code N positions, qualities and
 # coordinates, and no quality escapes
 def per_chunk(what: str, pe: bool) -> dict:
     """The launches a chunk of the kernels whose count a chunk fixes, on
-    compress or decompress: run_offsets 1 an encode (the coordinate rows),
-    seg_positions and token_start_mask none (the parse runs both inside
-    its tiles), pe_encode_pairs 1 a PE encode and pe_decode_rows 1 a PE
-    decode (none in the other direction, none on SE), overlap_pairs none;
-    qualcol_emit and positions_emit 1 an encode (the quality and
-    N-position streams, whole), qualcol_parse and positions_parse 1 a
-    decode (their runs); fill_runs 1 an encode (the coordinate streams'
-    bytes) and 1 a decode (the N bases); fill_sorted_runs 1 a decode (the
-    quality runs), concat_row_spans 1 a PE encode (the elision);
-    bucket_compact 3 an encode (the grouping by bin, the N flags, the
-    coordinates' multi-byte values) and none a decode."""
+    compress or decompress: run_offsets, seg_positions and
+    token_start_mask none (coords_emit carries the coordinate rows' runs,
+    the parse runs the FSM and the sums inside its tiles),
+    pe_encode_pairs 1 a PE encode and pe_decode_rows 1 a PE decode (none
+    in the other direction, none on SE), overlap_pairs none;
+    qualcol_emit, positions_emit and coords_emit 1 an encode (the
+    quality, N-position and coordinate streams, whole), qualcol_parse and
+    positions_parse 1 a decode (their runs); fill_runs none an encode and
+    1 a decode (the N bases); fill_sorted_runs 1 a decode (the quality
+    runs), concat_row_spans 1 a PE encode (the elision); bucket_compact 2
+    an encode (the grouping by bin, the N flags) and none a decode."""
     enc = what == "compress"
-    return {"run_offsets": int(enc), "seg_positions": 0,
+    return {"run_offsets": 0, "seg_positions": 0,
             "token_start_mask": 0, "overlap_pairs": 0,
             "pe_encode_pairs": int(enc and pe),
             "pe_decode_rows": int(pe and not enc),
             "qualcol_emit": int(enc), "positions_emit": int(enc),
+            "coords_emit": int(enc),
             "qualcol_parse": int(not enc), "positions_parse": int(not enc),
-            "fill_runs": 1,
+            "fill_runs": int(not enc),
             "fill_sorted_runs": int(not enc),
             "concat_row_spans": int(enc and pe),
-            "bucket_compact": 3 if enc else 0}
+            "bucket_compact": 2 if enc else 0}
 
 
 def check_chunk_launches(where: str, what: str, launches: dict,
@@ -4947,6 +5248,16 @@ def check_chunk_launches(where: str, what: str, launches: dict,
         check(launches.get(name, 0) == per * chunks, "%s %s: %s launched %d "
               "times for %d chunks, %d a chunk expected"
               % (where, what, name, launches.get(name, 0), chunks, per))
+
+
+def check_file_launches(where: str, enc: dict, dec: dict,
+                        headers: int = 1) -> None:
+    """qual_stats, the first chunk's quality scan, launched once for each
+    header a compress makes (one a file) and never on decompress."""
+    check(enc.get("qual_stats", 0) == headers and not dec.get("qual_stats"),
+          "%s: qual_stats launched %d times on compress (%d headers) and %d "
+          "on decompress" % (where, enc.get("qual_stats", 0), headers,
+                             dec.get("qual_stats", 0)))
 
 
 def corpus_phase(device: str, pe: bool, reads: int = 640_000,
@@ -4985,18 +5296,16 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
         enc_s = time.perf_counter() - t0
         check(rc == 0, "port compress exited %d" % rc)
         if seen is not None:
-            seen["compress"] = (dict(TK.launches), len(seen["shapes"]))
+            seen["compress"] = dict(TK.launches)
         t0 = time.perf_counter()
         rc = cli.main(["-d", "-i", out, *outs, "--engine", "device"],
                       engine=eng.config())
         check(rc == 0, "port decompress exited %d" % rc)
         return enc_s, time.perf_counter() - t0
 
-    seen = {"shapes": []}
+    seen = {}
     TK.reset_launches()
-    with recorded_boundary_shapes(seen["shapes"]):
-        # the first run in this process: torch's lazy setup
-        cold = roundtrip(seen)
+    cold = roundtrip(seen)  # the first run in this process: torch's lazy setup
     launches = dict(TK.launches)
     stats = dict(eng.stats)
     warm = roundtrip()
@@ -5034,23 +5343,21 @@ def corpus_phase(device: str, pe: bool, reads: int = 640_000,
         if tag in paths:
             check(launches[name] > 0, "kernel %s never launched on the %s "
                   "path" % (name, tag))
-    enc, cut = seen["compress"]
+    enc = seen["compress"]
     dec = {k: launches[k] - enc[k] for k in launches}
     for what, counts in (("compress", enc), ("decompress", dec)):
         check_chunk_launches(tag, what, counts, len(chunks), pe)
+    check_file_launches(tag, enc, dec)
     counted = per_chunk("compress", pe)
-    log("corpus %s: run-boundary, overlap, emission, fill and compaction "
-        "launches, "
-        "compress %s, decompress %s, for %d chunks"
+    counted["qual_stats"] = 1
+    log("corpus %s: run-boundary, overlap, emission, fill, compaction and "
+        "quality-scan launches, compress %s, decompress %s, for %d chunks"
         % (tag, {k: enc[k] for k in counted}, {k: dec[k] for k in counted},
            len(chunks)))
     res = {"launches": launches, "bytes": size, "cold": cold, "warm": warm,
            "host_enc_s": host_s, "chunks": len(chunks), "fqs": fqs,
            "rfq": out, "chunk_kb": chunk_kb,
-           "qual_bufs": qual_buffer_sizes(header, chunks),
-           "boundary_shapes": main_path_boundary_shapes(seen["shapes"], cut)}
-    log("corpus %s: run-boundary kernels' shapes on the main path: %s"
-        % (tag, res["boundary_shapes"]))
+           "qual_bufs": qual_buffer_sizes(header, chunks)}
     log("corpus %s: quality buffers of the decode's parse: %s bytes"
         % (tag, res["qual_bufs"]))
     if pe:
@@ -5129,10 +5436,11 @@ def mesh_phase(tag: str, corpus: dict) -> dict:
             res["launches"] = dict(TK.launches)
             check_chunk_launches("mesh " + tag, "compress", enc_launches,
                                  corpus["chunks"], pe)
-            check_chunk_launches(
-                "mesh " + tag, "decompress",
-                {k: v - enc_launches[k] for k, v in TK.launches.items()},
-                corpus["chunks"], pe)
+            dec_launches = {k: v - enc_launches[k]
+                            for k, v in TK.launches.items()}
+            check_chunk_launches("mesh " + tag, "decompress", dec_launches,
+                                 corpus["chunks"], pe)
+            check_file_launches("mesh " + tag, enc_launches, dec_launches)
         with open(out, "rb") as f:
             check(f.read() == serial, "%s %s: mesh bytes differ from the "
                   "serial run's" % (tag, what))
@@ -5397,8 +5705,8 @@ print(json.dumps({"wall_s": time.perf_counter() - t0, "timings": timings,
 RANK_TIMEOUT_S = 300
 
 # the kernels each direction of a shard must launch in every rank
-SHARD_KERNELS = {"compress": ("encode_frontend", "run_offsets",
-                              "bucket_compact", "fill_runs"),
+SHARD_KERNELS = {"compress": ("encode_frontend", "qual_stats",
+                              "coords_emit", "bucket_compact"),
                  "decompress": ("unpack_bases", "qualcol_parse",
                                 "positions_parse", "fill_runs",
                                 "fill_sorted_runs")}
@@ -5515,6 +5823,14 @@ def shard_phase(tag: str, corpus: dict, card: str) -> dict:
                 check_chunk_launches(
                     "%s --num_shards %d rank %d" % (tag, n, r), what,
                     rank["launches"], hi - lo, pe)
+                # every rank derives the header from chunk 1, rank 0 again
+                # to assemble the parts
+                headers = 0 if what == "decompress" else 2 if r == 0 else 1
+                check(rank["launches"].get("qual_stats", 0) == headers,
+                      "%s --num_shards %d %s rank %d: qual_stats launched %d "
+                      "times, %d expected" % (tag, n, what, r,
+                                              rank["launches"].get(
+                                                  "qual_stats", 0), headers))
                 for name, count in rank["launches"].items():
                     launches[name] = launches.get(name, 0) + count
             walls[what] = (wall, [rank["wall_s"] for rank in ranks])
@@ -5611,6 +5927,7 @@ def main() -> int:
         kres["bucket_compact"] = compact_kernel_phase(torch.device("cuda:0"))
         kres.update(emit_kernel_phase(torch.device("cuda:0")))
         kres.update(parse_kernel_phase(torch.device("cuda:0")))
+        kres.update(coords_stats_kernel_phase(torch.device("cuda:0")))
         kres.update(rans_kernel_phase(torch.device("cuda:0")))
         golden_phase()
         cres = {"se": corpus_phase("cuda:0", pe=False),
@@ -5619,7 +5936,6 @@ def main() -> int:
         kres["token_start_mask"]["by_shape"][
             "median SE quality buffer, %d token bytes, uint8 lengths"
             % median] = fsm_at_size(torch.device("cuda:0"), median)
-        boundary_kernels_at_main_path_sizes(kres, cres)
         for tag in ("se", "pe"):
             cres["rfqz_" + tag] = rfqz_phase(tag, cres[tag]["fqs"],
                                              cres[tag]["bytes"])

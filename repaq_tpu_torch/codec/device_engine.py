@@ -180,30 +180,16 @@ class DeviceEngine:
 
     def quality_stats(self, block: ReadBlock) -> dict:
         """The first-chunk quality scan on the device: histogram plus the
-        order-dependent N-policy reductions. The host scan serves tiny
-        chunks and chunks with invalid bases (its error names the
-        offending char)."""
+        order-dependent N-policy reductions, one ``kernels.qual_stats``
+        call and one copy back. The host scan serves tiny chunks and
+        chunks with invalid bases (its error names the offending char)."""
         n = int(block.qual_flat.shape[0])
         if n == 0 or n < self.min_bases:
             return host_quality_stats(block.seq_flat, block.qual_flat)
-        seq = self._upload(block.seq_flat)
-        qual = self._upload(block.qual_flat)
-        counts = torch.bincount(qual.long(), minlength=256)[:128]
-        is_acgt = ((seq == ord("A")) | (seq == ord("C")) | (seq == ord("G"))
-                   | (seq == ord("T")))
-        nmask = seq == _N
-        first_n = torch.argmax(nmask.to(torch.uint8))  # 0 when none
-        first_q = qual[first_n]
-        i = torch.arange(n, device=self.device)
-        scalars = torch.stack([
-            (qual >= 128).sum(),
-            (~is_acgt & ~nmask).sum(),
-            nmask.sum(),
-            first_q.long(),
-            (nmask & (qual != first_q)).sum(),
-            ((i >= first_n) & ~nmask & (qual == first_q)).sum(),
-        ])
-        ge128, invalid, n_count, fq, ndiff, nonn = scalars.tolist()
+        with _span("enc.stats"):
+            stats = kernels.qual_stats(self._upload(block.seq_flat),
+                                       self._upload(block.qual_flat)).cpu()
+        ge128, invalid, n_count, fq, ndiff, nonn = stats[128:].tolist()
         if invalid > 0:
             return host_quality_stats(block.seq_flat, block.qual_flat)
         return {
@@ -211,7 +197,7 @@ class DeviceEngine:
             "qual_ge128": ge128 > 0,
             "invalid_lower": False,
             "invalid_other": False,
-            "qual_counts": counts.cpu().numpy().astype(np.int64),
+            "qual_counts": stats[:128].numpy().astype(np.int64),
             "n_count": n_count,
             "first_n_qual": fq if n_count else -1,
             "n_qual_differs": ndiff > 0,

@@ -203,6 +203,18 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_parse_status_words.restype = ll
     lib.repaq_parse_tile.argtypes = []
     lib.repaq_parse_tile.restype = ll
+    lib.repaq_coords_emit.argtypes = [vp, ll, ll, vp, ll, vp, vp, vp]
+    lib.repaq_coords_emit.restype = ci
+    lib.repaq_coords_status_words.argtypes = [ll]
+    lib.repaq_coords_status_words.restype = ll
+    lib.repaq_coords_tile.argtypes = []
+    lib.repaq_coords_tile.restype = ll
+    lib.repaq_qual_stats.argtypes = [vp, vp, ll, vp, vp]
+    lib.repaq_qual_stats.restype = ci
+    lib.repaq_stats_buffer_bytes.argtypes = [ll]
+    lib.repaq_stats_buffer_bytes.restype = ll
+    lib.repaq_stats_tile.argtypes = []
+    lib.repaq_stats_tile.restype = ll
     lib.repaq_graph_nodes.argtypes = [vp, vp, vp, ll, ll]
     lib.repaq_graph_nodes.restype = ll
     return lib

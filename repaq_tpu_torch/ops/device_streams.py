@@ -27,6 +27,10 @@ it and with repaq_tpu.codec.kernels_np. What differs from JAX:
   kernels' plain versions (``qualcol_emit_plain``, ``positions_emit_plain``
   over ``_classify_stream_positions``, ``_stream_b0``, ``_emit_sort_pay``
   and ``_emit_sort_lazy``), handed to ``kernels`` for CPU tensors.
+- The coordinate streams are one kernel for both rows
+  (``kernels.coords_emit``: classification, run tokens and offsets in one
+  launch); the torch composition it replaced stays below as its plain
+  version (``coords_emit_plain`` over ``_emit_sort``).
 - JAX's layout sort, which places each candidate byte at its rank among
   the offsets, is a direct write of each byte at its offset
   (``kernels.fill_runs`` with count 1): the offsets are distinct and cover
@@ -50,7 +54,8 @@ it and with repaq_tpu.codec.kernels_np. What differs from JAX:
 - The encode's run-boundary scan (JAX's ``lax.cummax`` and flipped
   ``lax.cummin`` with the arithmetic around them) is
   ``kernels.run_offsets`` (each element's offset in its run and the
-  elements left of it, up to 32; the coordinates' two rows at once).
+  elements left of it, up to 32; the coordinates' two rows at once) in
+  the emission kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -383,9 +388,6 @@ def positions_emit_plain(g_pos: torch.Tensor, n: int, out_size: int):
     )
 
 
-kernels.register_emit_plain(qualcol_emit_plain, positions_emit_plain)
-
-
 def _positions_from_gpos(g_pos: torch.Tensor, n: int, out_size: int,
                          pos_cap: int):
     """The gap/run stream of the sorted (pos_cap,) candidate positions (n =
@@ -466,16 +468,13 @@ def qualcol_encode_device(meta: torch.Tensor | None, qual: torch.Tensor,
                                 out_size)
 
 
-def coords_encode2_device(values2: torch.Tensor, out_cap: int,
-                          n_valid=None):
-    """Both coordinate streams (reference rfqcodec.cpp:1262-1330) of a
-    chunk in one pass. values2: (2, B) int (row 0 = X, row 1 = Y); entries
-    at i >= n_valid emit nothing and end repeat runs. Returns (out
-    (2*out_cap,) u8 with X at [0, x_len) and Y at [out_cap, out_cap +
-    y_len), x_len, y_len)."""
-    R, n = values2.shape
-    dev = values2.device
-    v = values2.to(_I32)
+def coords_emit_plain(v: torch.Tensor, out_cap: int, n_valid=None):
+    """Plain torch version of ``kernels.coords_emit``: the torch
+    composition the kernel replaces (the classification, the run offsets,
+    the byte planes and the emitter above); the wrapper runs it on CPU
+    tensors."""
+    R, n = v.shape
+    dev = v.device
     prev = torch.cat([torch.full((R, 1), 1000, dtype=_I32, device=dev),
                       v[:, :-1]], dim=1)
     diff = v - prev
@@ -528,6 +527,20 @@ def coords_encode2_device(values2: torch.Tensor, out_cap: int,
     )
     assert R == 2
     return out, totals[0], totals[1]
+
+
+kernels.register_emit_plain(qualcol_emit_plain, positions_emit_plain,
+                            coords_emit_plain)
+
+
+def coords_encode2_device(values2: torch.Tensor, out_cap: int,
+                          n_valid=None):
+    """Both coordinate streams (reference rfqcodec.cpp:1262-1330) of a
+    chunk in one pass. values2: (2, B) int (row 0 = X, row 1 = Y); entries
+    at i >= n_valid emit nothing and end repeat runs. Returns (out
+    (2*out_cap,) u8 with X at [0, x_len) and Y at [out_cap, out_cap +
+    y_len), x_len, y_len). One ``kernels.coords_emit`` call."""
+    return kernels.coords_emit(values2.to(_I32), out_cap, n_valid)
 
 
 # ---------------------------------------------------------------------------

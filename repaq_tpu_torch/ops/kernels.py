@@ -2,9 +2,9 @@
 version; the counterpart of repaq_tpu/ops/pallas_tpu.py, and of the
 run-boundary scans, the PE overlap search, the PE steps' revcomp, overlap
 clamp and expansion, the decode's masked writes and the stream coders'
-compaction sorts, the encode's gap/run token emission and the decode's
-token parse that the JAX package left to XLA, and of the PE encode's
-elision sort.
+compaction sorts, the encode's gap/run token emission and coordinate
+streams, the decode's token parse and the first chunk's quality scan that
+the JAX package left to XLA, and of the PE encode's elision sort.
 
 Every wrapper decides by the device of the tensor it is given: a CPU
 tensor runs the plain version, a CUDA tensor launches the kernel (built on
@@ -35,7 +35,8 @@ launches = {"encode_frontend": 0, "encode_frontend_bytes": 0,
             "pe_encode_pairs": 0, "pe_decode_rows": 0, "fill_runs": 0,
             "fill_sorted_runs": 0, "concat_row_spans": 0,
             "bucket_compact": 0, "qualcol_emit": 0, "positions_emit": 0,
-            "qualcol_parse": 0, "positions_parse": 0}
+            "qualcol_parse": 0, "positions_parse": 0, "coords_emit": 0,
+            "qual_stats": 0}
 _launch_lock = threading.Lock()
 
 
@@ -1201,7 +1202,8 @@ def bucket_compact(bucket: torch.Tensor, nbuckets: int, cap: int, fill: int,
 # ---------------------------------------------------------------------------
 # gap/run token emission (JAX: XLA code of the encode's stream coders after
 # their grouping, repaq_tpu/ops/device_streams.py:48, :160, :210, :258,
-# :289, :316, :366, :423-622)
+# :289, :316, :366, :423-622) and the coordinate streams (JAX: XLA code of
+# coords_encode2_device, :691-787)
 # ---------------------------------------------------------------------------
 
 _EMIT_MAX_BINS = 124  # qualcol's B < 125
@@ -1214,19 +1216,20 @@ def emit_tile() -> int:
     return int(_build.library().repaq_emit_tile())
 
 
-# The emission's plain versions are the torch composition the kernel
-# replaces. It calls this module's bucket_compact, run_offsets and
+# The emission's plain versions are the torch composition the kernels
+# replace. It calls this module's bucket_compact, run_offsets and
 # fill_runs, so it lives above this module, beside its pieces
-# (device_streams.qualcol_emit_plain, positions_emit_plain), and
-# device_streams hands it in here when imported (the package's __init__
-# imports it).
+# (device_streams.qualcol_emit_plain, positions_emit_plain,
+# coords_emit_plain), and device_streams hands it in here when imported
+# (the package's __init__ imports it).
 _emit_plain: dict = {}
 
 
-def register_emit_plain(qualcol_emit, positions_emit) -> None:
+def register_emit_plain(qualcol_emit, positions_emit, coords_emit) -> None:
     """Hand in the emission entries' plain versions, run on CPU tensors."""
     _emit_plain.update(qualcol_emit=qualcol_emit,
-                       positions_emit=positions_emit)
+                       positions_emit=positions_emit,
+                       coords_emit=coords_emit)
 
 
 def _check_emit(g_pos: torch.Tensor, out_size: int, table: int) -> None:
@@ -1314,6 +1317,49 @@ def positions_emit(g_pos: torch.Tensor, n: int, out_size: int):
         return _emit_plain["positions_emit"](g_pos, n, out_size)
     return _emit_launch("positions_emit", g_pos, None, 0, None, n, 0,
                         out_size)
+
+
+def coords_tile() -> int:
+    """Elements per tile of the coordinate kernel, as the built library
+    reports it; the card tests and chip_smoke.py place edge cases by
+    it."""
+    return int(_build.library().repaq_coords_tile())
+
+
+def coords_emit(values2: torch.Tensor, out_cap: int, n_valid=None):
+    """Both coordinate streams (reference rfqcodec.cpp:1262-1330) of the
+    (2, B) int32 values2 (row 0 X, row 1 Y): entries at i >= n_valid (all
+    valid for None) emit nothing and end repeat runs. Returns (out
+    (2 * out_cap,) u8 with X at [0, x_len) and Y at [out_cap, out_cap +
+    y_len), each row's tail zero, x_len, y_len), the lengths int32
+    tensors. out_cap must hold a row's most bytes, 3 B. Exactly
+    ``device_streams.coords_emit_plain``. One memset and one launch for
+    both rows, no host sync."""
+    if (values2.dtype != torch.int32 or values2.dim() != 2
+            or values2.shape[0] != 2 or values2.shape[1] < 1):
+        raise ValueError("values2 must be a (2, B) int32 tensor with B >= 1, "
+                         "got %s %s" % (values2.dtype, tuple(values2.shape)))
+    b = values2.shape[1]
+    if not (b < (1 << 28) and 3 * b <= out_cap < (1 << 29)):
+        raise ValueError("need B < 2^28 and 3 B <= out_cap < 2^29, got B=%d "
+                         "and out_cap=%d" % (b, out_cap))
+    if not _on_cuda(values2):
+        return _emit_plain["coords_emit"](values2, out_cap, n_valid)
+    dev = values2.device
+    lib = _build.library()
+    values2 = _aligned(values2)
+    valid = b if n_valid is None else max(0, min(int(n_valid), b))
+    # the status words (a multiple of 16 bytes), the two lengths, then out
+    head = 8 * lib.repaq_coords_status_words(b)
+    buf = torch.zeros(head + 16 + 2 * out_cap, dtype=torch.uint8, device=dev)
+    status = buf[:head]
+    lens = buf[head:head + 8].view(torch.int32)
+    out = buf[head + 16:]
+    with torch.cuda.device(dev):
+        _launch("coords_emit", lib.repaq_coords_emit, values2.data_ptr(), b,
+                valid, out.data_ptr(), out_cap, lens.data_ptr(),
+                status.data_ptr(), _stream(dev))
+    return out, lens[0], lens[1]
 
 
 # ---------------------------------------------------------------------------
@@ -1434,3 +1480,62 @@ def positions_parse(buf: torch.Tensor, valid_len: int, cap: int):
     if not _on_cuda(buf):
         return _parse_plain["positions_parse"](buf, valid_len, cap)
     return _parse_launch("positions_parse", buf, -1, valid_len, cap, 0)[:2]
+
+
+# ---------------------------------------------------------------------------
+# the first chunk's quality scan (JAX: XLA code of DeviceEngine.quality_stats'
+# stats_step, repaq_tpu/codec/device_engine.py:172-235)
+# ---------------------------------------------------------------------------
+
+
+def stats_tile() -> int:
+    """Bases per tile of the quality-scan kernel, as the built library
+    reports it; the card tests and chip_smoke.py place edge cases by it."""
+    return int(_build.library().repaq_stats_tile())
+
+
+def qual_stats_plain(seq: torch.Tensor, qual: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of ``qual_stats``: the torch composition the
+    kernel replaces, torch.bincount and the N policy's reductions."""
+    n = seq.shape[0]
+    counts = torch.bincount(qual.long(), minlength=256)[:128]
+    is_acgt = ((seq == _A) | (seq == _C) | (seq == _G) | (seq == _T))
+    nmask = seq == _N
+    first_n = torch.argmax(nmask.to(torch.uint8))  # 0 when none
+    first_q = qual[first_n]
+    i = torch.arange(n, device=seq.device)
+    scalars = torch.stack([
+        (qual >= 128).sum(),
+        (~is_acgt & ~nmask).sum(),
+        nmask.sum(),
+        first_q.long(),
+        (nmask & (qual != first_q)).sum(),
+        ((i >= first_n) & ~nmask & (qual == first_q)).sum(),
+    ])
+    return torch.cat([counts, scalars])
+
+
+def qual_stats(seq: torch.Tensor, qual: torch.Tensor) -> torch.Tensor:
+    """The quality scan of a chunk's (n,) u8 seq and qual (reference
+    rfqheader.cpp:130-237): one (134,) int64 tensor, the counts of quals
+    0..127, then the quals >= 128, the bases none of ACGTN, the Ns, the
+    qual at the first N (at base 0 without one), the Ns of another qual
+    and the non-N bases at or after the first N with its qual. Exactly
+    ``qual_stats_plain``. One memset and one launch, no host sync."""
+    for name, t in (("seq", seq), ("qual", qual)):
+        _check_u8(name, t)
+    n = seq.shape[0]
+    if qual.shape[0] != n or not 1 <= n < 2**31 - (1 << 16):
+        raise ValueError("seq and qual need one length in [1, 2^31 - 2^16), "
+                         "got %d and %d" % (n, qual.shape[0]))
+    if not _on_cuda(seq, qual):
+        return qual_stats_plain(seq, qual)
+    dev = seq.device
+    lib = _build.library()
+    seq, qual = _aligned(seq), _aligned(qual)
+    buf = torch.zeros(lib.repaq_stats_buffer_bytes(n), dtype=torch.uint8,
+                      device=dev)
+    with torch.cuda.device(dev):
+        _launch("qual_stats", lib.repaq_qual_stats, seq.data_ptr(),
+                qual.data_ptr(), n, buf.data_ptr(), _stream(dev))
+    return buf[:8 * 134].view(torch.int64)

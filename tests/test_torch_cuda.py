@@ -47,6 +47,8 @@ from chip_smoke import (EMIT_CASES, EMIT_WAVE, POS_CASES, emit_args,
                         emit_plain, emit_ref)
 from chip_smoke import (PARSE_CASES, PARSE_POS_CASES, PARSE_WAVE,
                         parent_parse, parse_args, parse_plain, parse_ref)
+from chip_smoke import (COORDS_CASES, STATS_CASES, coord_values, coords_args,
+                        stats_case)
 from test_device_engine import _mk_block
 
 
@@ -321,11 +323,13 @@ def test_engine_on_cuda_matches_host(cuda):
     assert np.array_equal(back.qual_flat, block.qual_flat)
     assert eng.stats["device_chunks"] == eng.stats["device_decodes"] == 1
     for name in ("encode_frontend", "unpack_bases", "qualcol_parse",
-                 "positions_parse", "run_offsets"):
+                 "positions_parse", "coords_emit"):
         assert TK.launches[name] > 0, TK.launches
-    # the parse runs the token FSM and the position sums in its tiles
+    # the parse runs the token FSM and the position sums in its tiles,
+    # coords_emit the coordinate rows' runs
     assert TK.launches["token_start_mask"] == 0
     assert TK.launches["seg_positions"] == 0
+    assert TK.launches["run_offsets"] == 0
 
 
 @pytest.mark.cuda
@@ -346,11 +350,13 @@ def test_pe_engine_on_cuda_matches_host(cuda):
     assert np.array_equal(back.qual_flat, block.qual_flat)
     assert eng.stats["device_chunks"] == eng.stats["device_decodes"] == 1
     for name in ("encode_frontend", "unpack_bases", "qualcol_parse",
-                 "positions_parse", "run_offsets"):
+                 "positions_parse", "coords_emit"):
         assert TK.launches[name] > 0, TK.launches
-    # the parse runs the token FSM and the position sums in its tiles
+    # the parse runs the token FSM and the position sums in its tiles,
+    # coords_emit the coordinate rows' runs
     assert TK.launches["token_start_mask"] == 0
     assert TK.launches["seg_positions"] == 0
+    assert TK.launches["run_offsets"] == 0
     # the pair work: one launch of each pair kernel a chunk, the search
     # inside the encode's, none of the search alone
     assert TK.launches["pe_encode_pairs"] == 1
@@ -1284,10 +1290,10 @@ def test_emit_calls_from_threads(cuda):
 @pytest.mark.cuda
 def test_engine_chunk_emission_launches(cuda):
     """An SE chunk with Ns and coordinates through the engine on the card:
-    the quality and N-position streams one qualcol_emit and one
-    positions_emit launch, bucket_compact 3 launches on the encode (the
-    grouping, the N flags, the coordinates), run_offsets and fill_runs 1
-    (the coordinates), and the host engine's bytes."""
+    the quality, N-position and coordinate streams one qualcol_emit, one
+    positions_emit and one coords_emit launch, bucket_compact 2 launches
+    on the encode (the grouping, the N flags), run_offsets and fill_runs
+    none, and the host engine's bytes."""
     eng = DeviceEngine(cuda, min_bases=0)
     block = _mk_block(600, 101, seed=5, nfrac=0.01)
     header = vectorized.make_header_se(block)
@@ -1296,11 +1302,11 @@ def test_engine_chunk_emission_launches(cuda):
     assert got.to_bytes() == vectorized.encode_chunk(header, block,
                                                      False).to_bytes()
     counts = {k: TK.launches[k] for k in ("qualcol_emit", "positions_emit",
-                                          "bucket_compact", "run_offsets",
-                                          "fill_runs")}
+                                          "coords_emit", "bucket_compact",
+                                          "run_offsets", "fill_runs")}
     assert counts == {"qualcol_emit": 1, "positions_emit": 1,
-                      "bucket_compact": 3, "run_offsets": 1,
-                      "fill_runs": 1}, counts
+                      "coords_emit": 1, "bucket_compact": 2,
+                      "run_offsets": 0, "fill_runs": 0}, counts
 
 
 # ---------------------------------------------------------------------------
@@ -1409,3 +1415,146 @@ def test_engine_chunk_parse_launches(cuda):
                       "fill_sorted_runs": 1, "fill_runs": 2,
                       "token_start_mask": 0, "seg_positions": 0,
                       "bucket_compact": 0}, counts
+
+
+# ---------------------------------------------------------------------------
+# the coordinate streams (csrc/coords.cu) and the quality scan
+# (csrc/stats.cu)
+# ---------------------------------------------------------------------------
+
+
+def _unaligned(t):
+    """t's values in a view one element past a 16-byte boundary (its rows
+    too for a 2-D t)."""
+    wide = torch.zeros(t.shape[:-1] + (t.shape[-1] + 1,), dtype=t.dtype,
+                       device=t.device)
+    wide[..., 1:] = t
+    return wide[..., 1:]
+
+
+def _coords_same(args):
+    from repaq_tpu_torch.ops import device_streams as DS
+
+    before = TK.launches["coords_emit"]
+    got = TK.coords_emit(*args)
+    assert TK.launches["coords_emit"] == before + 1
+    want = DS.coords_emit_plain(*args)
+    assert (int(got[1]), int(got[2])) == (int(want[1]), int(want[2]))
+    assert torch.equal(got[0], want[0]), int((got[0] != want[0]).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["given", "unaligned"])
+@pytest.mark.parametrize("name", COORDS_CASES)
+def test_coords_emit_at_tile_edges(cuda, name, view):
+    """Each COORDS_CASES case placed by the built tile (runs of 31-33, 64
+    and 65 and across, ending and starting at tile edges, over 3 tiles and
+    to B; a leading 1000; n_valid 0, 1, inside a run, at a tile edge and
+    B; wrapping differences, negative values, values past 2^21), as given
+    and as an unaligned view: one launch, the buffer and both lengths
+    equal to the plain version's."""
+    values2, out_cap, n_valid = coords_args(name, TK.coords_tile(), cuda)
+    if view == "unaligned":
+        values2 = _unaligned(values2)
+    _coords_same((values2, out_cap, n_valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["given", "unaligned"])
+@pytest.mark.parametrize("valid", ["all", "cut"])
+@pytest.mark.parametrize("size", ["tile-1", "tile", "tile+1", "40tiles",
+                                  "se", "pe"])
+def test_coords_emit_at_shapes(cuda, size, valid, view):
+    """Coordinate-like rows of tile - 1, tile, tile + 1 and 40 tiles + 3
+    elements and of the SE and PE chunks' (2, 98304) and (2, 49152), all
+    valid and cut 37 short, as given and unaligned: the plain version's
+    buffer and lengths."""
+    T = TK.coords_tile()
+    b = {"tile-1": T - 1, "tile": T, "tile+1": T + 1, "40tiles": 40 * T + 3,
+         "se": 98304, "pe": 49152}[size]
+    rng = np.random.default_rng(b)
+    xy = np.stack([coord_values(rng, b), coord_values(rng, b)]).astype(
+        np.int32)
+    values2 = torch.from_numpy(xy).to(cuda)
+    if view == "unaligned":
+        values2 = _unaligned(values2)
+    _coords_same((values2, 3 * b + 8, None if valid == "all" else b - 37))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["given", "unaligned"])
+@pytest.mark.parametrize("name", STATS_CASES)
+def test_qual_stats_at_tile_edges(cuda, name, view):
+    """Each STATS_CASES case placed by the built tile (no N, an N first
+    and last, all N, quals >= 128, invalid bases, tile - 1, tile and
+    tile + 1 bases, the first N at a tile edge and in a late tile, 1,100
+    tiles), as given and as unaligned views: one launch, the 134 words
+    equal to the plain version's."""
+    seq, qual = (torch.from_numpy(a).to(cuda)
+                 for a in stats_case(name, TK.stats_tile()))
+    if view == "unaligned":
+        seq, qual = _unaligned(seq), _unaligned(qual)
+    before = TK.launches["qual_stats"]
+    got = TK.qual_stats(seq, qual)
+    assert TK.launches["qual_stats"] == before + 1
+    assert torch.equal(got, TK.qual_stats_plain(seq, qual)), (
+        got[128:].tolist(), TK.qual_stats_plain(seq, qual)[128:].tolist())
+
+
+@pytest.mark.cuda
+def test_coords_stats_device_operations_a_call(cuda):
+    """A call in a CUDA graph capture: coords_emit 2 device operations
+    (the zero fill, the kernel), qual_stats at most 3, one of them its
+    kernel."""
+    args = coords_args("run_3_tiles", TK.coords_tile(), cuda)
+    ops = TK.captured_ops(lambda: TK.coords_emit(*args))
+    assert len(ops) == 2 and sum("coords_kernel" in op for op in ops) == 1
+    seq, qual = (torch.from_numpy(a).to(cuda)
+                 for a in stats_case("n_late", TK.stats_tile()))
+    ops = TK.captured_ops(lambda: TK.qual_stats(seq, qual))
+    assert 1 <= len(ops) <= 3 and sum("stats_kernel" in op
+                                      for op in ops) == 1, ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["coords_emit", "qual_stats"])
+@pytest.mark.parametrize("tag", ["SE", "PE"])
+def test_coords_stats_at_real_chunk_calls(cuda, entry, tag):
+    """At one real SE chunk's and one real PE chunk's calls, recorded
+    through cli.main (chip_smoke.chunk_calls, pe_chunk_calls): the kernel
+    against its plain version."""
+    from repaq_tpu_torch.ops import device_streams as DS
+
+    args = (chunk_calls(cuda)[entry][0] if tag == "SE"
+            else pe_chunk_calls(cuda)[entry])
+    got = getattr(TK, entry)(*args)
+    if entry == "coords_emit":
+        want = DS.coords_emit_plain(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    else:
+        assert torch.equal(got, TK.qual_stats_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pe", [False, True])
+def test_engine_chunk_coords_and_stats_launches(cuda, pe):
+    """A header and an SE or PE chunk through the engine on the card: one
+    qual_stats launch for the header, then on the encode one coords_emit
+    launch and no run_offsets or fill_runs launch; the host engine's
+    bytes."""
+    eng = DeviceEngine(cuda, min_bases=0)
+    block = _mk_block(600, 96, seed=7, pe_overlap=0.5 if pe else 0.0,
+                      nfrac=0.01)
+    TK.reset_launches()
+    header = (eng.config().make_header_pe if pe
+              else eng.config().make_header_se)(block)
+    assert header.to_bytes() == (vectorized.make_header_pe if pe else
+                                 vectorized.make_header_se)(block).to_bytes()
+    assert TK.launches["qual_stats"] == 1
+    got = eng.encode_chunk(header, block, pe)
+    assert got.to_bytes() == vectorized.encode_chunk(header, block,
+                                                     pe).to_bytes()
+    counts = {k: TK.launches[k] for k in ("qual_stats", "coords_emit",
+                                          "run_offsets", "fill_runs")}
+    assert counts == {"qual_stats": 1, "coords_emit": 1, "run_offsets": 0,
+                      "fill_runs": 0}, counts

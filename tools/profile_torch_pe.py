@@ -35,7 +35,12 @@ and value shapes, with its device time and calls, the sort kernels'
 device time and launches, and every ``aten::sort`` by the range it ran in
 and by its keys' shape. The profiler records
 the ranges of the thread that runs it only, so they show with one worker,
-where the pipeline runs each chunk inline.
+where the pipeline runs each chunk inline. Last, the first chunk's
+quality scan (``DeviceEngine.quality_stats``, which the header takes; a
+range ``enc.stats`` since the scan is one kernel) on the corpus's first
+12-Mbase block of the first file: its wall per call (uploads, device work
+and the copy back; median of 9) and its kernels' device time a call under
+the profiler, by name.
 """
 
 from __future__ import annotations
@@ -150,11 +155,11 @@ def index_put_report(prof) -> None:
 
 # the port's kernels (repaq_tpu_torch/csrc/*.cu), by the start of their
 # names after "(anonymous namespace)::"
-_PORT_KERNELS = ("bucket_compact_", "compact_", "emit_kernel", "fill_runs_",
-                 "runs_check_", "runs_tile_", "frontend_", "pack_kernel",
-                 "overlap_kernel", "pe_encode_", "pe_decode_", "parse_kernel",
-                 "rans_", "run_offsets_", "seg_positions_", "token_fsm_",
-                 "unpack_kernel")
+_PORT_KERNELS = ("bucket_compact_", "compact_", "coords_kernel", "emit_kernel",
+                 "fill_runs_", "runs_check_", "runs_tile_", "frontend_",
+                 "pack_kernel", "overlap_kernel", "pe_encode_", "pe_decode_",
+                 "parse_kernel", "rans_", "run_offsets_", "seg_positions_",
+                 "stats_kernel", "token_fsm_", "unpack_kernel")
 
 
 def _is_port(name: str) -> bool:
@@ -224,6 +229,9 @@ def report(label: str, prof, wall: float) -> None:
                                                   "compact_mask_kernel",
                                                   "compact_reg_")),
                        ("the port's emission", ("emit_kernel",)),
+                       ("the port's coordinate streams", ("coords_kernel",)),
+                       ("the port's quality scan", ("stats_kernel",)),
+                       ("torch's histogram", ("Histogram",)),
                        ("the port's parse", ("parse_kernel",)),
                        ("the port's run writes", ("fill_runs_kernel",)),
                        ("the port's sorted-run writes",
@@ -282,6 +290,47 @@ def sort_report(prof, kernels: dict, counts: dict, busy: float) -> None:
                                            key=lambda kv: -kv[1][0]):
         print("    sort in %-15s %8.3f ms %4d calls, keys %s"
               % (rng, t / 1e3, calls, list(shape)))
+
+
+def stats_report(eng, path: str, runs: int = 9) -> None:
+    """The engine's quality scan of the first 12-Mbase block of path: wall
+    per call (median of runs; each call ends in its copy back) and, under
+    the profiler, its device operations a call by name with their time."""
+    import statistics
+
+    import torch
+
+    from repaq_tpu_torch.io.fastq import FastqReader
+
+    reader = FastqReader(path)
+    block, _ = reader.read_block(budget_bases=12_000_000)
+    reader.close()
+    eng.quality_stats(block)  # warm
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.quality_stats(block)
+        walls.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            eng.quality_stats(block)
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not e.name.startswith(
+                ("enc.", "dec.")):
+            n, us = ops.get(e.name, (0, 0.0))
+            ops[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    kern_us = sum(us for k, (_n, us) in ops.items() if not _is_copy(k))
+    print("quality scan of %d bases: wall %.3f ms a call (median of %d), "
+          "kernels %.4f ms a call, %d device operations a call"
+          % (block.qual_flat.shape[0], 1e3 * statistics.median(walls), runs,
+             kern_us / runs / 1e3, sum(n for n, _u in ops.values()) // runs))
+    for k, (n, us) in sorted(ops.items(), key=lambda kv: -kv[1][1]):
+        print("    %5.1f x %8.4f ms  %s" % (n / runs, us / n / 1e3, k[:100]))
 
 
 def main() -> int:
@@ -345,6 +394,7 @@ def main() -> int:
                 wall = time.perf_counter() - t0
             report("%s, %s workers (%.1f MB/s)"
                    % (label, workers, size / 1e6 / wall), prof, wall)
+    stats_report(eng, fqs[0])
     print("engine stats %s" % eng.stats)
     return 0
 
