@@ -125,10 +125,13 @@ Phases, each of which must pass:
      and bin starts across tile edges, 4-byte gaps to 2^29 and advances
      past 2^31, runs of 32, 33 and 64, empty bins, a table alone, tok_cap
      cuts, escapes, FSM entry states that never meet, 124 bins, corrupt
-     tables, 1,100 tiles), one launch each, against its plain version and
-     a numpy loop (parse_ref), then at one real SE and one real PE chunk's
-     calls recorded through cli.main, each exact against both, its device
-     operations a call counted in a CUDA graph capture, timed beside its
+     tables, heads of 1-38 threads and whole tiles with bin starts inside,
+     1,100 tiles: more than the kernel's persistent wave), one launch
+     each, against its plain version and a numpy loop (parse_ref), then at
+     one real SE and one real PE chunk's calls recorded through cli.main,
+     each exact against both, its device operations a call counted in a
+     CUDA graph capture (the kernel, and at most a memset of the status
+     words), timed beside its
      bound (parse_moved) and, in turns, beside the parent's composition
      (its plain version on the card: B3, bucket_compact, seg_positions
      and the torch passes); and one SE chunk's qualcol_decode_device's
@@ -2655,15 +2658,21 @@ def emit_kernel_phase(dev) -> dict:
 # max's look-back) with a bin after them; 124 bins; and the corrupt tables
 # the plain version takes: a length with bit 31 set (stream starts out of
 # order), streams past qual_len (blocks past the known grid), a stream end
-# before the table, a token whose window wraps past the buffer's end
+# before the table, a token whose window wraps past the buffer's end. And
+# the kernel's head (the threads of a tile whose entry state still depends
+# on the tile's): 2-byte gap chains, whose four walks never meet, starting
+# and ending inside threads and across tile edges, a whole tile of one;
+# tiles whose walks meet only past a thread's 16 bytes (a head of 2, 19 and
+# 38 threads: within warp 0 and past it); bin boundaries and forced
+# restarts inside heads of 1, 4 and 37 threads
 PARSE_CASES = ("single", "gap_edges", "runs", "bin_edges", "empty_bins",
                "table_only", "tok_cap_cut", "tok_cap_1", "escapes",
                "esc_cap_above", "no_merge", "wrap_2_31", "bins124",
                "unsorted", "past_qual_len", "end_before_table",
-               "window_wrap")
+               "window_wrap", "chain_edges", "meet_late", "head_bins")
 PARSE_POS_CASES = ("pos_single", "pos_edges", "pos_no_merge", "pos_short",
                    "pos_empty", "pos_cap_cut", "pos_window_wrap",
-                   "pos_gap_2_29")
+                   "pos_gap_2_29", "pos_meet_late")
 PARSE_WAVE = ("wave", "pos_wave")
 
 
@@ -2687,13 +2696,32 @@ def _fill_to(at: int, target: int, step: int = 2) -> bytes:
     return _tok("gap", step) * max(0, target - at)
 
 
+def _chain(n: int) -> bytes:
+    """n bytes of 2-byte gap tokens 0x80 0x80: read from either byte, the
+    same tokens one byte apart, so the FSM's entry states never meet."""
+    return bytes([0x80]) * n
+
+
+def _late_meets(at: int, tb: int, T: int) -> bytes:
+    """From absolute offset at: chains over tile starts tb + T, + 2T and +
+    3T, ending 21, 600 and 300 bytes in (heads of 2, 38 and 19 threads of
+    16 bytes), 1-byte tokens between."""
+    s = b""
+    for j, back, n in ((1, 5, 26), (2, 3, 604), (3, 1, 302)):
+        s += _fill_to(at + len(s), tb + j * T - back) + _chain(n)
+    return s + _fill_to(at + len(s), tb + 3 * T + 400)
+
+
 def _parse_quality_spec(name: str, T: int):
     """(bins' stream bytes, escape records, nbins, extra kwargs) of a
     quality case; offsets are absolute in the buffer, the streams after
-    the 4 B table."""
+    the 4 B table (tiles start at tb, the table's end rounded down to 16
+    bytes)."""
     nbins = {"bins124": 124, "empty_bins": 6, "bin_edges": 4,
-             "table_only": 5, "wrap_2_31": 2, "unsorted": 3}.get(name, 1)
+             "table_only": 5, "wrap_2_31": 2, "unsorted": 3,
+             "head_bins": 5}.get(name, 1)
     hdr = 4 * nbins
+    tb = hdr & ~15
     bins, esc, kw = [], [], {}
     if name == "single":
         bins = [_tok("gap", 5)]
@@ -2753,6 +2781,24 @@ def _parse_quality_spec(name: str, T: int):
         bins = [_fill_to(0, 2 * T + 5) + _tok("gap4", 1 << 28)]
         kw["pad"] = 0
         kw["tail"] = 2   # the last token's bytes cut by the buffer's end
+    elif name == "chain_edges":
+        # chains from inside a thread across the tile edges at tb + T, and
+        # over the whole tile at tb + 3T
+        s = _fill_to(hdr, tb + T - 37) + _chain(T + 76)
+        s += _fill_to(hdr + len(s), tb + 2 * T + 9) + _chain(2 * T + 4)
+        bins = [s + _tok("gap", 2) * 50]
+    elif name == "meet_late":
+        bins = [_late_meets(hdr, tb, T)]
+    elif name == "head_bins":
+        # bin 1 starts at byte 7 of tile 1 (thread 0), bin 2 at byte 50 of
+        # tile 2 (thread 3), bin 3 at byte 590 of tile 3 (thread 36), each
+        # after a chain over the tile's start
+        at, bins = hdr, []
+        for j, back, n in ((1, 9, 16), (2, 50, 100), (3, 10, 600)):
+            b = _fill_to(at, tb + j * T - back) + _chain(n)
+            bins.append(b)
+            at += len(b)
+        bins += [_tok("gap", 3) * 40 + _chain(34), _fill_to(0, 100)]
     return bins, esc, nbins, kw
 
 
@@ -2811,6 +2857,8 @@ def parse_pos_case(name: str, tile: int) -> dict:
         s, pad = _fill_to(0, T + 3) + _tok("gap4", 1 << 18)[:3], 0
     elif name == "pos_gap_2_29":
         s = (_tok("gap4", 1 << 29) + _tok("run", 3)) * 20 + _tok("gap", 1)
+    elif name == "pos_meet_late":
+        s = _late_meets(0, 0, T)
     buf = np.zeros(len(s) + pad, np.uint8)
     buf[:len(s)] = np.frombuffer(s, np.uint8)
     if name == "pos_short":
@@ -3093,7 +3141,8 @@ def parse_kernel_phase(dev) -> dict:
     real SE and one real PE chunk's calls recorded through cli.main
     (chunk_calls, pe_chunk_calls): exact against their plain versions and
     parse_ref, timed beside their bound (parse_moved), their device
-    operations a call counted in a CUDA graph capture (at most 2), and
+    operations a call counted in a CUDA graph capture (the parse kernel
+    once and at most one memset, of the status words alone), and
     timed in turns beside the parent's composition: parent, kernel,
     kernel, parent. Then one SE chunk's qualcol_decode_device, its device
     operations counted (at most 6, a CUDA graph capture) against the
@@ -3112,8 +3161,18 @@ def parse_kernel_phase(dev) -> dict:
         for tag, args in (("SE", se[entry][0]), ("PE", pe[entry])):
             args = list(args)
             ops = TK.captured_ops(lambda: getattr(TK, entry)(*args))
-            check(1 <= len(ops) <= 2, "%s ran %d device operations a call "
-                  "at the %s chunk's call: %s" % (entry, len(ops), tag, ops))
+            status = TK.parse_layout(args[0].shape[0], args[2] if entry ==
+                                     "qualcol_parse" else -1, args[1],
+                                     args[-2 if entry == "qualcol_parse"
+                                          else -1],
+                                     args[-1] if entry == "qualcol_parse"
+                                     else 0)[1][0]
+            rest = [op for op in ops if "parse" not in op]
+            check(len(ops) - len(rest) == 1 and len(rest) <= 1 and all(
+                op.startswith("memset ") and int(op.split()[1]) <= status
+                for op in rest), "%s ran other device operations than its "
+                "kernel and a memset of its %d status bytes at the %s "
+                "chunk's call: %s" % (entry, status, tag, ops))
             label = "%s chunk's call: %d stream bytes of %d, %d token slots" % (
                 tag, args[1], args[0].shape[0], args[-2 if entry ==
                                                      "qualcol_parse" else -1])

@@ -72,8 +72,9 @@ void kernel_name(cudaGraphNode_t node, char* out, long long name_len) {
 
 // The graph's nodes, at most cap of them: node i's cudaGraphNodeType in
 // types[i] and, for a kernel node, the kernel's name in names[i * name_len
-// ...] (empty for the others). Returns the graph's node count (more than
-// cap when it holds more), or minus a cudaError_t.
+// ...], for a memset node the bytes it sets in decimal (empty for the
+// others). Returns the graph's node count (more than cap when it holds
+// more), or minus a cudaError_t.
 extern "C" long long repaq_graph_nodes(void* graph, int* types, char* names,
                                        long long cap, long long name_len) {
   cudaGraph_t g = static_cast<cudaGraph_t>(graph);
@@ -93,6 +94,13 @@ extern "C" long long repaq_graph_nodes(void* graph, int* types, char* names,
     char* name = names + i * name_len;
     name[0] = 0;
     if (type == cudaGraphNodeTypeKernel) kernel_name(nodes[i], name, name_len);
+    if (type == cudaGraphNodeTypeMemset) {
+      cudaMemsetParams p = {};
+      err = cudaGraphMemsetNodeGetParams(nodes[i], &p);
+      if (err != cudaSuccess) return -static_cast<long long>(err);
+      snprintf(name, name_len, "%llu", static_cast<unsigned long long>(
+                                           p.width * p.elementSize * p.height));
+    }
   }
   return static_cast<long long>(n);
 }

@@ -195,7 +195,7 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_emit_tile.argtypes = []
     lib.repaq_emit_tile.restype = ll
     lib.repaq_parse_tokens.argtypes = [vp, ll, ci, ll, ll, ll, vp, vp, vp, vp,
-                                       vp, vp, ll, ll, vp]
+                                       vp, vp, ll, vp]
     lib.repaq_parse_tokens.restype = ci
     lib.repaq_parse_max_tiles.argtypes = [ll, ci, ll]
     lib.repaq_parse_max_tiles.restype = ll
@@ -203,6 +203,8 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_parse_status_words.restype = ll
     lib.repaq_parse_tile.argtypes = []
     lib.repaq_parse_tile.restype = ll
+    lib.repaq_parse_wave.argtypes = []
+    lib.repaq_parse_wave.restype = ll
     lib.repaq_coords_emit.argtypes = [vp, ll, ll, vp, ll, vp, vp, vp]
     lib.repaq_coords_emit.restype = ci
     lib.repaq_coords_status_words.argtypes = [ll]

@@ -61,12 +61,12 @@ _capture_streams = {}
 def captured_ops(fn) -> list:
     """The device operations that one fn() call enqueues, in the order a
     CUDA graph capture of the call records them: each kernel by its
-    demangled name, each other operation by its node type ("memcpy",
-    "memset", ...). The capture records every operation the call enqueues
-    on the current device and runs none of them. fn runs once uncaptured
-    on the capturing stream first, so that what a wrapper keeps for a
-    stream (the status words) exists before the capture; fn must not
-    synchronise with the host."""
+    demangled name, a memset as "memset <bytes>", each other operation by
+    its node type ("memcpy", ...). The capture
+    records every operation the call enqueues on the current device and
+    runs none of them. fn runs once uncaptured on the capturing stream
+    first, so that what a wrapper keeps for a stream (the status words)
+    exists before the capture; fn must not synchronise with the host."""
     lib = _build.library()
     dev = torch.device("cuda", torch.cuda.current_device())
     with _launch_lock:
@@ -94,9 +94,12 @@ def captured_ops(fn) -> list:
     ops = []
     for i in range(n):
         kind = _NODE_TYPES.get(types[i], "node type %d" % types[i])
+        raw = names.raw[i * _NAME_LEN:(i + 1) * _NAME_LEN]
+        text = raw.split(b"\0", 1)[0].decode(errors="replace")
         if kind == "kernel":
-            raw = names.raw[i * _NAME_LEN:(i + 1) * _NAME_LEN]
-            ops.append(raw.split(b"\0", 1)[0].decode(errors="replace"))
+            ops.append(text)
+        elif kind == "memset":
+            ops.append("memset %s" % text)
         elif kind != "empty":
             ops.append(kind)
     return ops
@@ -1375,6 +1378,17 @@ def parse_tile() -> int:
     return int(_build.library().repaq_parse_tile())
 
 
+def parse_wave() -> int:
+    """Blocks of the parse kernel's persistent wave on the current device
+    (its SMs times the blocks an SM holds): a stream of more tiles makes
+    blocks take several tickets."""
+    n = int(_build.library().repaq_parse_wave())
+    if n < 1:
+        raise RuntimeError("asking the parse kernel's wave failed: error %d"
+                           % -n)
+    return n
+
+
 # The parse's plain versions are the torch composition the kernel replaces
 # (token_start_mask, bucket_compact, seg_positions and the passes around
 # them), in device_streams beside its pieces, handed in as the emission's.
@@ -1401,30 +1415,35 @@ def _rounded(n: int) -> int:
     return (n + 15) & ~15
 
 
-def _parse_launch(name: str, buf: torch.Tensor, nbins: int, limit: int,
-                  tok_cap: int, esc_cap: int, lib=None):
-    """The parse's outputs from one zero fill and one launch: the status
-    words and every output are views of one buffer, so the fill clears
-    them all. nbins -1: the N-position stream. lib: the package's build
-    unless another is given (a profiler's build of another tree)."""
-    dev = buf.device
-    m = buf.shape[0]
-    lib = lib or _build.library()
-    buf = _aligned(buf)
+def parse_layout(m: int, nbins: int, limit: int, tok_cap: int,
+                 esc_cap: int) -> tuple:
+    """(max_tiles, sizes, offsets) of a parse call's one buffer: the
+    status words, start, count, seg_off, esc_pos and esc_char, in bytes,
+    each at a 16-byte aligned offset; offsets[-1] is the buffer's size.
+    nbins -1: the N-position stream."""
+    lib = _build.library()
     max_tiles = lib.repaq_parse_max_tiles(m, nbins, limit)
-    tile = lib.repaq_parse_tile()
-    # the grid covers the bytes the caller knows of; a longer stream (a
-    # table claiming more) is taken by the same blocks in turn
-    first = (4 * max(nbins, 0)) & ~15
-    grid = max(1, min(max_tiles, -(-(min(limit, m) - first) // tile)))
-    table = nbins >= 0
     sizes = [8 * lib.repaq_parse_status_words(max_tiles), 4 * tok_cap,
-             4 * tok_cap, 4 * (nbins + 1) if table else 0, 4 * esc_cap,
+             4 * tok_cap, 4 * (nbins + 1) if nbins >= 0 else 0, 4 * esc_cap,
              esc_cap]
     offs = [0]
     for n in sizes:
         offs.append(offs[-1] + _rounded(n))
-    whole = torch.zeros(offs[-1], dtype=torch.uint8, device=dev)
+    return max_tiles, sizes, offs
+
+
+def _parse_launch(name: str, buf: torch.Tensor, nbins: int, limit: int,
+                  tok_cap: int, esc_cap: int):
+    """The parse's outputs from one launch: the status words and every
+    output are views of one torch.empty buffer; the library clears the
+    status words alone (one memset) and the kernel writes every output.
+    nbins -1: the N-position stream."""
+    dev = buf.device
+    m = buf.shape[0]
+    lib = _build.library()
+    buf = _aligned(buf)
+    max_tiles, sizes, offs = parse_layout(m, nbins, limit, tok_cap, esc_cap)
+    whole = torch.empty(offs[-1], dtype=torch.uint8, device=dev)
     part = [whole[offs[i]:offs[i] + sizes[i]] for i in range(len(sizes))]
     status = part[0]
     start, count, seg_off, esc_pos = (t.view(torch.int32)
@@ -1434,7 +1453,7 @@ def _parse_launch(name: str, buf: torch.Tensor, nbins: int, limit: int,
         _launch(name, lib.repaq_parse_tokens, buf.data_ptr(), m, nbins,
                 limit, tok_cap, esc_cap, start.data_ptr(), count.data_ptr(),
                 seg_off.data_ptr(), esc_pos.data_ptr(), esc_char.data_ptr(),
-                status.data_ptr(), max_tiles, grid, _stream(dev))
+                status.data_ptr(), max_tiles, _stream(dev))
     return start, count, seg_off, esc_pos, esc_char
 
 
@@ -1452,8 +1471,8 @@ def qualcol_parse(buf: torch.Tensor, qual_len: int, nbins: int,
     past qual_len) and chars ((esc_cap,) u8, 0 there). The 4-byte window
     of a token at the buffer's end wraps to its start, as the plain
     version's torch.roll (the engine pads the buffer with zeros). Exactly
-    ``device_streams.qualcol_parse_plain``. One memset and one launch, no
-    host sync."""
+    ``device_streams.qualcol_parse_plain``. One memset of the status words
+    and one launch, no host sync."""
     qual_len, nbins = int(qual_len), int(nbins)
     _check_parse(buf, qual_len, tok_cap)
     if not 0 <= nbins <= _EMIT_MAX_BINS or 4 * nbins > buf.shape[0]:
@@ -1473,8 +1492,8 @@ def positions_parse(buf: torch.Tensor, valid_len: int, cap: int):
     whose tokens lie in [0, valid_len) of the (m,) u8 buf: (start, count),
     (cap,) int32, each token's first position and position count in token
     order (the first cap tokens; 0 and 0 past the last). Exactly
-    ``device_streams.positions_parse_plain``. One memset and one launch, no
-    host sync."""
+    ``device_streams.positions_parse_plain``. One memset of the status
+    words and one launch, no host sync."""
     valid_len = int(valid_len)
     _check_parse(buf, valid_len, cap)
     if not _on_cuda(buf):

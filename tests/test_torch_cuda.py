@@ -1339,16 +1339,68 @@ def test_parse_kernels_at_tile_edges(cuda, name):
         _same_outputs(got, parse_ref(entry, args))
 
 
+def _parse_layout(entry, args):
+    """kernels.parse_layout of a call's arguments."""
+    if entry == "qualcol_parse":
+        buf, qual_len, nbins, tok_cap, esc_cap = args
+        return TK.parse_layout(buf.shape[0], nbins, qual_len, tok_cap,
+                               esc_cap)
+    buf, valid_len, cap = args
+    return TK.parse_layout(buf.shape[0], -1, valid_len, cap, 0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["no_merge", "wrap_2_31", "pos_edges"])
+@pytest.mark.parametrize("name", ["no_merge", "wrap_2_31", "pos_edges",
+                                  "escapes", "head_bins"])
 def test_parse_device_operations_a_call(cuda, name):
-    """A call in a CUDA graph capture: at most 2 device operations (the
-    zero fill of the status words with the outputs, and the parse
-    kernel), one of them the kernel."""
+    """A call in a CUDA graph capture: the parse kernel once, and at most
+    one other operation, a memset no larger than the status words; no
+    operation but the kernel writes an output."""
     entry, args = parse_args(name, TK.parse_tile(), cuda)
     ops = TK.captured_ops(lambda: getattr(TK, entry)(*args))
-    assert 1 <= len(ops) <= 2, ops
     assert sum("parse" in op for op in ops) == 1, ops
+    rest = [op for op in ops if "parse" not in op]
+    status = _parse_layout(entry, args)[1][0]
+    assert len(rest) <= 1, ops
+    assert all(op.startswith("memset ") and int(op.split()[1]) <= status
+               for op in rest), (ops, status)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["escapes", "esc_cap_above", "empty_bins",
+                                  "table_only", "unsorted",
+                                  "end_before_table", "tok_cap_cut",
+                                  "head_bins", "pos_short", "pos_empty",
+                                  "pos_cap_cut", "pos_meet_late"])
+def test_parse_outputs_over_stale_memory(cuda, name):
+    """The memory the outputs will get filled with 0xFF first (the caching
+    allocator hands the freed block back), then two calls back to back:
+    the token slots past the last token, seg_off and every escape slot
+    exact each time, as the kernel writes every output itself."""
+    entry, args = parse_args(name, TK.parse_tile(), cuda)
+    want = parse_plain(entry)(*args)
+    offs = _parse_layout(entry, args)[2]
+    torch.cuda.synchronize()
+    junk = torch.full((offs[-1],), 0xFF, dtype=torch.uint8, device=cuda)
+    at = junk.data_ptr()
+    del junk
+    got = getattr(TK, entry)(*args)
+    assert got[0].data_ptr() == at + offs[1]   # the stale block, reused
+    _same_outputs(got, want)
+    again = getattr(TK, entry)(*args)
+    _same_outputs(again, want)
+    _same_outputs(got, want)
+
+
+@pytest.mark.cuda
+def test_parse_wave_takes_several_tickets(cuda):
+    """PARSE_WAVE's streams hold more tiles than the kernel's persistent
+    wave (kernels.parse_wave()), so its blocks draw several tickets; and
+    both entries stay exact there (test_parse_kernels_at_tile_edges)."""
+    for name in PARSE_WAVE:
+        entry, args = parse_args(name, TK.parse_tile(), cuda)
+        assert args[1] // TK.parse_tile() > TK.parse_wave()
+        _same_outputs(getattr(TK, entry)(*args), parse_plain(entry)(*args))
 
 
 @pytest.mark.cuda
@@ -1369,7 +1421,7 @@ def test_parse_at_real_chunk_calls(cuda, entry, tag):
 @pytest.mark.cuda
 def test_parse_calls_from_threads(cuda):
     """Calls from 8 threads on one stream, 5 each, every one exact: each
-    call's status words are zeroed with its own outputs."""
+    call clears its own status words, one memset before its launch."""
     import threading
 
     cases = [parse_args(name, TK.parse_tile(), cuda)

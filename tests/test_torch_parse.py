@@ -44,10 +44,11 @@ TILE = 4096  # csrc/parse.cu's kTile (kernels.parse_tile() on a card)
 # decode can be held to JAX's and the host's on; the host decodes every
 # token, so cases whose caps cut the stream are held to JAX's alone
 DECODE_CASES = ("single", "runs", "bin_edges", "empty_bins", "table_only",
-                "escapes", "esc_cap_above", "no_merge")
+                "escapes", "esc_cap_above", "no_merge", "chain_edges",
+                "meet_late", "head_bins")
 CUT_CASES = ("tok_cap_cut", "tok_cap_1")
 POS_HOST_CASES = ("pos_single", "pos_edges", "pos_no_merge", "pos_empty",
-                  "pos_cap_cut")
+                  "pos_cap_cut", "pos_meet_late")
 
 
 def _t(a):
@@ -135,12 +136,14 @@ def test_parse_ref_routes_agree(name):
 @pytest.mark.parametrize("name", PARSE_CASES + PARSE_POS_CASES)
 def test_kernel_model_matches_plain(name):
     """csrc/parse.cu's algorithm, modelled in Python (the four entry
-    states' walks and sums, the block's map and channel scans, the
-    look-back from the nearest inclusive record among the 32 tiles before
-    (at a random depth) through each newer tile's sums in its entry state,
-    the running max's look-back, the bins' first tokens and the escape
-    records), at 16-byte threads and tiles of 4 and 256 threads: equal to
-    the plain version on every case."""
+    states' walks, the block's map scan, the head's four channels and the
+    rest's one, the look-back from the nearest inclusive record among the
+    256 tiles before (at a random depth) through each newer tile's sums in
+    its entry state, the running max's look-back, the bins' first tokens,
+    and what the blocks write once their tickets run out: the escape
+    records and the token slots past the last token), at 16-byte threads
+    and tiles of 4 and 256 threads, every output starting as garbage:
+    equal to the plain version on every case."""
     entry, args = parse_args(name, TILE)
     want = _outputs(getattr(TK, entry)(*args))
     for threads in (4, 256):
@@ -149,11 +152,64 @@ def test_kernel_model_matches_plain(name):
             assert np.array_equal(g, w)
 
 
+@pytest.mark.parametrize("wave", [1, 2, 3])
+@pytest.mark.parametrize("name", ["gap_edges", "no_merge", "head_bins",
+                                  "past_qual_len", "pos_edges",
+                                  "pos_meet_late"])
+def test_kernel_model_persistent_wave(name, wave):
+    """A persistent wave of 1, 2 or 3 blocks over more tiles (of 4 threads,
+    64 bytes): each block draws several tickets, holding its tile and the
+    next, in an order drawn at random; the outputs equal the plain
+    version's, and every ticket below the tiles is drawn once."""
+    entry, args = parse_args(name, TILE)
+    want = _outputs(getattr(TK, entry)(*args))
+    info = {}
+    got = _kernel_model(entry, args, threads=4, seed=wave, wave=wave,
+                        info=info)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    taken = info["taken"]
+    assert len(taken) <= wave
+    assert max(len(t) for t in taken) > 2   # a tile, more, the last draw
+    tiles = len(info["heads"])
+    drawn = sorted(t for ts in taken for t in ts)
+    assert drawn == list(range(tiles + len(taken)))
+    assert all(ts[-1] >= tiles and all(t < tiles for t in ts[:-1])
+               for ts in taken)
+
+
+@pytest.mark.parametrize("name, kinds", [
+    ("no_merge", {"all"}), ("chain_edges", {"all", "one"}),
+    ("meet_late", {"one", "warp", "block"}),
+    ("head_bins", {"one", "warp", "block"}),
+    ("pos_no_merge", {"all"}), ("pos_meet_late", {"one", "warp", "block"}),
+    ("gap_edges", {"one"}), ("wave", {"one"})])
+def test_kernel_model_heads(name, kinds):
+    """The tiles of 256 threads each case puts in each of the design's
+    paths, by its head (the threads whose entry state depends on the
+    tile's): thread 0 alone ("one"), within warp 0 ("warp"), past it
+    ("block"), or every thread, the walks never meeting ("all")."""
+    entry, args = parse_args(name, TILE)
+    if name == "wave":
+        buf = args[0][:3 * TILE]   # a few tiles of it
+        args = [buf, 3 * TILE - 64, 2, 3 * TILE, 0]
+        args[0][:8] = torch.tensor([0, 16, 0, 0, 0, 16, 0, 0],
+                                   dtype=torch.uint8)
+    info = {}
+    _kernel_model(entry, args, threads=256, info=info)
+    got = {"one" if h == 1 else "warp" if h <= 32 else "all" if h == 256
+           else "block" for h in info["heads"]}
+    assert kinds <= got, (got, info["heads"])
+
+
 # ---------------------------------------------------------------------------
 # a Python model of csrc/parse.cu
 # ---------------------------------------------------------------------------
 
 _PER = 16
+_WARP = 32
+_WINDOW = 256   # the look-back's window in parse.cu: a tile a thread, kThreads
+_GARBAGE = (0x5A5A5A5A, 0x6B6B6B6B, 0x7C7C7C7C, 0xEE)  # what torch.empty may hold
 
 
 def _ch(c=0, a=0, off=0, has=False, pend=False):
@@ -167,6 +223,13 @@ def _combine(A, B):
             A[1] + B[2] if B[3] else (A[1] if first else A[2]),
             A[3] or B[3] or first,
             B[4] if B[0] > 0 else (A[4] or B[4]))
+
+
+def _fold(vals):
+    acc = _ch()
+    for v in vals:
+        acc = _combine(acc, v)
+    return acc
 
 
 _VALID = 1 << 63
@@ -199,49 +262,65 @@ def _apply(m, s):
     return (m >> (8 * s)) & 3
 
 
-def _warp_lookback(lanes, init):
-    """(x, prefix) as warp 0 of csrc/parse.cu resolves them: lanes[l] is
-    None before the first tile, else (function words, inclusive words or
-    None) of tile j - 1 - l, decoded, composed and folded lane by lane in
-    the kernel's Hillis-Steele steps."""
+def _wide_lookback(lanes, init):
+    """(x, prefix) as the block of csrc/parse.cu resolves them: lanes[i]
+    is None before the first tile, else (function words, inclusive words
+    or None) of tile j - 1 - i, for the window's tiles; decoded, composed
+    within warps of 32 (the older lane first), through the older warps'
+    compositions, and folded in the kernel's Hillis-Steele steps, then
+    across the warps, the oldest first."""
     incl = [ln is None or ln[1] is not None for ln in lanes]
     nearest = incl.index(True)
-    maps, vals = [], []
-    for l, ln in enumerate(lanes):
-        m, v = _IDENTITY, _ch()
-        if l == nearest:
+    n = len(lanes)
+    maps, vals = [_IDENTITY] * n, [_ch()] * n
+    for i, ln in enumerate(lanes):
+        if i == nearest:
             x = 0
             if ln is not None:
                 w = ln[1]
                 x = (w[0] >> 61) & 3
-                v = (w[0] & 0xFFFFFFFF, w[1] & ~_VALID, w[2] & ~_VALID, True,
-                     bool((w[0] >> 60) & 1))
+                vals[i] = (w[0] & 0xFFFFFFFF, w[1] & ~_VALID, w[2] & ~_VALID,
+                           True, bool((w[0] >> 60) & 1))
             else:
-                v = init
-            m = x * 0x01010101
-        elif l < nearest:
-            m = 0
-            for e in range(4):
-                m |= ((ln[0][2 * e] >> 61) & 3) << (8 * e)
-        maps.append(m)
-        vals.append(v)
-    d = 1
-    while d < 32:
-        maps = [_compose_map(maps[l + d], maps[l]) if l + d < 32 else maps[l]
-                for l in range(32)]
-        d *= 2
-    for l in range(nearest):
-        w = lanes[l][0]
-        e = _apply(maps[l + 1], 0)
+                vals[i] = init
+            maps[i] = x * 0x01010101
+        elif i < nearest:
+            maps[i] = sum(((ln[0][2 * e] >> 61) & 3) << (8 * e)
+                          for e in range(4))
+    warps = [list(range(w0, min(w0 + _WARP, n))) for w0 in range(0, n, _WARP)]
+
+    def down_steps(xs, op):
+        out = list(xs)
+        for idx in warps:
+            seg = [out[i] for i in idx]
+            d = 1
+            while d < _WARP:
+                seg = [op(seg[l + d], seg[l]) if l + d < len(seg) else seg[l]
+                       for l in range(len(seg))]
+                d *= 2
+            for i, v in zip(idx, seg):
+                out[i] = v
+        return out
+
+    maps = down_steps(maps, _compose_map)
+    older = []
+    for w in range(len(warps)):
+        acc = _IDENTITY
+        for q in range(len(warps) - 1, w, -1):
+            acc = _compose_map(acc, maps[warps[q][0]])
+        older.append(acc)
+    maps = [_compose_map(older[i // _WARP], maps[i]) for i in range(n)]
+    for i in range(nearest):
+        before = (older[i // _WARP] if i % _WARP == _WARP - 1 or i + 1 == n
+                  else maps[i + 1])
+        w = lanes[i][0]
+        e = _apply(before, 0)
         a = w[2 * e]
-        vals[l] = ((a >> 42) & 0x1FFFF, a & _LOW42, w[2 * e + 1] & ~_VALID,
+        vals[i] = ((a >> 42) & 0x1FFFF, a & _LOW42, w[2 * e + 1] & ~_VALID,
                    bool((a >> 59) & 1), bool((a >> 60) & 1))
-    d = 1
-    while d < 32:
-        vals = [_combine(vals[l + d], vals[l]) if l + d < 32 else vals[l]
-                for l in range(32)]
-        d *= 2
-    return _apply(maps[0], 0), vals[0]
+    vals = down_steps(vals, _combine)
+    pre = _fold(vals[idx[0]] for idx in reversed(warps))
+    return _apply(maps[0], 0), pre
 
 
 def _token(win):
@@ -254,10 +333,78 @@ def _token(win):
     return dist, npos
 
 
-def _kernel_model(entry, args, threads, seed=0):
-    """The outputs of csrc/parse.cu's kernel on args, its tiles of
-    `threads` threads of 16 bytes run in ticket order with every
-    look-back's depth drawn at random."""
+def _one_byte(b0):
+    return b0 < 0x80 or 0xC0 <= b0 < 0xE0
+
+
+def _walk4(b, ins, fb, fast):
+    """walk4: the four entry states' start masks over a thread's bytes b,
+    its exit state a state, and each walk's advances in 32 bits: in a warp
+    whose every byte is a 1-byte token inside the stream (fast), by the
+    byte sums (walk u starts at byte min(u, the first forced restart)),
+    else byte by byte."""
+    adv = [sum(_token(b[k:k + 4])) - 1 for k in range(_PER)]
+    if fast:
+        f = min(fb, default=_PER)
+        total = _PER + sum(x if x < 0x80 else x & 0x1F for x in b[:_PER])
+        a = [total]
+        for u in range(1, 4):
+            a.append(a[-1] - (adv[u - 1] if u - 1 < f else 0))
+        return ([0xFFFF & ~((1 << min(u, f)) - 1) for u in range(4)],
+                [0] * 4, a)
+    S = [0, 1, 2, 3]
+    sm = [0, 0, 0, 0]
+    for k in range(_PER):
+        inside = k in ins
+        b0 = b[k]
+        len1 = (0 if b0 < 0x80 else 1 if b0 < 0xC0 else 0 if b0 < 0xE0
+                else 3) if inside else 0
+        forced = inside and k in fb
+        z = [forced or S[u] == 0 for u in range(4)]
+        for u in range(4):
+            if inside and z[u]:
+                sm[u] |= 1 << k
+        S = [len1 if z[u] else S[u] - 1 for u in range(4)]
+    a = [sum(adv[k] for k in range(_PER) if sm[u] >> k & 1) & 0xFFFFFFFF
+         for u in range(4)]
+    return sm, S, a
+
+
+def _sum_of(adv, mask, bb):
+    """sum_of: the sums of the tokens starting at mask's bytes."""
+    if not bb:
+        return (bin(mask).count("1"),
+                sum(adv[k] for k in range(_PER) if mask >> k & 1),
+                0, False, False)
+    c, a, off, has, pend = _ch()
+    for k in range(_PER):
+        if k in bb:
+            pend = True
+        if mask >> k & 1:
+            if pend:
+                has, off, pend = True, a, False
+            a += adv[k]
+            c += 1
+    return (c, a, off, has, pend)
+
+
+def _excl(vals):
+    out, acc = [], _ch()
+    for v in vals:
+        out.append(acc)
+        acc = _combine(acc, v)
+    return out, acc
+
+
+def _kernel_model(entry, args, threads, seed=0, wave=None, info=None):
+    """The outputs of csrc/parse.cu's kernel on args: tiles of `threads`
+    threads of 16 bytes drawn in ticket order by a persistent wave of
+    blocks (`wave` of them, capped by the tiles the caller knows of; each
+    block holds its tile and the next ticket), every look-back's nearest
+    inclusive record drawn at random in the window, and every output
+    starting as garbage, as torch.empty may leave it. info, a dict if
+    given, gets the tickets each block drew ("taken") and each tile's head
+    (the threads whose entry state depends on the tile's, "heads")."""
     rng = random.Random(seed)
     buf = [int(x) for x in args[0].numpy()]
     m = len(buf)
@@ -277,6 +424,8 @@ def _kernel_model(entry, args, threads, seed=0):
         end = _wrap32(4 * nb + at)
         lo = 4 * nb
         hi = min(max(end, lo), m)
+        if lo > m:
+            lo = hi = m
     else:
         end, lo, hi = 0, 0, min(max(limit, 0), m)
     base = lo & ~15
@@ -297,69 +446,85 @@ def _kernel_model(entry, args, threads, seed=0):
             bnd[s] = l
     T = threads * _PER
     tiles = (hi - base + T - 1) // T if hi > base else 1
+    # the persistent wave: the tiles of the bytes the caller knows of, at
+    # most `wave` blocks; tickets in order, each to a block that is free
+    first_byte = (4 * nb) & ~15
+    known = min(limit, m) - first_byte
+    grid = max(1, min((known + T - 1) // T if known > 0 else 1,
+                      wave or 1 << 30))
+    taken, alive = [[] for _ in range(grid)], list(range(grid))
+    for t in range(tiles + grid):   # a block draws until it runs out
+        blk = t if t < grid else rng.choice(alive)
+        taken[blk].append(t)
+        if t >= tiles:
+            alive.remove(blk)
     byte = lambda i: buf[i % m] if i < m + 3 else 0  # noqa: E731
-    start = np.zeros(tok_cap, np.int32)
-    count = np.zeros(tok_cap, np.int32)
-    seg_off = np.zeros(nb + 1 if table else 0, np.int32)
+    start = np.full(tok_cap, _GARBAGE[0], np.int32)
+    count = np.full(tok_cap, _GARBAGE[0], np.int32)
+    seg_off = np.full(nb + 1 if table else 0, _GARBAGE[1], np.int32)
+    esc_pos = np.full(esc_cap, _GARBAGE[2], np.int32)
+    esc_char = np.full(esc_cap, _GARBAGE[3], np.uint8)
     # per tile: its function, its inclusive values, and its max word
     # (inclusive, and the aggregate a slow tile publishes first)
     aggs, incls, maxw = [], [], []
     init = _ch(has=True)
+    heads_seen = []
     for j in range(tiles):
         t0 = base + j * T
         fb = {q - t0 for q in fpos if 0 <= q - t0 < T}
         bb = {bnd[s] - t0 for s in bnd if 0 <= bnd[s] - t0 < T}
-        own, maps, masks = [], [], []
+        # 1. each thread's bytes, its four walks (a warp whose every byte
+        # is a 1-byte token inside the stream by the fast path)
+        th, pre_walk = [], []
         for t in range(threads):
-            S = [0, 1, 2, 3]
-            sm = [set(), set(), set(), set()]
-            for k in range(_PER):
-                q = _PER * t + k
-                i = t0 + q
-                ins = lo <= i < hi
-                b0 = byte(i)
-                len1 = (0 if b0 < 0x80 else 1 if b0 < 0xC0 else 0
-                        if b0 < 0xE0 else 3) if ins else 0
-                forced = ins and q in fb
-                z = [forced or S[u] == 0 for u in range(4)]
-                for u in range(4):
-                    if ins and z[u]:
-                        sm[u].add(k)
-                S = [len1 if z[u] else S[u] - 1 for u in range(4)]
-            sums = []
-            for u in range(4):
-                c, a, off, has, pend = _ch()
-                for k in range(_PER):
-                    if _PER * t + k in bb:
-                        pend = True
-                    if k in sm[u]:
-                        if pend:
-                            has, off, pend = True, a, False
-                        d, n = _token([byte(t0 + _PER * t + k + x)
-                                       for x in range(4)])
-                        a += d + n - 1
-                        c += 1
-                sums.append((c, a, off, has, pend))
-            own.append(sums)
-            maps.append(S)
-            masks.append(sm)
-        # the block's scans: thread t's entry state and sums before it, per
-        # tile entry state
-        pmap, ex = [], []
-        acc_map, acc = [0, 1, 2, 3], [_ch()] * 4
+            i0 = t0 + _PER * t
+            b = [byte(i0 + k) for k in range(_PER + 3)]
+            ins = {k for k in range(_PER) if lo <= i0 + k < hi}
+            pre_walk.append((b, ins, len(ins) == _PER and all(
+                _one_byte(x) for x in b[:_PER])))
+        lanes = min(_WARP, threads)
         for t in range(threads):
-            pmap.append(acc_map)
-            ex.append(acc)
-            acc = [_combine(acc[e], own[t][acc_map[e]]) for e in range(4)]
-            acc_map = [maps[t][acc_map[e]] for e in range(4)]
-        tile_fn = (acc_map, acc)
-        aggs.append(tile_fn)
-        # the look-back: the nearest inclusive record among the 32 tiles
-        # before (at a random depth), each newer tile's sums in its entry
-        # state folded in order
-        depth = rng.randint(1, min(32, j + 1))
+            b, ins, _one = pre_walk[t]
+            w0 = t - t % lanes
+            fast = all(one for _b, _i, one in pre_walk[w0:w0 + lanes])
+            tfb = {k for k in range(_PER) if _PER * t + k in fb}
+            tbb = {k for k in range(_PER) if _PER * t + k in bb}
+            sm, S, a = _walk4(b, ins, tfb, fast)
+            adv = [sum(_token(b[k:k + 4])) - 1 for k in range(_PER)]
+            th.append((sm, S, adv, tbb, tfb, a))
+        # 2. the maps across the block; the head (entry state still the
+        # tile's function), the rest in one channel
+        pmap, acc = [], [0, 1, 2, 3]
+        for sm, S, *_rest in th:
+            pmap.append(acc)
+            acc = [S[acc[e]] for e in range(4)]
+
+        def own(t, u):
+            """own_sum: the walk's sums, or (a forced restart or a bin
+            boundary among the bytes) sum_of's."""
+            sm, _S, adv, tbb, tfb, a = th[t]
+            if tbb or len(tfb) > 4:
+                return _sum_of(adv, sm[u], tbb)
+            return (bin(sm[u]).count("1"), a[u], 0, False, False)
+
+        tile_map = acc
+        resolved = [len(set(p)) == 1 for p in pmap]
+        heads = resolved.count(False)
+        assert not any(resolved[:heads]) and all(resolved[heads:])
+        heads_seen.append(heads)
+        one = [own(t, pmap[t][0]) if resolved[t] else _ch()
+               for t in range(threads)]
+        vt, vtot = _excl(one)
+        head = [_fold(own(t, pmap[t][e]) for t in range(heads))
+                for e in range(4)]
+        fn = [_combine(head[e], vtot) for e in range(4)]
+        aggs.append((tile_map, fn))
+        # 3. the look-back: the nearest inclusive record among the window's
+        # tiles before (at a random depth), each newer tile's sums in its
+        # entry state folded in order
+        depth = rng.randint(1, min(_WINDOW, j + 1))
         lanes = []
-        for l in range(32):
+        for l in range(_WINDOW):
             i = j - 1 - l
             if i < 0:
                 lanes.append(None)
@@ -367,33 +532,35 @@ def _kernel_model(entry, args, threads, seed=0):
                 shown = l == depth - 1 or (l >= depth and rng.random() < 0.5)
                 lanes.append((_agg_words(*aggs[i]),
                               _incl_words(*incls[i]) if shown else None))
-        x, pre = (0, init) if j == 0 else _warp_lookback(lanes, init)
-        tile_end = _combine(pre, acc[x])
-        incls.append((acc_map[x], tile_end))
-        slow = table and tile_end[1] >= 1 << 31
-        tok_base, tok_mask, tmaxes, curs = [], [], [], []
+        x, pre = (0, init) if j == 0 else _wide_lookback(lanes, init)
+        tile_end = _combine(pre, fn[x])
+        incls.append((tile_map[x], tile_end))
+        # 4. each thread's prefix in the true state: past the head, the
+        # head's sums and the rest's before it; in the head, the head's
+        # threads before it scanned again in the true state
+        hx, _ = _excl(own(t, pmap[t][x]) for t in range(heads))
+        curs = []
         for t in range(threads):
-            u = pmap[t][x]
-            cur = _combine(pre, ex[t][x])
-            curs.append((u, cur))
-            tok_base.append(cur[0])
-            tok_mask.append(masks[t][u])
-            if slow:
+            cur = (_combine(pre, _combine(head[x], vt[t])) if resolved[t]
+                   else _combine(pre, hx[t]))
+            curs.append((th[t][0][pmap[t][x]], cur))
+        slow = table and tile_end[1] >= 1 << 31
+        tok_base = [cur[0] for _m, cur in curs]
+        tmaxes = []
+        if slow:
+            for t, (mask, cur) in enumerate(curs):
                 c, a, off, has, pend = cur
                 tm = None
                 for k in range(_PER):
-                    if _PER * t + k in bb:
+                    if k in th[t][3]:
                         pend = True
-                    if k in masks[t][u]:
+                    if mask >> k & 1:
                         if pend:
                             w = _wrap32(a)
                             tm = w if tm is None else max(tm, w)
                             pend = False
-                        d, n = _token([byte(t0 + _PER * t + k + q)
-                                       for q in range(4)])
-                        a += d + n - 1
+                        a += th[t][2][k]
                 tmaxes.append(tm)
-        if slow:
             tot = max([v for v in tmaxes if v is not None], default=-2**31)
             # the running max before the tile: back to an inclusive word
             mp = -2**31
@@ -407,18 +574,16 @@ def _kernel_model(entry, args, threads, seed=0):
                     break
                 mp = max(mp, agg)
             maxw.append((max(mp, tot), tot))
-            run = mp
         elif table:
             maxw.append((_wrap32(tile_end[2]), None))
-        for t in range(threads):
-            u, cur = curs[t]
+        for t, (mask, cur) in enumerate(curs):
             c, a, off, has, pend = cur
             if slow:
                 run = max([mp] + [v for v in tmaxes[:t] if v is not None])
             for k in range(_PER):
-                if _PER * t + k in bb:
+                if k in th[t][3]:
                     pend = True
-                if k in masks[t][u]:
+                if mask >> k & 1:
                     if pend:
                         off, pend = a, False
                         if slow:
@@ -436,32 +601,49 @@ def _kernel_model(entry, args, threads, seed=0):
             tok = None
             if 0 <= q < T:
                 t, bit = divmod(q, _PER)
-                tok = tok_base[t] + sum(1 for k in tok_mask[t] if k < bit)
+                tok = tok_base[t] + bin(curs[t][0] & ((1 << bit) - 1)).count(
+                    "1")
             elif q >= T and j == tiles - 1:
                 tok = tile_end[0]
             if tok is not None:
                 seg_off[s] = min(tok, tok_cap)
         if table and nb > 0 and j == tiles - 1:
             seg_off[nb] = min(tile_end[0], tok_cap)
+    # each block, its tickets done: its share of what no tile writes
+    total = incls[-1][1][0]
+    reach = min(hi - lo, tok_cap)
+    for blk in range(grid):
+        if table and blk == 0:
+            for s in range(max(nb, 1)):
+                if s == 0 or bnd[s] < base:
+                    seg_off[s] = 0
+        for e0 in range(blk * threads, max(esc_cap, tok_cap),
+                        grid * threads):
+            for e in range(e0, e0 + threads):
+                if e < esc_cap:
+                    rec = _wrap32(end + 5 * e)
+                    pos, ch = -1, 0
+                    if _wrap32(rec + 4) < limit:
+                        r = min(rec, m - 5)
+                        w = r + m + 3 if r < 0 else r
+                        r4 = min(r + 4, m - 1)
+                        r4 = r4 + m if r4 < 0 else r4
+                        we = 0
+                        if 0 <= w < m:
+                            we = sum(byte(w + k) << (8 * k) for k in range(4))
+                        top = buf[r4] if 0 <= r4 < m else 0
+                        ch = we & 0xFF
+                        pos = _wrap32(((we >> 8) & 0xFFFFFF) | top << 24)
+                    esc_pos[e], esc_char[e] = pos, ch
+                if reach + e < tok_cap:
+                    start[reach + e] = count[reach + e] = 0
+                if min(total, tok_cap) + e < reach:
+                    start[min(total, tok_cap) + e] = 0
+                    count[min(total, tok_cap) + e] = 0
+    if info is not None:
+        info.update(taken=taken, heads=heads_seen)
     if not table:
         return start, count
-    esc_pos = np.zeros(esc_cap, np.int32)
-    esc_char = np.zeros(esc_cap, np.uint8)
-    for e in range(esc_cap):
-        rec = _wrap32(end + 5 * e)
-        pos, ch = -1, 0
-        if _wrap32(rec + 4) < limit:
-            r = min(rec, m - 5)
-            w = r + m + 3 if r < 0 else r
-            r4 = min(r + 4, m - 1)
-            r4 = r4 + m if r4 < 0 else r4
-            we = 0
-            if 0 <= w < m:
-                we = sum(byte(w + k) << (8 * k) for k in range(4))
-            top = buf[r4] if 0 <= r4 < m else 0
-            ch = we & 0xFF
-            pos = _wrap32(((we >> 8) & 0xFFFFFF) | top << 24)
-        esc_pos[e], esc_char[e] = pos, ch
     return start, count, seg_off, esc_pos, esc_char
 
 

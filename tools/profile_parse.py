@@ -8,51 +8,91 @@ repaq_tpu_torch.cli.main (chip_smoke.chunk_calls, pe_chunk_calls).
 
 For each call: the wrapper's CUDA-event time (chip_smoke.cuda_ms: median
 of 15, the L2 flushed) and its device operations' mean time under
-torch.profiler over 20 calls (the zero fill and the parse kernel apart).
-With ``--tree`` each DIR's package (an earlier design, or a copy of this
-tree with parse.cu edited) is built by that tree's own ops/_build.py into
-its own _build/ and bound by it, held exact against the plain version
-(every output) and timed in turns with this tree's build (A B ... B A),
-each launched as the wrapper launches it (kernels._parse_launch). Every
-time is printed beside the card's name and power limit. The last line of
-output is one JSON object.
+torch.profiler over 20 calls (the status memset or zero fill and the
+parse kernel apart). With ``--tree`` each DIR's package (an earlier
+design, or a copy of this tree with parse.cu edited) is imported under a
+name of its own, so that its ops/_build.py builds its sources into its own
+_build/, held exact against the plain version (every output) and timed in
+turns with this tree's build (A B ... B A), each launched through its own
+tree's kernels._parse_launch. Every build's parse kernel is also compiled
+alone with ``nvcc -Xptxas -v``: its registers, spills and shared memory,
+and the blocks an SM those allow. Every time is printed beside the card's
+name and power limit. The last line of output is one JSON object.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import os
+import re
+import subprocess
 import sys
+import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def tree_library(tree: str):
-    """The kernel library of another checkout, built and bound by its own
-    repaq_tpu_torch/ops/_build.py."""
-    path = os.path.join(os.path.abspath(tree), "repaq_tpu_torch", "ops",
-                        "_build.py")
+def tree_kernels(tree: str):
+    """Another checkout's ops.kernels, its package imported under a name
+    of its own (its _build.py then builds that tree's sources)."""
+    pkg = os.path.join(os.path.abspath(tree), "repaq_tpu_torch")
+    name = "_parse_tree_%d" % len(sys.modules)
     spec = importlib.util.spec_from_file_location(
-        "_build_of_%d" % abs(hash(path)), path)
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return mod.library()
+    return importlib.import_module(name + ".ops.kernels")
 
 
-def launcher(lib, entry: str, args):
-    """A function of no arguments that runs entry on args as its wrapper
-    does (one zero fill, one launch), with lib's build."""
-    from repaq_tpu_torch.ops import kernels as TK
+def ptxas_info(tree: str) -> dict:
+    """The parse kernel's registers, spill bytes and shared memory as
+    ``nvcc -Xptxas -v`` reports them for tree's parse.cu (the package's
+    build flags), and the blocks of 256 threads an H100 SM holds by them
+    (65,536 registers in units of 8 a thread, 228 KB of shared memory with
+    1 KB kept a block, 2,048 threads)."""
+    from repaq_tpu_torch.ops import _build
 
+    src = os.path.join(os.path.abspath(tree), "repaq_tpu_torch", "csrc",
+                       "parse.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas",
+                            "-v", "-c", src, "-o",
+                            os.path.join(tmp, "parse.o")],
+                           capture_output=True, text=True)
+    out = r.stdout + r.stderr
+    lines = out.splitlines()
+    at = next(i for i, ln in enumerate(lines)
+              if "Compiling entry function" in ln and "parse_kernel" in ln)
+    text = "\n".join(lines[at:at + 4])
+    info = {
+        "registers": int(re.search(r"Used (\d+) registers", text).group(1)),
+        "spill_stores": int(re.search(r"(\d+) bytes spill stores",
+                                      text).group(1)),
+        "spill_loads": int(re.search(r"(\d+) bytes spill loads",
+                                     text).group(1)),
+        "smem": int(re.search(r"(\d+) bytes smem", text).group(1)),
+    }
+    regs = -(-info["registers"] // 8) * 8
+    info["blocks_per_sm"] = min(65536 // (regs * 256),
+                                (228 * 1024) // (info["smem"] + 1024),
+                                2048 // 256)
+    return info
+
+
+def launcher(mod, entry: str, args):
+    """A function of no arguments that runs entry on args as mod's
+    wrapper does (mod._parse_launch of its tree)."""
     if entry == "qualcol_parse":
         buf, qual_len, nbins, tok_cap, esc_cap = args
-        return lambda: TK._parse_launch(entry, buf, nbins, qual_len, tok_cap,
-                                        esc_cap, lib=lib)
+        return lambda: mod._parse_launch(entry, buf, nbins, qual_len,
+                                         tok_cap, esc_cap)
     buf, valid_len, cap = args
-    return lambda: TK._parse_launch(entry, buf, -1, valid_len, cap, 0,
-                                    lib=lib)[:2]
+    return lambda: mod._parse_launch(entry, buf, -1, valid_len, cap, 0)[:2]
 
 
 def kernel_split(run, calls: int = 20) -> dict:
@@ -88,19 +128,29 @@ def main() -> int:
         print("profile_parse: torch sees no CUDA device")
         return 2
     import chip_smoke as cs
-    from repaq_tpu_torch.ops import _build
     from repaq_tpu_torch.ops import kernels as TK
 
     dev = torch.device("cuda:0")
     card = cs.card_line()
-    libs = {"this tree": _build.library()}
+    mods = {"this tree": TK}
+    trees = {"this tree": ROOT}
     for tree in args.tree:
-        libs[os.path.basename(os.path.normpath(tree))] = tree_library(tree)
-    print("tiles of stream bytes: %s" % ", ".join(
-        "%s %d" % (name, lib.repaq_parse_tile())
-        for name, lib in libs.items()))
+        label = os.path.basename(os.path.normpath(tree))
+        mods[label], trees[label] = tree_kernels(tree), tree
+    res = {"card": card, "builds": {}}
+    for label, mod in mods.items():
+        info = ptxas_info(trees[label])
+        info["tile"] = int(mod._build.library().repaq_parse_tile())
+        res["builds"][label] = info
+        print("%s: parse_kernel %d registers, %d / %d bytes spilled "
+              "(stores / loads), %d bytes of shared memory, %d blocks an SM "
+              "by them, tiles of %d stream bytes" % (
+                  label, info["registers"], info["spill_stores"],
+                  info["spill_loads"], info["smem"], info["blocks_per_sm"],
+                  info["tile"]), flush=True)
+    print("this tree's persistent wave: %d blocks (the runtime's occupancy "
+          "times the SMs)" % TK.parse_wave())
     se, pe = cs.chunk_calls(dev), cs.pe_chunk_calls(dev)
-    res = {"card": card}
     for entry in ("qualcol_parse", "positions_parse"):
         for tag, call in (("SE", se[entry][0]), ("PE", pe[entry])):
             label = "%s %s (%d stream bytes of %d)" % (
@@ -112,15 +162,17 @@ def main() -> int:
                   % (label, row["ms"], "; ".join(
                       "%s %.2f" % kv for kv in row["kernels_us"].items()),
                      card), flush=True)
-            if len(libs) == 1:
+            if len(mods) == 1:
                 continue
             want = cs.parse_plain(entry)(*call)
-            runs = {name: launcher(lib, entry, call)
-                    for name, lib in libs.items()}
+            runs = {name: launcher(mod, entry, call)
+                    for name, mod in mods.items()}
             for name, run in runs.items():
                 if not all(torch.equal(g, w) for g, w in zip(run(), want)):
                     raise RuntimeError("%s's build differs from the plain "
                                        "version at %s" % (name, label))
+                row.setdefault("trees_kernels_us", {})[name] = kernel_split(
+                    run)
             turns = {name: [] for name in runs}
             for name in list(runs) + list(runs)[::-1]:
                 turns[name].append(cs.cuda_ms(runs[name]))
@@ -128,6 +180,11 @@ def main() -> int:
             print("%s in turns: %s; on %s" % (label, "; ".join(
                 "%s %s ms" % (n, ", ".join("%.4f" % t for t in ts))
                 for n, ts in turns.items()), card), flush=True)
+            print("%s device operations by build (mean us a call): %s" % (
+                label, "; ".join("%s: %s" % (n, ", ".join(
+                    "%s %.2f" % kv for kv in us.items()))
+                    for n, us in row["trees_kernels_us"].items())),
+                flush=True)
     print(json.dumps(res))
     return 0
 
