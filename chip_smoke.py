@@ -115,9 +115,13 @@ Phases, each of which must pass:
      (runs and bin ends either side of a tile edge, runs over 2 and 3
      tiles, 4-byte gaps and escapes at an edge, one element, empty bins,
      124 bins, caps at and below the count, an output shorter than the
-     stream, gaps of 2^29, 1,100 tiles), one launch each, then at one real
-     SE and one real PE chunk's calls recorded through cli.main, each
-     exact, its device operations a call counted in a CUDA graph capture,
+     stream, gaps of 2^29, whole tiles of fill past the kept elements, the
+     kept ones ending at a tile edge, none kept, ~2,300 tiles: more than
+     two turns of the kernel's persistent wave), one launch each, then at
+     one real SE and one real PE chunk's calls recorded through cli.main,
+     each exact, its device operations a call counted in a CUDA graph
+     capture (one memset of the status words and the length table, one
+     kernel),
      timed beside its bound and, in turns, beside the parent's torch
      composition (its plain version on the card). The decode's gap/run
      parse (qualcol_parse, positions_parse) on every PARSE_CASES,
@@ -2260,16 +2264,21 @@ def compact_kernel_phase(dev) -> dict:
 # chunk; gaps of 2^29. The N stream's: one position, a run across an edge
 # and over 3 tiles, 4-byte gaps at the edge, the gap sizes, fill past the
 # positions, a cap at the count, an output shorter than the stream and
-# gaps of 2^29. EMIT_WAVE: 1,100 tiles (more than one wave of blocks).
+# gaps of 2^29. Both streams: a cap leaving 3 whole tiles of fill and more
+# past the kept elements, the kept elements ending at a tile edge, none
+# kept. EMIT_WAVE: ~1,230 tiles of the quality stream and 2,300 of the N
+# stream (more than two turns of the kernel's persistent wave of blocks).
 EMIT_CASES = ("single", "runs", "gaps", "run_across_edge",
               "run_token_at_edge", "run_ends_at_edge", "run_2_tiles",
               "run_3_tiles", "bin_edge_m1", "bin_edge_0", "bin_edge_p1",
               "gap4_edge", "esc_edge", "empty_bins", "many_bins",
               "cap_exact", "cap_cut", "out_below_total", "esc_cap0",
-              "seeded", "gap_2_29")
+              "seeded", "gap_2_29", "fill_tiles", "kept_at_edge",
+              "none_kept")
 POS_CASES = ("pos_single", "pos_run_edge", "pos_run_3_tiles",
              "pos_gap4_edge", "pos_gaps", "pos_fill", "pos_exact",
-             "pos_out_below_total", "pos_2_29")
+             "pos_out_below_total", "pos_2_29", "pos_fill_tiles",
+             "pos_kept_at_edge", "pos_none")
 EMIT_WAVE = ("wave", "pos_wave")
 EMIT_MAJOR, EMIT_ESC = 70, 99
 
@@ -2340,6 +2349,14 @@ def _emit_spec(name: str, tile: int):
                             _gaps(4, 7), {"out_size": "total-37"}),
         "esc_cap0": ([rng.integers(1, 5, T + 300), _run(90)], None,
                      {"esc_cap": 0}),
+        # kept: T + 300 + 91 + 7 elements, then 4 T + 77 of fill (3 whole
+        # tiles of it)
+        "fill_tiles": ([rng.integers(1, 5, T + 300), _run(90)], _gaps(4, 7),
+                       {"nm_cap": "count+4T+77", "pad": 6 * T}),
+        # kept: 2 T - 105 + 100 + 5 elements, then 2 tiles of fill
+        "kept_at_edge": ([rng.integers(1, 4, 2 * T - 105), _run(99)],
+                         _gaps(3, 5), {"nm_cap": "count+2T", "pad": 3 * T}),
+        "none_kept": ([[], [], []], None, {"nm_cap": 3 * T, "pad": 4 * T}),
         "seeded": None,
         "gap_2_29": None,
     }[name]
@@ -2374,7 +2391,7 @@ def emit_quality_case(name: str, tile: int) -> dict:
     from repaq_tpu_torch.codec.device_engine import _bucket
 
     if name == "seeded" or name == "wave":
-        n = 40_000 if name == "seeded" else 16_000_000
+        n = 40_000 if name == "seeded" else 36_000_000
         rng = np.random.default_rng(2207)
         quals = np.frombuffer(NOVA_QUALS, np.uint8)
         qual = quals[rng.choice(4, size=n, p=NOVA_P)]
@@ -2383,7 +2400,7 @@ def emit_quality_case(name: str, tile: int) -> dict:
         spec = {}
     else:
         bins, esc, spec = _emit_spec(name, tile)
-        qual, table = _emit_qual(bins, esc)
+        qual, table = _emit_qual(bins, esc, spec.get("pad", 64))
     nbins = table.shape[0]
     lut = np.full(256, nbins, np.uint8)
     lut[table] = np.arange(nbins, dtype=np.uint8)
@@ -2392,8 +2409,9 @@ def emit_quality_case(name: str, tile: int) -> dict:
     nonmajor = int((bid != nbins + 1).sum())
     n_esc = int((bid == nbins).sum())
     nm_cap = spec.get("nm_cap", _bucket(nonmajor))
-    nm_cap = {"count": nonmajor, "count-100": nonmajor - 100}.get(nm_cap,
-                                                                 nm_cap)
+    nm_cap = {"count": nonmajor, "count-100": nonmajor - 100,
+              "count+4T+77": nonmajor + 4 * tile + 77,
+              "count+2T": nonmajor + 2 * tile}.get(nm_cap, nm_cap)
     esc_cap = spec.get("esc_cap", 0 if n_esc == 0 else _bucket(n_esc, lo=8))
     n = qual.shape[0]
     meta = bid | ((np.arange(n) % 97 == 0).astype(np.uint8) << 7)
@@ -2424,11 +2442,17 @@ def emit_pos_case(name: str, tile: int) -> dict:
         "pos_exact": (rng.integers(1, 6, 2 * T + 11), {}),
         "pos_out_below_total": (rng.integers(1, 300, 2 * T), {
             "out_size": "total-3"}),
-        "pos_wave": (rng.integers(1, 8, 1100 * T), {}),
+        # kept: T + 77, then 4 T + 50 of fill (3 whole tiles of it)
+        "pos_fill_tiles": (rng.integers(1, 6, T + 77), {
+            "pos_cap": 5 * T + 127, "pad": 5 * T + 200}),
+        "pos_kept_at_edge": (rng.integers(1, 6, 2 * T), {
+            "pos_cap": 4 * T, "pad": 4 * T}),
+        "pos_none": (_emit_deltas([]), {"pos_cap": 3 * T, "pad": 3 * T + 50}),
+        "pos_wave": (rng.integers(1, 8, 2300 * T), {}),
     }[name]
     deltas, over = spec
     pos = np.cumsum(deltas) - 1
-    n = int(pos[-1]) + 1 + 50
+    n = (int(pos[-1]) + 1 if pos.shape[0] else 0) + over.get("pad", 50)
     mask = np.zeros(n, bool)
     mask[pos] = True
     return {"mask": mask, "pos_cap": over.get("pos_cap", pos.shape[0]),
@@ -2475,6 +2499,15 @@ def emit_args(name: str, tile: int, dev="cpu") -> tuple:
         a[-1] = int(emit_plain(entry)(*a)[1]) - below
     return entry, [x.to(dev) if isinstance(x, torch.Tensor) else x
                    for x in a]
+
+
+def emit_case_tile(name: str) -> int:
+    """The built kernel's tile for a case's entry: the N stream's for the
+    POS_CASES, the quality stream's for the rest."""
+    from repaq_tpu_torch.ops import kernels as TK
+
+    return TK.emit_tile("positions_emit" if name.startswith("pos_")
+                        else "qualcol_emit")
 
 
 def emit_plain(entry: str):
@@ -2583,9 +2616,8 @@ def emit_edge_cases(dev) -> int:
 
     from repaq_tpu_torch.ops import kernels as TK
 
-    tile = TK.emit_tile()
     for name in EMIT_CASES + POS_CASES + EMIT_WAVE:
-        entry, args = emit_args(name, tile, dev)
+        entry, args = emit_args(name, emit_case_tile(name), dev)
         before = TK.launches[entry]
         out, total = getattr(TK, entry)(*args)
         check(TK.launches[entry] == before + 1, "%s launched %d times on %s"
@@ -2603,23 +2635,27 @@ def emit_kernel_phase(dev) -> dict:
     real SE and one real PE chunk's calls recorded through cli.main
     (chunk_calls, pe_chunk_calls): exact against their plain versions,
     timed beside their bound (emit_moved), their device operations a call
-    counted in a CUDA graph capture (at most 3), and timed in turns beside
+    counted in a CUDA graph capture (one memset of the status words and
+    the length table, one kernel), and timed in turns beside
     the parent's torch composition (the plain version on the card, which
     is the code the parent ran): parent, kernel, kernel, parent."""
     from repaq_tpu_torch.ops import kernels as TK
 
     log("kernels qualcol_emit and positions_emit exact on %d edge cases "
         "(EMIT_CASES, POS_CASES and EMIT_WAVE at tiles of %d grouped "
-        "elements), one launch each" % (emit_edge_cases(dev),
-                                         TK.emit_tile()))
+        "elements for the quality stream, %d for the N stream), one launch "
+        "each" % (emit_edge_cases(dev), TK.emit_tile("qualcol_emit"),
+                  TK.emit_tile("positions_emit")))
     res = {}
     se, pe = chunk_calls(dev), pe_chunk_calls(dev)
     for entry in ("qualcol_emit", "positions_emit"):
         for tag, args in (("SE", se[entry][0]), ("PE", pe[entry])):
             args = list(args)
             ops = TK.captured_ops(lambda: getattr(TK, entry)(*args))
-            check(1 <= len(ops) <= 3, "%s ran %d device operations a call "
-                  "at the %s chunk's call: %s" % (entry, len(ops), tag, ops))
+            check(len(ops) == 2 and sum("emit" in op for op in ops) == 1
+                  and any(op.startswith("memset ") for op in ops),
+                  "%s ran %s a call at the %s chunk's call, not one memset "
+                  "and one kernel" % (entry, ops, tag))
             label = "%s chunk's call: %d grouped, out %d bytes" % (
                 tag, args[0].shape[0], args[-1])
 

@@ -188,12 +188,14 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.repaq_bucket_compact_mask_switch.argtypes = []
     lib.repaq_bucket_compact_mask_switch.restype = ll
     lib.repaq_emit_tokens.argtypes = [vp, ll, vp, ci, vp, ll, ll, ll, vp, ll,
-                                      vp, vp, vp]
+                                      vp, vp]
     lib.repaq_emit_tokens.restype = ci
-    lib.repaq_emit_status_words.argtypes = [ll]
+    lib.repaq_emit_status_words.argtypes = [ll, ci]
     lib.repaq_emit_status_words.restype = ll
-    lib.repaq_emit_tile.argtypes = []
+    lib.repaq_emit_tile.argtypes = [ci]
     lib.repaq_emit_tile.restype = ll
+    lib.repaq_emit_wave.argtypes = [ci]
+    lib.repaq_emit_wave.restype = ll
     lib.repaq_parse_tokens.argtypes = [vp, ll, ci, ll, ll, ll, vp, vp, vp, vp,
                                        vp, vp, ll, vp]
     lib.repaq_parse_tokens.restype = ci

@@ -1212,11 +1212,12 @@ def bucket_compact(bucket: torch.Tensor, nbuckets: int, cap: int, fill: int,
 _EMIT_MAX_BINS = 124  # qualcol's B < 125
 
 
-def emit_tile() -> int:
-    """Grouped elements per tile of the emission kernel, as the built
+def emit_tile(entry: str) -> int:
+    """Grouped elements per tile of the emission kernel for an entry (the
+    quality stream's tiles are longer than the N stream's), as the built
     library reports it; the card tests and chip_smoke.py place edge cases
     by it."""
-    return int(_build.library().repaq_emit_tile())
+    return int(_build.library().repaq_emit_tile(int(entry == "qualcol_emit")))
 
 
 # The emission's plain versions are the torch composition the kernels
@@ -1248,28 +1249,36 @@ def _check_emit(g_pos: torch.Tensor, out_size: int, table: int) -> None:
 
 
 def _emit_launch(name: str, g_pos: torch.Tensor, bin_counts, nbins: int,
-                 qual, limit: int, esc_cap: int, out_size: int, lib=None):
-    """(out, total) from one zero fill and one launch: the kernel's status
-    words and out are one buffer (out a 16-byte aligned view of its
-    tail), so the fill clears both. lib: the package's build unless
-    another is given (a profiler's build of another tree)."""
+                 qual, limit: int, esc_cap: int, out_size: int):
+    """(out, total) from one memset and one launch: the kernel's status
+    words and out are one torch.empty buffer (out a 16-byte aligned view of
+    its tail); the library clears the status words and the length table
+    alone, and the kernel writes every other byte of out."""
     dev = g_pos.device
     m = g_pos.shape[0]
-    lib = lib or _build.library()
+    lib = _build.library()
     g_pos = _aligned(g_pos)
-    head = 8 * lib.repaq_emit_status_words(m)  # a multiple of 16
-    buf = torch.zeros(head + out_size, dtype=torch.uint8, device=dev)
-    status, out = buf[:head], buf[head:]
+    head = 8 * lib.repaq_emit_status_words(m, int(bin_counts is not None))
+    buf = torch.empty(head + out_size, dtype=torch.uint8, device=dev)
     total = torch.empty((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = _stream(dev)
         _launch(name, lib.repaq_emit_tokens, g_pos.data_ptr(), m,
                 None if bin_counts is None else bin_counts.data_ptr(), nbins,
                 None if qual is None else qual.data_ptr(),
                 0 if qual is None else qual.shape[0], limit, esc_cap,
-                out.data_ptr(), out_size, total.data_ptr(),
-                status.data_ptr(), stream)
-    return out, total
+                buf.data_ptr(), out_size, total.data_ptr(), _stream(dev))
+    return buf[head:], total
+
+
+def emit_wave(entry: str) -> int:
+    """Blocks of the emission kernel's persistent wave for an entry on the
+    current device (its SMs times the blocks an SM holds): a call of more
+    tiles makes blocks take several tickets."""
+    n = int(_build.library().repaq_emit_wave(int(entry == "qualcol_emit")))
+    if n < 1:
+        raise RuntimeError("asking the emission kernel's wave failed: error %d"
+                           % -n)
+    return n
 
 
 def qualcol_emit(g_pos: torch.Tensor, bin_counts: torch.Tensor,
@@ -1281,12 +1290,12 @@ def qualcol_emit(g_pos: torch.Tensor, bin_counts: torch.Tensor,
     bucket's full count; qual (n,) u8, read at the escapes. Writes the u32le
     length table, each bin's gap/run tokens and the escape records (char,
     u32le position; the char for the first esc_cap escapes, none of a
-    record with esc_cap 0) into a zeroed (out_size,) u8 buffer, dropping
-    bytes at offsets >= out_size. Returns (out, total), total an int32
-    tensor counting every byte. Exactly
+    record with esc_cap 0) into an (out_size,) u8 buffer, zero past them,
+    dropping bytes at offsets >= out_size. Returns (out, total), total an
+    int32 tensor counting every byte. Exactly
     ``device_streams.qualcol_emit_plain`` while the caps the engine gives
-    hold (esc_cap at least the escapes). One memset and one launch, no
-    host sync."""
+    hold (esc_cap at least the escapes). One memset (the status words and
+    the length table) and one launch, no host sync."""
     _check_emit(g_pos, out_size, 4 * nbins)
     if not 0 <= nbins <= _EMIT_MAX_BINS:
         raise ValueError("nbins must be in 0..%d, got %d"
@@ -1308,11 +1317,13 @@ def qualcol_emit(g_pos: torch.Tensor, bin_counts: torch.Tensor,
 def positions_emit(g_pos: torch.Tensor, n: int, out_size: int):
     """The N-position stream (reference rfqcodec.cpp:625-710) of the
     ascending (pos_cap,) int32 positions g_pos, those below n one segment
-    (n: the fill): their gap/run tokens in a zeroed (out_size,) u8 buffer,
-    bytes at offsets >= out_size dropped. Returns (out, total), total an
-    int32 tensor counting every byte; exactly
-    ``device_streams.positions_emit_plain``. One memset and one launch, no
-    host sync."""
+    (n: the fill, after them): their gap/run tokens in an (out_size,) u8
+    buffer, zero past them, bytes at offsets >= out_size dropped. Returns
+    (out, total), total an int32 tensor counting every byte; exactly
+    ``device_streams.positions_emit_plain`` for such g_pos (the kernel
+    takes the positions before the first tile of its grid that starts at n
+    or more). One memset (the status words) and one launch, no host
+    sync."""
     _check_emit(g_pos, out_size, 0)
     if not 0 <= n < 2**31:
         raise ValueError("n must be an int32, got %d" % n)

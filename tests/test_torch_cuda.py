@@ -44,7 +44,7 @@ from chip_smoke import (COMPACT_CALLS, COMPACT_CAPS, COMPACT_CASES,
                         rans_case, rans_case_inputs, rans_shape_data,
                         run_case, seg_case)
 from chip_smoke import (EMIT_CASES, EMIT_WAVE, POS_CASES, emit_args,
-                        emit_plain, emit_ref)
+                        emit_case_tile, emit_plain, emit_ref)
 from chip_smoke import (PARSE_CASES, PARSE_POS_CASES, PARSE_WAVE,
                         parent_parse, parse_args, parse_plain, parse_ref)
 from chip_smoke import (COORDS_CASES, STATS_CASES, coord_values, coords_args,
@@ -1216,10 +1216,12 @@ def test_emit_kernels_at_tile_edges(cuda, name):
     """Each emission case placed by the built tile (runs and bin ends on
     either side of a tile edge, runs over 2 and 3 tiles, 4-byte gaps and
     escapes at an edge, one element, caps at and below the count, an
-    output shorter than the stream, 1,100 tiles): one launch, the whole
+    output shorter than the stream, whole tiles of fill past the kept
+    elements, the kept ones ending at a tile edge, none kept, ~2,300
+    tiles): one launch, the whole
     buffer and the total equal to the plain version's and, below 50,000
     elements, to chip_smoke.emit_ref's numpy loop."""
-    entry, args = emit_args(name, TK.emit_tile(), cuda)
+    entry, args = emit_args(name, emit_case_tile(name), cuda)
     before = TK.launches[entry]
     out, total = getattr(TK, entry)(*args)
     assert TK.launches[entry] == before + 1
@@ -1232,15 +1234,71 @@ def test_emit_kernels_at_tile_edges(cuda, name):
         assert np.array_equal(out.cpu().numpy(), rout)
 
 
+def _emit_head(entry, args):
+    """Bytes the status words and the length table take in front of the
+    stream: what the one memset of a call clears."""
+    lib = TK._build.library()
+    quality = entry == "qualcol_emit"
+    return (8 * lib.repaq_emit_status_words(args[0].shape[0], int(quality)),
+            4 * args[3] if quality else 0)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["run_3_tiles", "esc_edge", "pos_run_3_tiles"])
+@pytest.mark.parametrize("name", ["run_3_tiles", "esc_edge", "pos_run_3_tiles",
+                                  "fill_tiles", "none_kept", "pos_none"])
 def test_emit_device_operations_a_call(cuda, name):
-    """A call in a CUDA graph capture: at most 3 device operations (the
-    output's zero fill and the emission kernel), one of them the kernel."""
-    entry, args = emit_args(name, TK.emit_tile(), cuda)
+    """A call in a CUDA graph capture: exactly two device operations, one
+    memset of the status words and the length table (no byte of the stream
+    or past it) and the emission kernel, which writes the rest."""
+    entry, args = emit_args(name, emit_case_tile(name), cuda)
     ops = TK.captured_ops(lambda: getattr(TK, entry)(*args))
-    assert 1 <= len(ops) <= 3, ops
-    assert sum("emit" in op for op in ops) == 1, ops
+    assert len(ops) == 2 and sum("emit" in op for op in ops) == 1, ops
+    memset = [op for op in ops if "emit" not in op][0]
+    assert memset == "memset %d" % sum(_emit_head(entry, args)), ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["runs", "esc_edge", "fill_tiles",
+                                  "kept_at_edge", "none_kept",
+                                  "out_below_total", "pos_fill_tiles",
+                                  "pos_kept_at_edge", "pos_none",
+                                  "pos_out_below_total"])
+def test_emit_outputs_over_stale_memory(cuda, name):
+    """The memory the output will get filled with 0xFF first (the caching
+    allocator hands the freed block back), then two calls back to back:
+    the whole buffer and the total exact each time, as the kernel writes
+    every byte past the length table itself."""
+    entry, args = emit_args(name, emit_case_tile(name), cuda)
+    want_out, want_total = emit_plain(entry)(*args)
+    status, _table = _emit_head(entry, args)
+    torch.cuda.synchronize()
+    junk = torch.full((status + args[-1],), 0xFF, dtype=torch.uint8,
+                      device=cuda)
+    at = junk.data_ptr()
+    del junk
+    out, total = getattr(TK, entry)(*args)
+    assert out.data_ptr() == at + status   # the stale block, reused
+    assert int(total) == int(want_total) and torch.equal(out, want_out)
+    again, total2 = getattr(TK, entry)(*args)
+    assert int(total2) == int(want_total) and torch.equal(again, want_out)
+    assert torch.equal(out, want_out)
+
+
+@pytest.mark.cuda
+def test_emit_wave_takes_several_tickets(cuda):
+    """EMIT_WAVE's calls hold more than two turns of the kernel's
+    persistent wave (kernels.emit_wave) in kept tiles, so its blocks draw
+    several tickets; both entries exact there."""
+    for name in EMIT_WAVE:
+        tile = emit_case_tile(name)
+        entry, args = emit_args(name, tile, cuda)
+        g = args[0]
+        kept = (min(g.shape[0], int(args[1].sum()))
+                if entry == "qualcol_emit" else int((g < args[1]).sum()))
+        assert -(-kept // tile) > 2 * TK.emit_wave(entry), (name, kept)
+        out, total = getattr(TK, entry)(*args)
+        want_out, want_total = emit_plain(entry)(*args)
+        assert int(total) == int(want_total) and torch.equal(out, want_out)
 
 
 @pytest.mark.cuda
@@ -1261,11 +1319,11 @@ def test_emit_at_real_chunk_calls(cuda, entry, tag):
 @pytest.mark.cuda
 def test_emit_calls_from_threads(cuda):
     """Calls from 8 threads on one stream, 5 each, every one exact: each
-    call's status words are zeroed with its own output, so no call sees
-    another's."""
+    call's status words are cleared in its own buffer, in front of its
+    output, so no call sees another's."""
     import threading
 
-    cases = [emit_args(name, TK.emit_tile(), cuda)
+    cases = [emit_args(name, emit_case_tile(name), cuda)
              for name in ("run_2_tiles", "empty_bins", "pos_exact")]
     want = [emit_plain(e)(*a) for e, a in cases]
     errors = []
